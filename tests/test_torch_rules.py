@@ -1,0 +1,107 @@
+"""Rules of the port: it stands alone, runs on CUDA by default, never falls
+back quietly.
+
+* no file of ``src/repro_torch/`` nor ``chip_smoke.py`` imports ``jax`` or
+  the JAX package ``repro``;
+* every ``repro_torch`` module imports with ``jax`` and ``repro`` blocked;
+* the entry points raise without CUDA unless a device is given;
+* ``use_kernel="cuda"`` on a CPU tensor raises, and the public heat step
+  holds no ``try`` around the kernel launch.
+"""
+
+from __future__ import annotations
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "src" / "repro_torch"
+sys.path.insert(0, str(ROOT / "src"))
+
+from repro_torch.apps import Heat3D  # noqa: E402
+from repro_torch.core import init_global_grid  # noqa: E402
+from repro_torch.kernels.stencil3d import heat_step, ops  # noqa: E402
+
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _port_files():
+    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _modules():
+    return sorted(".".join(p.relative_to(ROOT / "src").with_suffix("").parts).removesuffix(
+        ".__init__") for p in PKG.rglob("*.py"))
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_import(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for n in names:
+            assert n.split(".")[0] not in FORBIDDEN, f"{path}:{node.lineno} imports {n}"
+
+
+def test_every_module_imports_with_jax_blocked():
+    code = ("import importlib, sys\n"
+            "for name in ('jax', 'jaxlib', 'repro'):\n"
+            "    sys.modules[name] = None\n"
+            f"for m in {_modules()!r}:\n"
+            "    importlib.import_module(m)\n"
+            "print('imported', len(sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=300, env=env, cwd=str(ROOT))
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert len(_modules()) >= 15
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_global_grid(8, 8, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Heat3D()
+    # an explicit CPU device is the only way to run on the CPU
+    assert init_global_grid(8, 8, 8, device="cpu").device.type == "cpu"
+    assert Heat3D(device="cpu").grid.device.type == "cpu"
+
+
+def test_cuda_mode_on_cpu_tensor_raises():
+    T = torch.zeros(6, 6, 6)
+    with pytest.raises(ValueError, match="CUDA"):
+        heat_step(T, T, 1.0, 0.1, 1.0, 1.0, 1.0, use_kernel="cuda")
+    app = Heat3D(nx=8, ny=8, nz=8, use_kernel="cuda", device="cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        app.run(1)
+
+
+def test_heat_step_has_no_try_around_the_launch():
+    fn = next(n for n in ast.walk(ast.parse(Path(ops.__file__).read_text()))
+              if isinstance(n, ast.FunctionDef) and n.name == "heat_step")
+    assert not [n for n in ast.walk(fn) if isinstance(n, (ast.Try, ast.TryStar))]
+    assert "heat_step_cuda" in ast.unparse(fn)
+
+
+def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
+    from repro_torch.kernels import _build
+
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(_build.os.path, "isfile", lambda p: False)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build()
+    assert [p.name for p in _build.sources()] == ["heat_step.cu"]
+    assert _build.library_path().parent == tmp_path / "build"
