@@ -2,12 +2,19 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from the sources in this checkout, holds each
-kernel against its plain PyTorch version on the card, drives the paper's
-Fig.-1 heat solver (``repro_torch.apps.Heat3D``) through the kernel at 512^3
-cells on one rank and at 8 x 256^3 on eight virtual ranks with and without
-stream-overlapped communication hiding, and times it with CUDA events.
+Builds the port's CUDA kernels (K1 heat step, K2-K5 solver operators) from
+the sources in this checkout and holds each against its plain PyTorch
+version on the card.  Then it drives two paths through the kernels:
 
+* the paper's Fig.-1 heat solver (``repro_torch.apps.Heat3D``) at 512^3
+  cells on one rank and at 8 x 256^3 on eight virtual ranks, with and
+  without stream-overlapped communication hiding;
+* the variable-coefficient Poisson solve (``repro_torch.apps.Poisson3D``):
+  every method at 18^3 global cells against the reference's iteration
+  counts and the NumPy oracle, then mgcg, pipemgcg, Chebyshev multigrid
+  and 100 CG iterations at 514^3 f64 on one rank and on 8 x 258^3.
+
+Times come from CUDA events or from host clocks around synchronised work.
 Every phase prints one line; any failure raises and exits non-zero.  The
 line before the last is a JSON object describing each kernel; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits 1 and
@@ -91,16 +98,17 @@ def check_kernel(kernel, ref, T, Ci, tol: float, where: str) -> float:
     return err
 
 
-def breakdown(app, T, Ci, steps: int = 10) -> dict:
-    """Device time by kernel name and the device's idle share over a few
-    steps, from the profiler's CUDA activity."""
+def breakdown(run, steps: int, top: int = 5) -> dict:
+    """Device time by kernel name and the device's idle share over ``run()``
+    (which does ``steps`` steps or iterations), from the profiler's CUDA
+    activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    app.run(2, T, Ci)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        app.run(steps, T, Ci)
+        run()
+        torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     ev = sorted(((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
                  if e.device_type == DeviceType.CUDA), key=lambda x: x[0])
@@ -114,10 +122,291 @@ def breakdown(app, T, Ci, steps: int = 10) -> dict:
     by_name: dict = {}
     for s, e, name in ev:
         by_name[name[:40]] = by_name.get(name[:40], 0.0) + (e - s) / steps / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    return {"ms_per_step_by_kernel": json.dumps({k: round(v, 4) for k, v in top}).replace(" ", ""),
+    best = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return {"ms_per_step_by_kernel": json.dumps({k: round(v, 4) for k, v in best}).replace(" ", ""),
             "device_busy_ms_per_step": busy / steps / 1e3,
+            "wall_ms_per_step": wall_us / steps / 1e3,
             "idle_share": 1 - busy / wall_us}
+
+
+# ---------------------------------------------------------------------------
+# the solver slice: K2-K5 and the Poisson path
+# ---------------------------------------------------------------------------
+
+F64_FLOP_PER_S = 34e12         # H100 SXM float64 outside the tensor cores (data sheet)
+SOLVER_REPLACES = {"apply": "src/repro/kernels/solver3d/kernel.py:278",
+                   "residual": "src/repro/kernels/solver3d/kernel.py:298",
+                   "jacobi": "src/repro/kernels/solver3d/kernel.py:321",
+                   "cheb": "src/repro/kernels/solver3d/kernel.py:347"}
+# words moved per cell (each input read once, each output written once; K5
+# reads no d on its first step) and f64 operations per interior cell
+# (counted from solver3d.cu: 34 for A u, +1 residual, +3 Jacobi, +6 Chebyshev)
+SOLVER_WORDS = {"apply": 3, "residual": 4, "jacobi": 5, "cheb": 7, "cheb_first": 6}
+SOLVER_FLOP_PER_CELL = {"apply": 34, "residual": 35, "jacobi": 38, "cheb": 41, "cheb_first": 38}
+SOLVER_TOL = {torch.float32: 1e-6, torch.float64: 1e-12}   # normwise: |k - p| <= tol max|p|
+OMEGA = 6.0 / 7.0
+# the reference's iteration counts at Poisson3D(nx=10, dims=(2,2,2)) f64, tol 1e-8
+# (tests/test_convergence_regression.py pins cg/mgcg/pipecg/pipemgcg)
+PATH_ITERATIONS = {
+    "dirichlet": {"cg": 54, "mgcg": 12, "pipecg": 55, "pipemgcg": 13, "pt": 167, "mg": 20,
+                  "mg-chebyshev": 18},
+    "periodic": {"cg": 26, "mgcg": 10, "pipecg": 27, "mg": 17},
+}
+
+
+def solver_bound(op: str, n_cells: int, n_interior: int, itemsize: int = 8):
+    """Least time (ms) of one launch: its bytes over the memory rate, or its
+    f64 operations over the f64 rate, whichever is larger."""
+    t_bytes = SOLVER_WORDS[op] * n_cells * itemsize / HBM_BYTES_PER_S * 1e3
+    t_ops = SOLVER_FLOP_PER_CELL[op] * n_interior / F64_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def solver_calls(sk, inputs, h2, spacing, divide=False):
+    """{name: (kernel call, plain call, ring value)} for K2-K5 on ``inputs``;
+    K5 both on its first step (no d) and on a later one."""
+    u, c, f, dia, d = inputs
+    return {
+        "apply": (lambda: sk.apply_cuda(u, c, h2=h2, divide=divide),
+                  lambda: sk.apply_op_ref(u, c, spacing), (0,)),
+        "residual": (lambda: sk.residual_cuda(u, c, f, h2=h2, divide=divide),
+                     lambda: sk.residual_op_ref(u, c, f, spacing), (0,)),
+        "jacobi": (lambda: sk.jacobi_cuda(u, c, f, dia, omega=OMEGA, h2=h2, divide=divide),
+                   lambda: sk.jacobi_sweep_ref(u, c, f, dia, omega=OMEGA, spacing=spacing), (u,)),
+        "cheb_first": (lambda: sk.cheb_cuda(u, c, f, dia, None, a=None, b=1.25, h2=h2,
+                                            divide=divide),
+                       lambda: sk.cheb_sweep_ref(u, c, f, dia, d, a=None, b=1.25,
+                                                 spacing=spacing), (u, 0)),
+        "cheb": (lambda: sk.cheb_cuda(u, c, f, dia, d, a=0.3, b=0.9, h2=h2, divide=divide),
+                 lambda: sk.cheb_sweep_ref(u, c, f, dia, d, a=0.3, b=0.9, spacing=spacing),
+                 (u, 0)),
+    }
+
+
+def check_solver_kernels(sk, inputs, spacing, tol: float, where: str) -> dict:
+    """Each of K2-K5 against its plain version on the same inputs: normwise
+    within ``tol``, the ring bitwise.  Returns max |err| per kernel."""
+    h2 = tuple(s * s for s in spacing)
+    u = inputs[0]
+    ring = torch.ones(u.shape[-3:], dtype=torch.bool, device=u.device)
+    ring[1:-1, 1:-1, 1:-1] = False
+    ring = ring.expand(u.shape)
+    errs = {}
+    for name, (kern, plain, ring_values) in solver_calls(sk, inputs, h2, spacing).items():
+        got = kern()
+        torch.cuda.synchronize()
+        want = plain()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        err = 0.0
+        for g, w, rv in zip(got, want, ring_values):
+            if g.shape != u.shape or g.dtype != u.dtype:
+                fail(f"{where} {name}: kernel gave {tuple(g.shape)} {g.dtype}")
+            e = (g.double() - w.double()).abs().max().item()
+            scale = max(w.double().abs().max().item(), 1.0)
+            if not e <= tol * scale:
+                fail(f"{where} {name}: kernel differs from the plain version, "
+                     f"max |err| {e} > {tol} * {scale}")
+            want_ring = rv[ring] if torch.is_tensor(rv) else torch.zeros_like(g[ring])
+            if not torch.equal(g[ring], want_ring):
+                fail(f"{where} {name}: ring cells not written as the plain version does")
+            err = max(err, e)
+        errs[name] = err
+        del got, want
+    return errs
+
+
+def solver_inputs(sk, shape, dtype, rand, spacing):
+    u, c, f, d = rand(shape, dtype), rand(shape, dtype) + 0.5, rand(shape, dtype), rand(shape, dtype)
+    return u, c, f, sk.full_diag(c, spacing), d
+
+
+def launch_counts(sk) -> dict:
+    return {k: getattr(sk, f"{k}_cuda").launches for k in ("apply", "residual", "jacobi", "cheb")}
+
+
+def zero_counts(sk) -> None:
+    for k in ("apply", "residual", "jacobi", "cheb"):
+        getattr(sk, f"{k}_cuda").launches = 0
+
+
+def expected_launches(method: str, k: int, levels: int) -> dict:
+    """Launches of K2-K5 that a solve of ``k`` iterations makes, counted from
+    the solvers' code: one K2 per operator application; per V-cycle one K3
+    per level but the coarsest and the sweeps of make_v_cycle (mgcg's
+    preconditioner: 1 + 1 Jacobi sweeps, 50 coarse; mg: 2 + 2, 100 coarse)."""
+    segments = -(-k // 50)   # pipelined: replacement every 50 iterations
+    if method in ("cg", "pt"):
+        return {"apply": k + 1, "residual": 0, "jacobi": 0, "cheb": 0}
+    if method == "pipecg":
+        return {"apply": 1 + 4 * segments + k, "residual": 0, "jacobi": 0, "cheb": 0}
+    if method in ("mgcg", "pipemgcg"):
+        cycles = k + 1 if method == "mgcg" else k + 2 * segments
+        apply = k + 1 if method == "mgcg" else 1 + 4 * segments + k
+        return {"apply": apply, "residual": cycles * (levels - 1),
+                "jacobi": cycles * ((levels - 1) * 2 + 50), "cheb": 0}
+    sweeps = (levels - 1) * 4
+    if method == "mg":
+        return {"apply": 0, "residual": 1 + k * levels, "jacobi": k * (sweeps + 100), "cheb": 0}
+    if method == "mg-chebyshev":
+        return {"apply": 0, "residual": 1 + k * levels, "jacobi": k * 100, "cheb": k * sweeps}
+    raise ValueError(method)
+
+
+def solve(app, method: str, **kw):
+    if method == "mg-chebyshev":
+        return app.solve("mg", smoother="chebyshev", **kw)
+    return app.solve(method, **kw)
+
+
+def solver_phases(dev, rand) -> list:
+    from repro_torch.apps import Poisson3D
+    from repro_torch.kernels import solver3d as sk
+
+    # ---- 7. K2-K5 against their plain versions -----------------------------
+    errs = {}
+    for dtype in (torch.float32, torch.float64):
+        for shape in ((1, 10, 10, 10), (8, 34, 18, 66)):
+            sp = (0.5, 0.7, 1.1)
+            inputs = solver_inputs(sk, shape, dtype, rand, sp)
+            e = check_solver_kernels(sk, inputs, sp, SOLVER_TOL[dtype], f"{dtype} {shape}")
+            errs[f"{str(dtype)[6:]}:{shape}".replace(" ", "")] = max(e.values())
+        # strided views, as a slab of a field
+        sp = (0.5, 0.7, 1.1)
+        inputs = tuple(t[..., 3:15, :, 5:30] for t in
+                       solver_inputs(sk, (2, 2, 2, 18, 10, 34), dtype, rand, sp))
+        e = check_solver_kernels(sk, inputs, sp, SOLVER_TOL[dtype], f"{dtype} strided")
+        errs[f"{str(dtype)[6:]}:strided"] = max(e.values())
+    h = 1.0 / 513
+    fine = solver_inputs(sk, (1, 514, 514, 514), torch.float64, rand, (h, h, h))
+    main_errs = check_solver_kernels(sk, fine, (h, h, h), 1e-12, "1x514^3 f64")
+    del fine
+    torch.cuda.empty_cache()
+    say("solver_kernels", small=json.dumps(errs).replace(" ", ""),
+        main_path_1x514=json.dumps(main_errs).replace(" ", ""), status="ok")
+
+    # ---- 8. the Poisson path at small size: counts, oracle, launches ------
+    rows = []
+    for bc, per in (("dirichlet", (False, False, False)), ("periodic", (True, True, True))):
+        app = Poisson3D(nx=10, ny=10, nz=10, dims=(2, 2, 2), periodic=per)
+        G = app.oracle(tol=1e-12)
+        levels = len(app.grid.hierarchy())
+        for method, want_k in PATH_ITERATIONS[bc].items():
+            zero_counts(sk)
+            u, info = solve(app, method, tol=1e-8)
+            got = launch_counts(sk)
+            k = info.iterations
+            if k != want_k:
+                fail(f"{bc} {method}: {k} iterations, the reference takes {want_k}")
+            want = expected_launches(method, k, levels)
+            if got != want:
+                fail(f"{bc} {method}: kernel launches {got}, the solver's code makes {want}")
+            err = float(np.abs(app.grid.gather(u) - G).max() / np.abs(G).max())
+            rn = app.residual_norm(u)
+            if not (info.converged and err < 1e-4 and rn < 2e-8 and np.isfinite(err)):
+                fail(f"{bc} {method}: relres {info.relres}, residual_norm {rn}, "
+                     f"oracle rel err {err}")
+            rows.append(f"{bc[:3]}:{method}={k}")
+            say("poisson_path", bc=bc, method=method, iterations=k, relres=info.relres,
+                residual_norm=rn, oracle_rel_err=err,
+                launches=json.dumps(got).replace(" ", ""),
+                k2_per_iteration=got["apply"] / k)
+        del app
+    say("poisson_path", iterations_equal_reference=" ".join(rows))
+
+    # ---- 9. the loop's cost per iteration where launches dominate ---------
+    for method in ("cg", "pipecg", "mgcg"):
+        app = Poisson3D(nx=18, ny=18, nz=18, dims=(1, 1, 1))
+        solve(app, method, tol=0.0, maxiter=10)
+        _, info = solve(app, method, tol=0.0, maxiter=100)
+        prof = breakdown(lambda: solve(app, method, tol=0.0, maxiter=20), 20, top=3)
+        say("loop_cost", grid="1x18^3 f64", method=method, ms_per_iteration=1e3 * info.s_per_iter(),
+            **prof)
+        del app
+
+    # ---- 10. full size: 514^3 f64 on one rank and on 8 x 258^3 -------------
+    zero_counts(sk)
+    runs = []
+    for name, cfg in (("1x514^3", dict(nx=514, ny=514, nz=514, dims=(1, 1, 1))),
+                      ("8x258^3", dict(nx=258, ny=258, nz=258, dims=(2, 2, 2)))):
+        app = Poisson3D(**cfg)
+        if app.grid.global_shape != (514, 514, 514):
+            fail(f"{name}: global shape {app.grid.global_shape}")
+        # the standalone V-cycle is not grid-independent (1 rank: 24 cycles at
+        # 130^3, 44 at 258^3, ~200 at 514^3; slower still on 8 blocks), so mg
+        # gets room for the cycles it takes to reach 1e-8
+        for method, kw in (("mgcg", dict(tol=1e-8)), ("pipemgcg", dict(tol=1e-8)),
+                           ("mg-chebyshev", dict(tol=1e-8, maxiter=2000)),
+                           ("cg", dict(tol=0.0, maxiter=100))):
+            torch.cuda.synchronize()
+            n0 = launch_counts(sk)
+            u, info = solve(app, method, **kw)
+            n1 = launch_counts(sk)
+            rn = app.residual_norm(u)
+            tol = kw["tol"]
+            if tol > 0 and not (info.converged and rn <= tol):
+                fail(f"{name} {method}: relres {info.relres}, recomputed {rn} > {tol}")
+            if not math.isfinite(rn):
+                fail(f"{name} {method}: non-finite residual")
+            per_it = {k: (n1[k] - n0[k]) / info.iterations for k in n1}
+            say("poisson_full", config=name, method=method, iterations=info.iterations,
+                seconds=info.wall_s, ms_per_iteration=1e3 * info.s_per_iter(),
+                t_eff_GBps=app.t_eff(info), relres=info.relres, residual_norm=rn,
+                launches_per_iteration=json.dumps(per_it).replace(" ", ""))
+            runs.append((name, method, info.iterations))
+            del u
+        del app
+        torch.cuda.empty_cache()
+    launches = launch_counts(sk)
+    for k, n in launches.items():
+        if n == 0:
+            fail(f"the Poisson path at full size never launched the {k} kernel")
+    say("poisson_full", launches=json.dumps(launches).replace(" ", ""),
+        peak_GB=torch.cuda.max_memory_allocated() / 1e9)
+
+    # ---- 11. breakdown: ten mgcg iterations at 1 x 514^3 (one setup) -------
+    app = Poisson3D(nx=514, ny=514, nz=514, dims=(1, 1, 1))
+    solve(app, "mgcg", tol=0.0, maxiter=1)
+    say("breakdown", config="1x514^3 mgcg",
+        **breakdown(lambda: solve(app, "mgcg", tol=0.0, maxiter=10), 10, top=8))
+    del app
+    torch.cuda.empty_cache()
+
+    # ---- 12. each kernel alone at 514^3 f64, in turns ----------------------
+    h = 1.0 / 513
+    sp = (h, h, h)
+    h2 = tuple(s * s for s in sp)
+    inputs = solver_inputs(sk, (1, 514, 514, 514), torch.float64, rand, sp)
+    n = inputs[0].numel()
+    n_in = interior_cells(inputs[0].shape)
+    recip = solver_calls(sk, inputs, h2, sp)
+    div = solver_calls(sk, inputs, h2, sp, divide=True)
+    entries = []
+    for op in ("apply", "residual", "jacobi", "cheb_first", "cheb"):
+        t = {"recip": [], "divide": []}
+        for mode in ("recip", "divide", "divide", "recip"):
+            fn = (recip if mode == "recip" else div)[op][0]
+            t[mode].append(cuda_time_ms(fn, reps=20))
+        plain = cuda_time_ms(recip[op][1], reps=3, warm=1)
+        ms = min(t["recip"])
+        bound, bound_by = solver_bound(op, n, n_in)
+        say("solver_kernel", op=op, shape="1x514^3", dtype="float64", ms_runs=t["recip"],
+            ms_runs_divide=t["divide"], plain_ms=plain, bound_ms=bound, bound_by=bound_by,
+            share_of_bound=bound / ms,
+            achieved_GBps=SOLVER_WORDS[op] * n * 8 / ms / 1e6)
+        if op == "cheb_first":
+            continue
+        entries.append({
+            "name": op, "route": "cuda",
+            "source": "src/repro_torch/kernels/solver3d/csrc/solver3d.cu",
+            "replaces": SOLVER_REPLACES[op], "launches": launches[op],
+            "max_abs_err": main_errs[op] if op != "cheb" else max(main_errs["cheb"],
+                                                                   main_errs["cheb_first"]),
+            "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": None})
+    del inputs, recip, div
+    torch.cuda.empty_cache()
+    return entries
 
 
 def main() -> int:
@@ -133,6 +422,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     card = gpu_line()
+    print(card, flush=True)
 
     # ---- 1. toolchain ---------------------------------------------------
     nvcc = subprocess.run([_build.find_nvcc(), "--version"], capture_output=True, text=True,
@@ -243,7 +533,9 @@ def main() -> int:
         on_over_off=step_ms["8x256^3 hide"] / step_ms["8x256^3 plain"])
     for name, cfg in configs[1:]:
         app = Heat3D(**cfg)
-        say("breakdown", config=name, **breakdown(app, *app.init_fields()))
+        T, Ci = app.init_fields()
+        app.run(2, T, Ci)
+        say("breakdown", config=name, **breakdown(lambda: app.run(10, T, Ci), 10))
         del app
 
     # ---- 6. the kernel alone at the main path's shapes, in turns ----------
@@ -260,13 +552,17 @@ def main() -> int:
         ms_runs_8x256=times["8x256^3"], plain_ms=plain_ms, bound_ms=bound,
         share_of_bound=bound / ms, achieved_GBps=3 * T.numel() * 4 / ms / 1e6)
 
-    print(json.dumps({"kernels": [{
-        "name": "heat_step", "route": "cuda",
-        "source": "src/repro_torch/kernels/stencil3d/csrc/heat_step.cu",
-        "replaces": "src/repro/kernels/stencil3d/kernel.py:63",
-        "launches": launches, "max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound, "bound_by": bound_by, "library_ms": None}]}))
-    print(card)
+    k1 = {"name": "heat_step", "route": "cuda",
+          "source": "src/repro_torch/kernels/stencil3d/csrc/heat_step.cu",
+          "replaces": "src/repro/kernels/stencil3d/kernel.py:63",
+          "launches": launches, "max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms,
+          "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
+    del one, big, T, Ci, a, b
+    torch.cuda.empty_cache()
+
+    solver_entries = solver_phases(dev, rand)
+
+    print(json.dumps({"kernels": [k1] + solver_entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -18,3 +18,9 @@ def resolve_device(device=None) -> torch.device:
             "repro_torch runs on a CUDA card by default and none is available; "
             "pass device='cpu' to run the plain PyTorch path on the CPU")
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def synchronize(t: torch.Tensor) -> None:
+    """Wait for the work queued on ``t``'s device (a no-op on the CPU)."""
+    if t.device.type == "cuda":
+        torch.cuda.synchronize(t.device)

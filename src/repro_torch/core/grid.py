@@ -232,6 +232,41 @@ class ImplicitGlobalGrid:
                 [a[idx(slice(b * stride, b * stride + n))] for b in range(D)], axis=d)
         return self.from_stacked(a, dtype=dtype)
 
+    # ------------------------------------------------------------------
+    # grid hierarchy (geometric multigrid support)
+    # ------------------------------------------------------------------
+    def can_coarsen(self) -> bool:
+        """True if every local interior extent halves evenly (see coarsen)."""
+        return all((n - self.overlap) % 2 == 0 and (n - self.overlap) >= 4
+                   for n in self.local_shape)
+
+    def coarsen(self) -> "ImplicitGlobalGrid":
+        """One-level-coarser grid with the same block counts, periodicity,
+        halo width, dtype and device.
+
+        Each local interior extent (``n - overlap``) halves, so the global
+        interior cell count halves per dim (cell-centered coarsening) and
+        ``update_halo`` works identically at every level.
+        """
+        coarse = []
+        for n in self.local_shape:
+            inner = n - self.overlap
+            if inner % 2 != 0:
+                raise ValueError(f"local interior extent {inner} must be even to coarsen")
+            if inner < 4:
+                raise ValueError(f"local interior extent {inner} too small to coarsen")
+            coarse.append(inner // 2 + self.overlap)
+        coarse += [None] * (3 - len(coarse))  # the constructor drops None dims
+        return ImplicitGlobalGrid(*coarse, overlap=self.overlap, periodic=self.topo.periodic,
+                                  dims=self.dims, dtype=self.dtype, device=self.device)
+
+    def hierarchy(self, max_levels: int | None = None) -> list["ImplicitGlobalGrid"]:
+        """Fine-to-coarse grid hierarchy, coarsening while possible."""
+        levels = [self]
+        while levels[-1].can_coarsen() and (max_levels is None or len(levels) < max_levels):
+            levels.append(levels[-1].coarsen())
+        return levels
+
     def finalize(self):
         """Paper's ``finalize_global_grid()``: waits for the device; eager
         PyTorch keeps no compiled executables to release."""

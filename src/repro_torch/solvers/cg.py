@@ -1,0 +1,255 @@
+"""Matrix-free conjugate gradient on the implicit global grid.
+
+The operator is any local-view stencil, typically a halo-updating wrapper
+such as :func:`repro_torch.solvers.multigrid.poisson_apply`; CG never sees
+the matrix.  Dot products are the deduplicated masked reductions of
+:mod:`.reductions` (f64 accumulators), so the result is that of a
+single-block solve of the global system.
+
+Two Krylov schedules (``variant=``):
+
+* ``"classic"`` — textbook preconditioned CG: ``<p, Ap>``, then ``<r, z>``
+  and ``||r||^2`` as one stacked reduction.
+* ``"pipelined"`` — Ghysels–Vanroose pipelined CG: one stacked reduction
+  per iteration carrying ``<r, u>``, ``<w, u>`` and ``||r||^2``, issued
+  before the iteration's preconditioner and operator applies; every
+  ``replace_every`` iterations the residual and its auxiliaries are
+  recomputed exactly (``r = b - A x``).  The stopping test is one
+  iteration stale, so it runs one iteration more than classic CG.
+
+The loop runs in Python.  Every scalar (``alpha``, ``beta``, the dots) stays
+a 0-d tensor on the device; the only host read per iteration is the f64
+residual norm for the stopping test, so iteration counts equal the
+reference's ``lax.while_loop`` on the same inputs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from .._device import synchronize
+from . import reductions as red
+
+VARIANTS = ("classic", "pipelined")
+
+
+@dataclasses.dataclass
+class SolveInfo:
+    """Outcome of an iterative solve.
+
+    ``residuals[j]`` is the relative residual after iteration ``j + 1``
+    (for ``variant="pipelined"`` the one entering iteration ``j + 1``);
+    its last entry equals ``relres``.  ``wall_s`` is the host time of the
+    solve, synchronised on the result.  ``replacements`` counts the
+    residual-replacement segments a pipelined solve ran.  ``comm`` and
+    ``status`` stay None until the port's telemetry (comm counters, typed
+    health status) exists.
+    """
+
+    iterations: int
+    relres: float
+    converged: bool
+    residuals: np.ndarray = dataclasses.field(default_factory=lambda: np.zeros(0))
+    wall_s: float | None = None
+    comm: object = None
+    status: object = None
+    replacements: int = 0
+
+    def s_per_iter(self) -> float:
+        """Wall seconds per iteration (NaN before timing is recorded)."""
+        if self.wall_s is None or self.iterations <= 0:
+            return float("nan")
+        return self.wall_s / self.iterations
+
+
+def replacement_count(iterations: int, replace_every: int) -> int:
+    """Residual-replacement segments a pipelined solve of ``iterations``
+    ran: one per started segment of ``replace_every`` iterations."""
+    return math.ceil(int(iterations) / max(int(replace_every), 1))
+
+
+def cg_local(grid, apply_A: Callable, b, x, *, tol: float = 1e-6, maxiter: int = 1000,
+             apply_M: Callable | None = None, project_nullspace: str | None = None,
+             variant: str = "classic", replace_every: int = 50):
+    """The Krylov loop on fields ``b``/``x`` with one-argument callables
+    ``apply_A``/``apply_M`` (preconditioner setup already bound).
+
+    Returns ``(x, k, relres, hist)``: the halo-fresh iterate, the iteration
+    count, the final relative residual (0-d tensor) and the history (1-D
+    f64 tensor).  ``x`` is updated out of place, except that the operator's
+    halo update writes its halo cells.
+    """
+    red_mask = red.solve_mask(grid, b.dtype)
+    unk_mask = red.interior_mask(grid, dtype=b.dtype)
+
+    def mdot(u, v):
+        return red.tree_dot(grid, u, v, red_mask)
+
+    def mdots(*pairs):
+        return red.tree_dot_many(grid, pairs, red_mask)
+
+    def masked(t):
+        return t * unk_mask
+
+    if project_nullspace == "constant":
+        def project(t):
+            # subtract the masked mean on the unknowns only (a Dirichlet
+            # ring, if any dim has one, keeps its BC data)
+            return t - red.masked_mean(grid, t, red_mask).to(t.dtype) * unk_mask
+
+        b = project(b)
+    else:
+        def project(t):
+            return t
+
+    bnorm = red.tree_rhs_norm(grid, b, red_mask)
+    common = dict(maxiter=maxiter, project=project, masked=masked, mdot=mdot, mdots=mdots,
+                  bnorm=bnorm)
+    if variant == "classic":
+        x, res, k, hist = _classic_loop(apply_A, apply_M, b, x, tol * float(bnorm), **common)
+    else:
+        x, res, k, hist = _pipelined_loop(apply_A, apply_M, b, x, tol * float(bnorm),
+                                          replace_every=replace_every, **common)
+    # the mean-zero representative of a singular solve, halo-fresh
+    x = grid.update_halo(project(x))
+    hist = torch.stack(hist) if hist else torch.zeros(0, dtype=torch.float64)
+    return x, k, res / bnorm, hist
+
+
+def _classic_loop(apply_A, M, b, x, thresh, *, maxiter, project, masked, mdot, mdots, bnorm):
+    """Textbook preconditioned CG.  Returns ``(x, res, k, hist)``."""
+    r = masked(b - apply_A(x))
+    z = project(masked(M(r))) if M is not None else project(r)
+    p = z
+    rz = mdot(r, z)
+    res = torch.sqrt(mdot(r, r))
+    hist, k = [], 0
+    while k < maxiter and float(res) > thresh:
+        Ap = masked(apply_A(p))
+        alpha = rz / mdot(p, Ap)
+        x = x + alpha.to(x.dtype) * p
+        r = r - alpha.to(r.dtype) * Ap
+        if M is not None:
+            z = project(masked(M(r)))
+            rz_new, rr = mdots((r, z), (r, r))   # one stacked reduction
+            res = torch.sqrt(rr)
+        else:
+            z = project(r)
+            rz_new = mdot(r, z)   # unpreconditioned: <r, z> is ||r||^2
+            res = torch.sqrt(rz_new)
+        beta = rz_new / rz
+        p = z + beta.to(z.dtype) * p
+        rz = rz_new
+        hist.append(res / bnorm)
+        k += 1
+    return x, res, k, hist
+
+
+def _pipelined_loop(apply_A, M, b, x, thresh, *, maxiter, replace_every, project, masked,
+                    mdot, mdots, bnorm):
+    """Ghysels–Vanroose pipelined CG with residual replacement at each
+    segment head (the k = 0 head doubles as the setup).  Returns
+    ``(x, res, k, hist)``."""
+    if replace_every is None or int(replace_every) <= 0:
+        replace_every = maxiter
+    replace_every = int(replace_every)
+
+    def prec(t):
+        # segment heads: the nullspace projection runs here only
+        return project(masked(M(t))) if M is not None else project(t)
+
+    def precit(t):
+        # per iteration: no projection, keeping the single reduction
+        return masked(M(t)) if M is not None else t
+
+    def axpy(add, a, ti, tj):
+        # ti + a * tj (add) or ti - a * tj, the f64 scalar cast per field
+        return ti + ((1.0 if add else -1.0) * a).to(ti.dtype) * tj
+
+    r0 = masked(b - apply_A(x))
+    res = torch.sqrt(mdot(r0, r0))
+    resf = float(res)
+    p = torch.zeros_like(b)
+    gp = ap = torch.ones((), dtype=res.dtype, device=res.device)
+    hist, k = [], 0
+    while k < maxiter and resf > thresh:
+        # exact recomputation of the residual chain and of the search
+        # direction's auxiliaries (s = A p, q = M s, z = A q)
+        r = masked(b - apply_A(x))
+        u = prec(r)
+        w = masked(apply_A(u))
+        s = masked(apply_A(p))
+        q = prec(s)
+        z = masked(apply_A(q))
+        limit = min(k + replace_every, maxiter)
+        while k < limit and resf > thresh:
+            gamma, delta, rr = mdots((r, u), (w, u), (r, r))
+            m = precit(w)
+            n = masked(apply_A(m))
+            res = torch.sqrt(rr)
+            beta = gamma / gp if k > 0 else torch.zeros_like(gamma)
+            alpha = gamma / (delta - beta * gamma / ap)
+            z = axpy(True, beta, n, z)
+            q = axpy(True, beta, m, q)
+            s = axpy(True, beta, w, s)
+            p = axpy(True, beta, u, p)
+            x = axpy(True, alpha, x, p)
+            r = axpy(False, alpha, r, s)
+            u = axpy(False, alpha, u, q)
+            w = axpy(False, alpha, w, z)
+            hist.append(res / bnorm)
+            gp, ap = gamma, alpha
+            k += 1
+            resf = float(res)
+    return x, res, k, hist
+
+
+def cg(grid, apply_A: Callable, b, x0=None, *, tol: float = 1e-6, maxiter: int = 1000,
+       apply_M=None, project_nullspace: str | None = None, dtype=None, args=(),
+       variant: str = "classic", replace_every: int = 50):
+    """Solve ``A x = b`` with (preconditioned) conjugate gradient.
+
+    ``apply_A(u, *args)`` is a local-view operator on a field; it must zero
+    the physical boundary ring so Dirichlet cells stay fixed (on periodic
+    dims its halo exchange maintains the ring duplicates).  ``args`` are
+    extra fields passed to the operator (e.g. the coefficient).
+
+    ``apply_M`` is an optional SPD preconditioner ``z = M r``: a function of
+    the residual, or an object with ``setup(*args) -> M`` (e.g.
+    :class:`repro_torch.solvers.preconditioner.CyclePreconditioner`), whose
+    setup runs once before the Krylov loop.
+
+    ``project_nullspace="constant"`` removes the constant mode from the
+    rhs, the preconditioned residual and the returned iterate (required for
+    the singular all-periodic operator; the pipelined variant projects at
+    segment heads only).  ``dtype`` casts ``b``, ``x0`` and ``args`` before
+    the solve (e.g. ``torch.float32``: f32 fields, f64 scalars).
+    Returns ``(x, SolveInfo)``.
+    """
+    if project_nullspace not in (None, "constant"):
+        raise ValueError(f"unknown project_nullspace {project_nullspace!r}; "
+                         "expected None or 'constant'")
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown cg variant {variant!r}; expected one of {VARIANTS}")
+    if dtype is not None:
+        b = b.to(dtype)
+        args = tuple(a.to(dtype) for a in args)
+        x0 = None if x0 is None else x0.to(dtype)
+    x = torch.zeros_like(b) if x0 is None else x0.clone()
+    t0 = time.perf_counter()
+    M = apply_M.setup(*args) if hasattr(apply_M, "setup") else apply_M
+    x, k, relres, hist = cg_local(
+        grid, lambda u: apply_A(u, *args), b, x, tol=tol, maxiter=maxiter, apply_M=M,
+        project_nullspace=project_nullspace, variant=variant, replace_every=replace_every)
+    relres = float(relres)
+    synchronize(x)
+    wall = time.perf_counter() - t0
+    nrep = replacement_count(k, replace_every) if variant == "pipelined" else 0
+    return x, SolveInfo(iterations=k, relres=relres, converged=relres <= tol,
+                        residuals=hist.cpu().numpy(), wall_s=wall, replacements=nrep)

@@ -1,0 +1,220 @@
+"""Global reductions on the implicit global grid.
+
+The blocks of a field duplicate the ``overlap`` cells shared by
+neighbouring blocks, so a plain sum over the field over-counts them.  An
+*ownership mask* selects the cells each block owns — its non-halo cells
+``[h, n-h)``, which tile the global grid exactly, plus the physical boundary
+ring on first/last blocks — so masked dot products and norms are exact: the
+convergence-check ``MPI.Allreduce`` of the paper's iterative apps.
+
+Periodic dims change the bookkeeping, not the mechanics: the global ring
+planes are wrap duplicates of the opposite interior (``i == i +- (N -
+overlap)``), so ownership drops them (each physical cell counted once) and
+:func:`interior_mask` pins nothing there.
+
+Every block of a field lives on one card, so a global reduction is one sum
+over all axes of the masked product — the block axes take the place of the
+reference's ``psum`` over the mesh.  Floating fields accumulate in float64
+(:func:`acc_dtype`), so f32 solves get faithful stopping tests.  Scalars
+come back as 0-d tensors on the field's device; reading one on the host is
+the caller's choice.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from ..core import locations as _loc
+
+
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """Accumulator dtype for masked reductions: float64 for floating
+    fields, the field dtype otherwise."""
+    return torch.float64 if dtype.is_floating_point else dtype
+
+
+def owned_mask(grid, dtype=None) -> torch.Tensor:
+    """1.0 on cells each block owns in the deduplicated global grid.
+
+    The non-halo cells plus the physical boundary ring on first/last
+    blocks; on a periodic dim the ring planes are wrap duplicates, owned by
+    the opposite block's interior, so ring ownership is dropped.  Every
+    owned cell is locally computed, so the mask is exact even for fields
+    whose halo cells are stale (no halo exchange is needed before reducing).
+    """
+    dtype = dtype or grid.dtype
+    nd, h = grid.ndims, grid.halo
+    m = grid.ones(dtype)
+    for d in range(nd):
+        n = grid.local_shape[d]
+        shape = [1] * (2 * nd)
+        shape[nd + d] = n
+        idx = torch.arange(n, device=grid.device).reshape(shape)
+        own = (idx >= h) & (idx < n - h)
+        if not grid.topo.periodic[d]:
+            coord = grid.topo.coord(d, grid.device)
+            own = own | ((coord == 0) & (idx < h)) | ((coord == grid.dims[d] - 1) & (idx >= n - h))
+        m = m * own.to(dtype)
+    return m
+
+
+def interior_mask(grid, width: int | None = None, dtype=None) -> torch.Tensor:
+    """1.0 on the unknowns: cells not pinned by a Dirichlet boundary.
+
+    On non-periodic dims, the cells strictly inside the global physical
+    boundary ring of ``width`` (default: the halo width); periodic dims
+    are left unmasked.  ``owned_mask * interior_mask`` counts each unknown
+    exactly once.
+    """
+    dtype = dtype or grid.dtype
+    w = grid.halo if width is None else int(width)
+    m = grid.ones(dtype)
+    gidx = grid.local_global_indices()
+    for d in range(grid.ndims):
+        if grid.topo.periodic[d]:
+            continue
+        m = m * ((gidx[d] >= w) & (gidx[d] < grid.n_g(d) - w)).to(dtype)
+    return m
+
+
+def solve_mask(grid, dtype=None) -> torch.Tensor:
+    """Reduction mask over the unknowns, each counted exactly once."""
+    return owned_mask(grid, dtype) * interior_mask(grid, dtype=dtype)
+
+
+def loc_solve_mask(grid, loc: str, dtype=None) -> torch.Tensor:
+    """Location-aware :func:`solve_mask`: ownership times the location's
+    validity and unknown masks."""
+    return owned_mask(grid, dtype) * _loc.valid_mask(grid, loc, dtype) \
+        * _loc.interior_mask(grid, loc, dtype)
+
+
+def _partial(a, b, m) -> torch.Tensor:
+    acc = acc_dtype(a.dtype)
+    return (a.to(acc) * b.to(acc) * m.to(acc)).sum()
+
+
+def _leaves(t) -> list:
+    return list(t) if isinstance(t, (list, tuple)) else [t]
+
+
+def masked_mean(grid, a, mask) -> torch.Tensor:
+    """Mean of ``a`` over the cells selected by ``mask``, numerator and
+    denominator summed together (one reduction), accumulated per
+    :func:`acc_dtype`."""
+    acc = acc_dtype(a.dtype)
+    s = torch.stack([(a.to(acc) * mask.to(acc)).sum(), mask.to(acc).sum()])
+    return s[0] / s[1]
+
+
+def dot(grid, a, b, mask=None) -> torch.Tensor:
+    """Deduplicated global dot product ``<a, b>``, accumulated in float64."""
+    if mask is None:
+        mask = owned_mask(grid, a.dtype)
+    return _partial(a, b, mask)
+
+
+def tree_dot(grid, a, b, masks) -> torch.Tensor:
+    """Deduplicated global dot over sequences of fields (one tensor, or a
+    list/tuple of tensors with matching masks), as one reduction."""
+    la, lb, lm = _leaves(a), _leaves(b), _leaves(masks)
+    if not (len(la) == len(lb) == len(lm)):
+        raise ValueError(f"tree_dot: mismatched leaves — {len(la)}/{len(lb)}/{len(lm)} "
+                         "for a/b/masks")
+    return sum(_partial(x, y, m) for x, y, m in zip(la, lb, lm))
+
+
+def tree_dot_many(grid, pairs, masks) -> tuple[torch.Tensor, ...]:
+    """Several deduplicated global dots as ONE stacked sum.
+
+    ``pairs`` is a sequence of ``(a, b)`` pairs sharing the structure of
+    ``masks``.  The partial sums are stacked into one tensor, which stands
+    for the reference's single all-reduce carrying e.g. ``<r, z>``,
+    ``<w, u>`` and ``||r||^2`` at once.  Returns one 0-d tensor per pair.
+    """
+    lm = _leaves(masks)
+    partials = []
+    for i, (a, b) in enumerate(pairs):
+        la, lb = _leaves(a), _leaves(b)
+        if not (len(la) == len(lb) == len(lm)):
+            raise ValueError(f"tree_dot_many: mismatched leaves in pair {i} — "
+                             f"{len(la)}/{len(lb)}/{len(lm)} for a/b/masks")
+        partials.append(sum(_partial(x, y, m) for x, y, m in zip(la, lb, lm)))
+    s = torch.stack(partials)
+    return tuple(s.unbind())
+
+
+def tree_rhs_norm(grid, b, masks) -> torch.Tensor:
+    """``||b||`` over sequences of fields with the zero-rhs guard."""
+    bn = torch.sqrt(tree_dot(grid, b, b, masks))
+    return torch.where(bn > 0, bn, torch.ones_like(bn))
+
+
+def rhs_norm(grid, b, mask) -> torch.Tensor:
+    """``||b||`` for relative-residual tests, guarded so a zero rhs yields 1
+    (absolute residuals) instead of a 0/0 in the convergence test."""
+    return tree_rhs_norm(grid, b, mask)
+
+
+def norm_l2(grid, a, mask=None) -> torch.Tensor:
+    """Deduplicated global L2 norm."""
+    return torch.sqrt(dot(grid, a, a, mask))
+
+
+def norm_linf(grid, a, mask=None) -> torch.Tensor:
+    """Deduplicated global max-abs norm."""
+    if mask is None:
+        mask = owned_mask(grid, a.dtype)
+    return (a.abs() * mask).max()
+
+
+def field_min(grid, a, mask=None) -> torch.Tensor:
+    """Deduplicated global minimum."""
+    if mask is None:
+        mask = owned_mask(grid, a.dtype)
+    return torch.where(mask > 0, a, torch.finfo(a.dtype).max).min()
+
+
+def field_max(grid, a, mask=None) -> torch.Tensor:
+    """Deduplicated global maximum."""
+    if mask is None:
+        mask = owned_mask(grid, a.dtype)
+    return torch.where(mask > 0, a, torch.finfo(a.dtype).min).max()
+
+
+# ---------------------------------------------------------------------------
+# host-level forms: with every block on one card, a local-view reduction is
+# already a host-level call; these keep the reference's names
+# ---------------------------------------------------------------------------
+
+def host_reduce(grid, fn: Callable, *fields) -> torch.Tensor:
+    """Run a reduction ``fn(*fields) -> scalar`` over grid fields."""
+    return fn(*fields)
+
+
+def dot_g(grid, A, B) -> torch.Tensor:
+    """Host-level deduplicated global dot product of two grid fields."""
+    return dot(grid, A, B)
+
+
+def norm_l2_g(grid, A) -> torch.Tensor:
+    """Host-level deduplicated global L2 norm of a grid field."""
+    return norm_l2(grid, A)
+
+
+def norm_linf_g(grid, A) -> torch.Tensor:
+    """Host-level deduplicated global Linf norm of a grid field."""
+    return norm_linf(grid, A)
+
+
+def field_min_g(grid, A) -> torch.Tensor:
+    """Host-level deduplicated global minimum of a grid field."""
+    return field_min(grid, A)
+
+
+def field_max_g(grid, A) -> torch.Tensor:
+    """Host-level deduplicated global maximum of a grid field."""
+    return field_max(grid, A)
+

@@ -5,8 +5,9 @@ back quietly.
   the JAX package ``repro``;
 * every ``repro_torch`` module imports with ``jax`` and ``repro`` blocked;
 * the entry points raise without CUDA unless a device is given;
-* ``use_kernel="cuda"`` on a CPU tensor raises, and the public heat step
-  holds no ``try`` around the kernel launch.
+* ``use_kernel="cuda"`` on a CPU tensor raises, and no module that
+  launches a kernel (the heat step, the solver ops, multigrid, the solvers
+  and apps above them) holds a ``try``.
 """
 
 from __future__ import annotations
@@ -24,8 +25,10 @@ ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "src" / "repro_torch"
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch.apps import Heat3D  # noqa: E402
+from repro_torch import solvers  # noqa: E402
+from repro_torch.apps import Heat3D, Poisson3D  # noqa: E402
 from repro_torch.core import init_global_grid  # noqa: E402
+from repro_torch.kernels import solver3d  # noqa: E402
 from repro_torch.kernels.stencil3d import heat_step, ops  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "repro")
@@ -103,5 +106,47 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()
-    assert [p.name for p in _build.sources()] == ["heat_step.cu"]
+    assert [p.name for p in _build.sources()] == ["solver3d.cu", "heat_step.cu"]
     assert _build.library_path().parent == tmp_path / "build"
+
+
+def test_solver_entry_points_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Poisson3D()
+    app = Poisson3D(device="cpu")
+    assert app.grid.device.type == "cpu" and app.c.device.type == "cpu"
+
+
+@pytest.mark.parametrize("method", ["cg", "pipecg", "mgcg", "pipemgcg", "pt", "mg"])
+def test_solver_cuda_mode_on_cpu_tensor_raises(method):
+    app = Poisson3D(use_kernel="cuda", device="cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        app.solve(method, maxiter=2)
+    g, u = app.grid, app.b
+    with pytest.raises(ValueError, match="CUDA"):
+        solvers.multigrid_solve(g, app.c, u, app.spacing, use_kernel="cuda", maxiter=1)
+    with pytest.raises(ValueError, match="CUDA"):
+        solvers.cg(g, lambda x, c: solvers.poisson_apply(g, x, c, app.spacing, use_kernel="cuda"),
+                   u, args=(app.c,), maxiter=1)
+    for op in (lambda: solver3d.apply_op(u, u, spacing=app.spacing, use_kernel="cuda"),
+               lambda: solver3d.residual_op(u, u, u, spacing=app.spacing, use_kernel="cuda"),
+               lambda: solver3d.jacobi_sweep(u, u, u, u, omega=0.5, spacing=app.spacing,
+                                             use_kernel="cuda"),
+               lambda: solver3d.cheb_sweep(u, u, u, u, u, a=None, b=1.0, spacing=app.spacing,
+                                           use_kernel="cuda")):
+        with pytest.raises(ValueError, match="CUDA"):
+            op()
+
+
+@pytest.mark.parametrize("module", [
+    "kernels/solver3d/ops.py", "kernels/solver3d/kernel.py", "solvers/multigrid.py",
+    "solvers/cg.py", "solvers/preconditioner.py", "solvers/pseudo_transient.py",
+    "apps/poisson.py"])
+def test_solver_path_has_no_try_around_a_launch(module):
+    tree = ast.parse((PKG / module).read_text())
+    assert not [n for n in ast.walk(tree) if isinstance(n, (ast.Try, ast.TryStar))]
+    if module == "solvers/multigrid.py":   # the V-cycle launches K2-K5 itself
+        src = ast.unparse(tree)
+        for k in ("apply_cuda", "residual_cuda", "jacobi_cuda", "cheb_cuda"):
+            assert f"{k}(" in src, k
