@@ -162,22 +162,21 @@ def solver_bound(op: str, n_cells: int, n_interior: int, itemsize: int = 8):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def solver_calls(sk, inputs, h2, spacing, divide=False):
+def solver_calls(sk, inputs, h2, spacing):
     """{name: (kernel call, plain call, ring value)} for K2-K5 on ``inputs``;
     K5 both on its first step (no d) and on a later one."""
     u, c, f, dia, d = inputs
     return {
-        "apply": (lambda: sk.apply_cuda(u, c, h2=h2, divide=divide),
+        "apply": (lambda: sk.apply_cuda(u, c, h2=h2),
                   lambda: sk.apply_op_ref(u, c, spacing), (0,)),
-        "residual": (lambda: sk.residual_cuda(u, c, f, h2=h2, divide=divide),
+        "residual": (lambda: sk.residual_cuda(u, c, f, h2=h2),
                      lambda: sk.residual_op_ref(u, c, f, spacing), (0,)),
-        "jacobi": (lambda: sk.jacobi_cuda(u, c, f, dia, omega=OMEGA, h2=h2, divide=divide),
+        "jacobi": (lambda: sk.jacobi_cuda(u, c, f, dia, omega=OMEGA, h2=h2),
                    lambda: sk.jacobi_sweep_ref(u, c, f, dia, omega=OMEGA, spacing=spacing), (u,)),
-        "cheb_first": (lambda: sk.cheb_cuda(u, c, f, dia, None, a=None, b=1.25, h2=h2,
-                                            divide=divide),
+        "cheb_first": (lambda: sk.cheb_cuda(u, c, f, dia, None, a=None, b=1.25, h2=h2),
                        lambda: sk.cheb_sweep_ref(u, c, f, dia, d, a=None, b=1.25,
                                                  spacing=spacing), (u, 0)),
-        "cheb": (lambda: sk.cheb_cuda(u, c, f, dia, d, a=0.3, b=0.9, h2=h2, divide=divide),
+        "cheb": (lambda: sk.cheb_cuda(u, c, f, dia, d, a=0.3, b=0.9, h2=h2),
                  lambda: sk.cheb_sweep_ref(u, c, f, dia, d, a=0.3, b=0.9, spacing=spacing),
                  (u, 0)),
     }
@@ -262,6 +261,7 @@ def solve(app, method: str, **kw):
 def solver_phases(dev, rand) -> list:
     from repro_torch.apps import Poisson3D
     from repro_torch.kernels import solver3d as sk
+    from repro_torch.solvers import level_spacings
 
     # ---- 7. K2-K5 against their plain versions -----------------------------
     errs = {}
@@ -277,13 +277,25 @@ def solver_phases(dev, rand) -> list:
                        solver_inputs(sk, (2, 2, 2, 18, 10, 34), dtype, rand, sp))
         e = check_solver_kernels(sk, inputs, sp, SOLVER_TOL[dtype], f"{dtype} strided")
         errs[f"{str(dtype)[6:]}:strided"] = max(e.values())
-    h = 1.0 / 513
-    fine = solver_inputs(sk, (1, 514, 514, 514), torch.float64, rand, (h, h, h))
-    main_errs = check_solver_kernels(sk, fine, (h, h, h), 1e-12, "1x514^3 f64")
-    del fine
-    torch.cuda.empty_cache()
+    # the main path's own shapes: every level of both full-size hierarchies
+    # (1 x 514^3 ... 1 x 6^3 and 8 x 258^3 ... 8 x 6^3) at that level's spacing
+    main_errs, level_errs = {}, {}
+    for cfg in (dict(nx=514, ny=514, nz=514, dims=(1, 1, 1)),
+                dict(nx=258, ny=258, nz=258, dims=(2, 2, 2))):
+        app = Poisson3D(**cfg)
+        grids = app.grid.hierarchy()
+        for g, sp in zip(grids, level_spacings(app.grid, grids, app.spacing)):
+            name = f"{math.prod(g.dims)}x{g.local_shape[0]}^3"
+            inputs = solver_inputs(sk, g.shape, torch.float64, rand, sp)
+            e = check_solver_kernels(sk, inputs, sp, SOLVER_TOL[torch.float64], f"{name} f64")
+            level_errs[name] = max(e.values())
+            main_errs = {k: max(v, main_errs.get(k, 0.0)) for k, v in e.items()}
+            del inputs
+        del app
+        torch.cuda.empty_cache()
     say("solver_kernels", small=json.dumps(errs).replace(" ", ""),
-        main_path_1x514=json.dumps(main_errs).replace(" ", ""), status="ok")
+        main_path_levels=json.dumps(level_errs).replace(" ", ""),
+        main_path_max=json.dumps(main_errs).replace(" ", ""), status="ok")
 
     # ---- 8. the Poisson path at small size: counts, oracle, launches ------
     rows = []
@@ -379,20 +391,19 @@ def solver_phases(dev, rand) -> list:
     inputs = solver_inputs(sk, (1, 514, 514, 514), torch.float64, rand, sp)
     n = inputs[0].numel()
     n_in = interior_cells(inputs[0].shape)
-    recip = solver_calls(sk, inputs, h2, sp)
-    div = solver_calls(sk, inputs, h2, sp, divide=True)
+    calls = solver_calls(sk, inputs, h2, sp)
+    ops = ("apply", "residual", "jacobi", "cheb_first", "cheb")
+    t = {op: [] for op in ops}
+    for _ in range(2):
+        for op in ops:
+            t[op].append(cuda_time_ms(calls[op][0], reps=20))
     entries = []
-    for op in ("apply", "residual", "jacobi", "cheb_first", "cheb"):
-        t = {"recip": [], "divide": []}
-        for mode in ("recip", "divide", "divide", "recip"):
-            fn = (recip if mode == "recip" else div)[op][0]
-            t[mode].append(cuda_time_ms(fn, reps=20))
-        plain = cuda_time_ms(recip[op][1], reps=3, warm=1)
-        ms = min(t["recip"])
+    for op in ops:
+        plain = cuda_time_ms(calls[op][1], reps=3, warm=1)
+        ms = min(t[op])
         bound, bound_by = solver_bound(op, n, n_in)
-        say("solver_kernel", op=op, shape="1x514^3", dtype="float64", ms_runs=t["recip"],
-            ms_runs_divide=t["divide"], plain_ms=plain, bound_ms=bound, bound_by=bound_by,
-            share_of_bound=bound / ms,
+        say("solver_kernel", op=op, shape="1x514^3", dtype="float64", ms_runs=t[op],
+            plain_ms=plain, bound_ms=bound, bound_by=bound_by, share_of_bound=bound / ms,
             achieved_GBps=SOLVER_WORDS[op] * n * 8 / ms / 1e6)
         if op == "cheb_first":
             continue
@@ -404,7 +415,7 @@ def solver_phases(dev, rand) -> list:
                                                                    main_errs["cheb_first"]),
             "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by,
             "library_ms": None})
-    del inputs, recip, div
+    del inputs, calls
     torch.cuda.empty_cache()
     return entries
 

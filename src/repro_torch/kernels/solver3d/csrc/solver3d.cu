@@ -21,12 +21,11 @@
 // neighbours, which always lie inside the block, so the TPU kernels'
 // wrap-mapped x tiles have no counterpart here.
 //
-// Division.  By default the three divisions by h_d^2 are multiplications
-// by 1/h_d^2 computed on the host (as K1 does): an IEEE division is a
-// software sequence, with a slow path on a zero numerator, and the CG and
-// V-cycle iterates start at zero.  `divide` = 1 selects the true divisions,
-// kept so that chip_smoke.py can time both.  The divisions by dia and b
-// are per cell and stay divisions.  The compiler may contract to FMA.
+// Division.  The three divisions by h_d^2 are multiplications by 1/h_d^2
+// computed on the host (as K1 does): an IEEE division is a software
+// sequence, with a slow path on a zero numerator, and the CG and V-cycle
+// iterates start at zero.  The divisions by dia and b are per cell and stay
+// divisions.  The compiler may contract to FMA.
 //
 // Bound.  Each kernel reads each input once and writes each output once:
 // K2 3 words per cell (u, c; out), K3 4, K4 5, K5 7 (6 on the first step,
@@ -62,8 +61,7 @@ struct Params {
   T* dout;
   int nx, ny, nz;
   Strides su, sc, sf, sdia, sd;
-  T h2[3];   // h_d^2 (divide = 1)
-  T rh2[3];  // 1 / h_d^2 (divide = 0)
+  T rh2[3];  // 1 / h_d^2
   T omega, a, b;
   int first;  // K5: the first step (no a): d = z / b, the input d is not read
 };
@@ -89,7 +87,7 @@ __device__ __forceinline__ bool ring(int nx, int ny, int nz, int i, int j, int k
 
 // A u at an interior cell, in the reference's order: acc accumulates
 // (cf+ (u+ - u0) - cf- (u0 - u-)) / h_d^2 over d = x, y, z; A u = -acc.
-template <typename T, bool kDiv>
+template <typename T>
 __device__ __forceinline__ T center_au(const Params<T>& p, int b, int i, int j, int k) {
   const T* u = p.u + at(p.su, b, i, j, k);
   const T* c = p.c + at(p.sc, b, i, j, k);
@@ -103,20 +101,20 @@ __device__ __forceinline__ T center_au(const Params<T>& p, int b, int i, int j, 
     const T cfp = half * (c0 + c[cs[d]]);
     const T cfm = half * (c0 + c[-cs[d]]);
     const T t = cfp * (u[us[d]] - u0) - cfm * (u0 - u[-us[d]]);
-    acc = acc + (kDiv ? t / p.h2[d] : t * p.rh2[d]);
+    acc = acc + t * p.rh2[d];
   }
   return -acc;
 }
 
-template <typename T, bool kDiv>
+template <typename T>
 __global__ void __launch_bounds__(kTz * kTy * kTx) apply_kernel(Params<T> p) {
   int b, i, j, k;
   if (!cell(p.nx, p.ny, p.nz, b, i, j, k)) return;
   const long long o = ((static_cast<long long>(b) * p.nx + i) * p.ny + j) * p.nz + k;
-  p.out[o] = ring(p.nx, p.ny, p.nz, i, j, k) ? T(0) : center_au<T, kDiv>(p, b, i, j, k);
+  p.out[o] = ring(p.nx, p.ny, p.nz, i, j, k) ? T(0) : center_au<T>(p, b, i, j, k);
 }
 
-template <typename T, bool kDiv>
+template <typename T>
 __global__ void __launch_bounds__(kTz * kTy * kTx) residual_kernel(Params<T> p) {
   int b, i, j, k;
   if (!cell(p.nx, p.ny, p.nz, b, i, j, k)) return;
@@ -125,10 +123,10 @@ __global__ void __launch_bounds__(kTz * kTy * kTx) residual_kernel(Params<T> p) 
     p.out[o] = T(0);
     return;
   }
-  p.out[o] = p.f[at(p.sf, b, i, j, k)] - center_au<T, kDiv>(p, b, i, j, k);
+  p.out[o] = p.f[at(p.sf, b, i, j, k)] - center_au<T>(p, b, i, j, k);
 }
 
-template <typename T, bool kDiv>
+template <typename T>
 __global__ void __launch_bounds__(kTz * kTy * kTx) jacobi_kernel(Params<T> p) {
   int b, i, j, k;
   if (!cell(p.nx, p.ny, p.nz, b, i, j, k)) return;
@@ -138,11 +136,11 @@ __global__ void __launch_bounds__(kTz * kTy * kTx) jacobi_kernel(Params<T> p) {
     p.out[o] = u0;  // the ring passes through bit for bit
     return;
   }
-  const T r = p.f[at(p.sf, b, i, j, k)] - center_au<T, kDiv>(p, b, i, j, k);
+  const T r = p.f[at(p.sf, b, i, j, k)] - center_au<T>(p, b, i, j, k);
   p.out[o] = u0 + (p.omega * r) / p.dia[at(p.sdia, b, i, j, k)];
 }
 
-template <typename T, bool kDiv>
+template <typename T>
 __global__ void __launch_bounds__(kTz * kTy * kTx) cheb_kernel(Params<T> p) {
   int b, i, j, k;
   if (!cell(p.nx, p.ny, p.nz, b, i, j, k)) return;
@@ -153,30 +151,30 @@ __global__ void __launch_bounds__(kTz * kTy * kTx) cheb_kernel(Params<T> p) {
     p.dout[o] = T(0);
     return;
   }
-  const T r = p.f[at(p.sf, b, i, j, k)] - center_au<T, kDiv>(p, b, i, j, k);
+  const T r = p.f[at(p.sf, b, i, j, k)] - center_au<T>(p, b, i, j, k);
   const T z = r / p.dia[at(p.sdia, b, i, j, k)];
   const T dn = p.first ? z / p.b : p.a * p.d[at(p.sd, b, i, j, k)] + p.b * z;
   p.out[o] = u0 + dn;
   p.dout[o] = dn;
 }
 
-template <typename T, bool kDiv>
+template <typename T>
 cudaError_t launch(int op, const Params<T>& p, int nb, cudaStream_t stream) {
   const dim3 block(kTz, kTy, kTx);
   const dim3 grid((p.nz + kTz - 1) / kTz, (p.ny + kTy - 1) / kTy,
                   ((p.nx + kTx - 1) / kTx) * nb);
   switch (op) {
     case kApply:
-      apply_kernel<T, kDiv><<<grid, block, 0, stream>>>(p);
+      apply_kernel<T><<<grid, block, 0, stream>>>(p);
       break;
     case kResidual:
-      residual_kernel<T, kDiv><<<grid, block, 0, stream>>>(p);
+      residual_kernel<T><<<grid, block, 0, stream>>>(p);
       break;
     case kJacobi:
-      jacobi_kernel<T, kDiv><<<grid, block, 0, stream>>>(p);
+      jacobi_kernel<T><<<grid, block, 0, stream>>>(p);
       break;
     case kCheb:
-      cheb_kernel<T, kDiv><<<grid, block, 0, stream>>>(p);
+      cheb_kernel<T><<<grid, block, 0, stream>>>(p);
       break;
     default:
       return cudaErrorInvalidValue;
@@ -185,7 +183,7 @@ cudaError_t launch(int op, const Params<T>& p, int nb, cudaStream_t stream) {
 }
 
 template <typename T>
-cudaError_t run(int op, int divide, const void* u, const void* c, const void* f,
+cudaError_t run(int op, const void* u, const void* c, const void* f,
                 const void* dia, const void* d, void* out, void* dout, int nb, int nx, int ny,
                 int nz, const long long* st, const double* h2, double omega, double a,
                 double b, int first, cudaStream_t stream) {
@@ -202,15 +200,12 @@ cudaError_t run(int op, int divide, const void* u, const void* c, const void* f,
   p.nz = nz;
   Strides* s[5] = {&p.su, &p.sc, &p.sf, &p.sdia, &p.sd};
   for (int q = 0; q < 5; ++q) *s[q] = Strides{st[4 * q], st[4 * q + 1], st[4 * q + 2], st[4 * q + 3]};
-  for (int q = 0; q < 3; ++q) {
-    p.h2[q] = T(h2[q]);
-    p.rh2[q] = T(1) / T(h2[q]);
-  }
+  for (int q = 0; q < 3; ++q) p.rh2[q] = T(1) / T(h2[q]);
   p.omega = T(omega);
   p.a = T(a);
   p.b = T(b);
   p.first = first;
-  return divide ? launch<T, true>(op, p, nb, stream) : launch<T, false>(op, p, nb, stream);
+  return launch<T>(op, p, nb, stream);
 }
 
 }  // namespace
@@ -221,7 +216,7 @@ cudaError_t run(int op, int divide, const void* u, const void* c, const void* f,
 // for u, c, f, dia and d in turn.  h2: h_x^2, h_y^2, h_z^2.  first: K5's
 // first step (a is not used and d is not read).  Returns cudaGetLastError()
 // after the launch (0 on success).
-extern "C" int repro_solver3d(int op, int dtype, int divide, const void* u, const void* c,
+extern "C" int repro_solver3d(int op, int dtype, const void* u, const void* c,
                               const void* f, const void* dia, const void* d, void* out,
                               void* dout, int nb, int nx, int ny, int nz, const long long* strides,
                               const double* h2, double omega, double a, double b, int first,
@@ -229,10 +224,10 @@ extern "C" int repro_solver3d(int op, int dtype, int divide, const void* u, cons
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return run<float>(op, divide, u, c, f, dia, d, out, dout, nb, nx, ny, nz, strides, h2,
+      return run<float>(op, u, c, f, dia, d, out, dout, nb, nx, ny, nz, strides, h2,
                         omega, a, b, first, s);
     case 2:
-      return run<double>(op, divide, u, c, f, dia, d, out, dout, nb, nx, ny, nz, strides, h2,
+      return run<double>(op, u, c, f, dia, d, out, dout, nb, nx, ny, nz, strides, h2,
                          omega, a, b, first, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -5,11 +5,8 @@ Replace the TPU kernels ``apply_pallas``, ``residual_pallas``,
 checks device, dtype, rank and sizes, allocates its outputs with
 ``torch.empty`` (the kernel writes every cell, ring included), launches on
 the current CUDA stream without synchronising, and raises if the launch was
-refused.  ``<wrapper>.launches`` counts the launches.
-
-``divide=True`` selects the kernels that divide by ``h²`` as the plain
-version does, instead of multiplying by a host-computed ``1/h²``; it exists
-so that the two can be timed against each other.
+refused.  ``<wrapper>.launches`` counts the launches.  The kernels multiply
+by a host-computed ``1/h²`` where the plain version divides by ``h²``.
 """
 
 from __future__ import annotations
@@ -30,7 +27,7 @@ _MAX_GRID_YZ = 65535
 @functools.lru_cache(maxsize=None)
 def _entry():
     fn = _build.load().repro_solver3d
-    fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
                    + [ctypes.c_void_p] * 2 + [ctypes.c_double] * 3 + [ctypes.c_int]
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -38,7 +35,7 @@ def _entry():
 
 
 def _launch(op: str, u, c, f=None, dia=None, d=None, *, h2, omega=0.0, a=0.0, b=0.0,
-            first=False, divide=False):
+            first=False):
     where = f"solver3d.{op}_cuda"
     inputs = {"u": u, "c": c, "f": f, "dia": dia, "d": d}
     given = {k: v for k, v in inputs.items() if v is not None}
@@ -70,8 +67,8 @@ def _launch(op: str, u, c, f=None, dia=None, d=None, *, h2, omega=0.0, a=0.0, b=
 
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
-        err = _entry()(OPS[op], DTYPE_CODES[u.dtype], int(bool(divide)), ptr("u"), ptr("c"),
-                       ptr("f"), ptr("dia"), ptr("d"), out.data_ptr(),
+        err = _entry()(OPS[op], DTYPE_CODES[u.dtype], ptr("u"), ptr("c"), ptr("f"), ptr("dia"),
+                       ptr("d"), out.data_ptr(),
                        None if dout is None else dout.data_ptr(), nb, nx, ny, nz, strides, h2s,
                        float(omega), float(a), float(b), int(bool(first)), stream)
     if err != 0:
@@ -79,35 +76,35 @@ def _launch(op: str, u, c, f=None, dia=None, d=None, *, h2, omega=0.0, a=0.0, b=
     return out if dout is None else (out, dout)
 
 
-def apply_cuda(u, c, *, h2, divide=False):
+def apply_cuda(u, c, *, h2):
     """K2: ``A u`` on the interior, zero ring; same contract as
     ``ref.apply_op_ref``."""
-    out = _launch("apply", u, c, h2=h2, divide=divide)
+    out = _launch("apply", u, c, h2=h2)
     apply_cuda.launches += 1
     return out
 
 
-def residual_cuda(u, c, f, *, h2, divide=False):
+def residual_cuda(u, c, f, *, h2):
     """K3: ``f - A u`` on the interior, zero ring."""
-    out = _launch("residual", u, c, f, h2=h2, divide=divide)
+    out = _launch("residual", u, c, f, h2=h2)
     residual_cuda.launches += 1
     return out
 
 
-def jacobi_cuda(u, c, f, dia, *, omega, h2, divide=False):
+def jacobi_cuda(u, c, f, dia, *, omega, h2):
     """K4: one damped-Jacobi sweep ``u + (omega * (f - A u)) / dia``, the
     ring of ``u`` passed through."""
-    out = _launch("jacobi", u, c, f, dia, h2=h2, omega=omega, divide=divide)
+    out = _launch("jacobi", u, c, f, dia, h2=h2, omega=omega)
     jacobi_cuda.launches += 1
     return out
 
 
-def cheb_cuda(u, c, f, dia, d, *, a, b, h2, divide=False):
+def cheb_cuda(u, c, f, dia, d, *, a, b, h2):
     """K5: one Chebyshev step -> ``(u, d)``; ``a=None`` is the first step,
     which does not read ``d`` (pass None or any tensor of u's shape)."""
     first = a is None
     out = _launch("cheb", u, c, f, dia, None if first else d, h2=h2,
-                  a=0.0 if first else a, b=b, first=first, divide=divide)
+                  a=0.0 if first else a, b=b, first=first)
     cheb_cuda.launches += 1
     return out
 

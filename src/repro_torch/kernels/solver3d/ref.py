@@ -11,6 +11,8 @@ reference's ``kernels/solver3d/ref.py``:
 * :func:`apply_op_ref`, :func:`residual_op_ref`, :func:`jacobi_sweep_ref`,
   :func:`cheb_sweep_ref` — the operator, residual and smoother sweeps as
   ``make_v_cycle`` spells them (``u + omega * r / dia``, ``a * d + b * z``).
+  Each also takes the optional Helmholtz ``shift`` field of
+  :func:`poisson_stencil`, which the kernels do not take yet.
 
 Fields are ``(..., *local)``: the trailing ``len(spacing)`` axes are the
 local block (halo included), the leading axes a batch of blocks.
@@ -88,33 +90,33 @@ def full_diag(c, spacing, loc: str = "center"):
     return out
 
 
-def apply_op_ref(u, c, spacing, loc: str = "center"):
+def apply_op_ref(u, c, spacing, loc: str = "center", shift=None):
     """``A u``: the interior stencil, zero on the ring."""
     center_only(loc, "apply_op_ref")
-    return poisson_stencil(u, c, spacing)
+    return poisson_stencil(u, c, spacing, shift)
 
 
-def residual_op_ref(u, c, f, spacing, loc: str = "center"):
+def residual_op_ref(u, c, f, spacing, loc: str = "center", shift=None):
     """``f - A u`` on the interior, zero on the ring."""
     center_only(loc, "residual_op_ref")
     inner = _inner(len(spacing))
-    Au = poisson_stencil(u, c, spacing)
+    Au = poisson_stencil(u, c, spacing, shift)
     out = torch.zeros_like(u)
     out[inner] = f[inner] - Au[inner]
     return out
 
 
-def jacobi_sweep_ref(u, c, f, dia, *, omega, spacing, loc: str = "center"):
+def jacobi_sweep_ref(u, c, f, dia, *, omega, spacing, loc: str = "center", shift=None):
     """One damped-Jacobi sweep ``u + omega * (f - A u) / dia`` on the
     interior; the ring of ``u`` passes through (no halo update)."""
     inner = _inner(len(spacing))
-    r = residual_op_ref(u, c, f, spacing, loc)
+    r = residual_op_ref(u, c, f, spacing, loc, shift)
     out = u.clone(memory_format=torch.contiguous_format)
     out[inner] += omega * r[inner] / dia[inner]
     return out
 
 
-def cheb_sweep_ref(u, c, f, dia, d, *, a, b, spacing, loc: str = "center"):
+def cheb_sweep_ref(u, c, f, dia, d, *, a, b, spacing, loc: str = "center", shift=None):
     """One Chebyshev recurrence step -> ``(u, d)``.
 
     ``z = (f - A u) / dia``; the new direction is ``z / b`` when ``a`` is
@@ -123,7 +125,7 @@ def cheb_sweep_ref(u, c, f, dia, d, *, a, b, spacing, loc: str = "center"):
     ``u`` passes through; the ring of ``d`` is zero.
     """
     inner = _inner(len(spacing))
-    r = residual_op_ref(u, c, f, spacing, loc)
+    r = residual_op_ref(u, c, f, spacing, loc, shift)
     z = r[inner] / dia[inner]
     dn = z / b if a is None else a * d[inner] + b * z
     u_new = u.clone(memory_format=torch.contiguous_format)

@@ -14,11 +14,11 @@
   ``cg``, set up once per solve.
 """
 
+from ..kernels.solver3d.ref import poisson_diag
 from . import transfers
 from .cg import SolveInfo, cg, cg_local, replacement_count
 from .multigrid import (
     SMOOTHERS, build_coefficients, level_spacings, make_v_cycle, multigrid_solve, poisson_apply,
-    poisson_diag,
 )
 from .preconditioner import CyclePreconditioner
 from .pseudo_transient import PTInfo, optimal_parameters, pseudo_transient

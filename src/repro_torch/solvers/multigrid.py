@@ -18,12 +18,13 @@ The coarsest level is solved with damped-Jacobi sweeps.  With every dim
 periodic and no shift the operator is singular: the coarse rhs is projected
 onto mean-zero before the coarse sweeps.
 
-On a CUDA tensor the operator, residual and smoother sweeps are the CUDA
-kernels K2-K5 (:mod:`repro_torch.kernels.solver3d`) at every level; on a
-CPU tensor, or with ``use_kernel="ref"``, their plain versions.  The
-kernels take neither ``hide=True`` nor a Helmholtz ``shift``: on a CUDA
-tensor those raise unless ``use_kernel="ref"`` asks for the plain version
-(``hide=True`` raises everywhere until ``hide_apply`` is ported).
+The operator, residual and smoother sweeps go through
+:mod:`repro_torch.kernels.solver3d.ops`, which decides between the CUDA
+kernels K2-K5 (a CUDA tensor) and their plain versions (a CPU tensor, or
+``use_kernel="ref"``) at every level.  The kernels take neither
+``hide=True`` nor a Helmholtz ``shift``: on a CUDA tensor those raise
+unless ``use_kernel="ref"`` asks for the plain version (``hide=True``
+raises everywhere until ``hide_apply`` is ported).
 
 The V-cycle is exposed two ways: :func:`multigrid_solve` iterates cycles to
 tolerance, and :func:`make_v_cycle` builds the cycle as a reusable closure
@@ -40,9 +41,8 @@ import numpy as np
 import torch
 
 from .._device import synchronize
-from ..kernels import dispatch
-from ..kernels.solver3d.kernel import apply_cuda, cheb_cuda, jacobi_cuda, residual_cuda
-from ..kernels.solver3d.ref import center_only, poisson_diag, poisson_stencil
+from ..kernels.solver3d import ops
+from ..kernels.solver3d.ref import center_only, full_diag
 from . import reductions as red
 from . import transfers
 from .cg import SolveInfo
@@ -52,23 +52,6 @@ SMOOTHERS = ("jacobi", "chebyshev")
 
 def _inner(nd: int) -> tuple:
     return (Ellipsis,) + (slice(1, -1),) * nd
-
-
-def _h2(spacing) -> tuple:
-    return tuple(float(s) ** 2 for s in spacing)
-
-
-def _use_kernel(use_kernel, x, nd, where, *, shift=False) -> bool:
-    """True for the CUDA kernels; raises for what they do not take."""
-    if dispatch.resolve(use_kernel, x, where=where) == "ref":
-        return False
-    if shift:
-        raise NotImplementedError(
-            f"{where}: the CUDA kernels take no Helmholtz shift yet (it comes with the "
-            "two-phase slice); pass use_kernel='ref' for the plain version")
-    if nd != 3:
-        raise ValueError(f"{where}: the CUDA kernels are 3-D, got a {nd}-D grid")
-    return True
 
 
 # ---------------------------------------------------------------------------
@@ -90,13 +73,10 @@ def poisson_apply(grid, u, c, spacing, update_halo=True, hide=False, shift=None,
     if hide:
         raise NotImplementedError(
             "poisson_apply(hide=True) needs core/hide.py::hide_apply, which is not ported yet")
-    kern = _use_kernel(use_kernel, u, len(spacing), "multigrid.poisson_apply",
-                       shift=shift is not None)
+    mode = ops.resolve(use_kernel, u, spacing, shift=shift, where="multigrid.poisson_apply")
     if update_halo:
         grid.update_halo(u)
-    if kern:
-        return apply_cuda(u, c, h2=_h2(spacing))
-    return poisson_stencil(u, c, spacing, shift)
+    return ops.apply_op(u, c, spacing=spacing, shift=shift, use_kernel=mode)
 
 
 # ---------------------------------------------------------------------------
@@ -157,27 +137,22 @@ def make_v_cycle(grid, grids, hs, cs, *, loc: str = "center", shifts=None, nu_pr
     pre/post sweeps (``nu_pre``/``nu_post`` = sweeps resp. polynomial
     degree); the coarsest level always uses ``coarse_sweeps`` Jacobi sweeps.
     On a CUDA tensor every level's residual and sweeps are the kernels
-    K3-K5.
+    K3-K5; the choice is made once, here, for every level.
     """
     if smoother not in SMOOTHERS:
         raise ValueError(f"unknown smoother {smoother!r}; pick from {SMOOTHERS}")
-    center_only(loc, "make_v_cycle")
     nd = grid.ndims
     inner = _inner(nd)
-    kern = _use_kernel(use_kernel, cs[0], nd, "multigrid.v_cycle", shift=shifts is not None)
-    h2s = [_h2(hk) for hk in hs]
+    mode = ops.resolve(use_kernel, cs[0], hs[0], loc=loc, shift=shifts,
+                       where="multigrid.v_cycle")
     singular = shifts is None and all(grid.topo.periodic)
+    shifts = [None] * len(grids) if shifts is None else shifts
 
-    dias = [poisson_diag(ck, hk) for ck, hk in zip(cs, hs)]
-    if shifts is not None:
-        dias = [dk + sk[inner] for dk, sk in zip(dias, shifts)]
-    if kern:
-        # full-shape, safe-to-divide diagonals for the kernels
-        fdias = []
-        for ck, dk in zip(cs, dias):
-            full = torch.ones_like(ck)
-            full[inner] = dk
-            fdias.append(full)
+    # full-shape, safe-to-divide diagonals (ones on the ring)
+    dias = [full_diag(ck, hk) for ck, hk in zip(cs, hs)]
+    for dk, sk in zip(dias, shifts):
+        if sk is not None:
+            dk[inner] += sk[inner]
 
     def _demean(level, f):
         g = grids[level]
@@ -186,26 +161,13 @@ def make_v_cycle(grid, grids, hs, cs, *, loc: str = "center", shifts=None, nu_pr
 
     def residual(level, u, f):
         """f - A u on the interior, zero ring (u halo-consistent)."""
-        if kern:
-            return residual_cuda(u, cs[level], f, h2=h2s[level])
-        Au = poisson_apply(grids[level], u, cs[level], hs[level], update_halo=False,
-                           use_kernel="ref", shift=None if shifts is None else shifts[level])
-        r = torch.zeros_like(u)
-        r[inner] = f[inner] - Au[inner]
-        return r
-
-    def add_inner(u, d):
-        out = u.clone()
-        out[inner] += d
-        return out
+        return ops.residual_op(u, cs[level], f, spacing=hs[level], shift=shifts[level],
+                               use_kernel=mode)
 
     def jacobi(level, u, f, iters):
         for _ in range(iters):
-            if kern:
-                u = jacobi_cuda(u, cs[level], f, fdias[level], omega=omega, h2=h2s[level])
-            else:
-                r = residual(level, u, f)
-                u = add_inner(u, omega * r[inner] / dias[level])
+            u = ops.jacobi_sweep(u, cs[level], f, dias[level], omega=omega, spacing=hs[level],
+                                 shift=shifts[level], use_kernel=mode)
             grid.update_halo(u)
         return u
 
@@ -217,12 +179,8 @@ def make_v_cycle(grid, grids, hs, cs, *, loc: str = "center", shifts=None, nu_pr
         for k in range(degree):
             a = None if k == 0 else rhos[k] * rhos[k - 1]
             b = theta if k == 0 else 2.0 * rhos[k] / delta
-            if kern:
-                u, d = cheb_cuda(u, cs[level], f, fdias[level], d, a=a, b=b, h2=h2s[level])
-            else:
-                z = residual(level, u, f)[inner] / dias[level]
-                d = z / b if a is None else a * d + b * z
-                u = add_inner(u, d)
+            u, d = ops.cheb_sweep(u, cs[level], f, dias[level], d, a=a, b=b, spacing=hs[level],
+                                  shift=shifts[level], use_kernel=mode)
             grid.update_halo(u)
         return u
 

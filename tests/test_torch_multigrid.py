@@ -7,9 +7,10 @@ against the JAX package's ``solvers/multigrid.py`` and ``transfers.py``.
   1e-14 (rtol = atol: the same expressions, rounded alike except for the
   order of a few sums);
 * ``build_coefficients`` and one V-cycle application (Jacobi and
-  Chebyshev, Dirichlet and all-periodic) from a seeded rhs, with the
-  cycle's residual, on 8 blocks and on one block of the same 18^3 global
-  grid, f64, to 1e-12 relative to the field's largest value.
+  Chebyshev, Dirichlet and all-periodic, with and without a per-level
+  Helmholtz shift) from a seeded rhs, with the cycle's residual, on 8
+  blocks and on one block of the same 18^3 global grid, f64, to 1e-12
+  relative to the field's largest value.
 
 The reference runs once in a module-scoped child process with 8 fake CPU
 devices; arrays travel as ``.npy`` files made from a numpy seed.
@@ -29,6 +30,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 
 from _mp import run  # noqa: E402
 from repro_torch.core import init_global_grid  # noqa: E402
+from repro_torch.kernels import dispatch  # noqa: E402
 from repro_torch.kernels.solver3d import kernel as sk  # noqa: E402
 from repro_torch.solvers import multigrid as mg  # noqa: E402
 from repro_torch.solvers import transfers  # noqa: E402
@@ -42,14 +44,18 @@ HIERARCHY_CASES = {
 }
 SP = (0.5, 0.7, 1.1)
 LOCAL = (10, 6, 8)
-# name: dims, local extent, periodic, smoother
+# name: dims, local extent, periodic, smoother, shifted (per-level shifts
+# coarsened from one seeded field, as the coefficients are)
 CYCLES = {
-    "8_jacobi": ((2, 2, 2), 10, False, "jacobi"),
-    "1_jacobi": ((1, 1, 1), 18, False, "jacobi"),
-    "8_chebyshev": ((2, 2, 2), 10, False, "chebyshev"),
-    "1_chebyshev": ((1, 1, 1), 18, False, "chebyshev"),
-    "8_jacobi_periodic": ((2, 2, 2), 10, True, "jacobi"),
-    "1_chebyshev_periodic": ((1, 1, 1), 18, True, "chebyshev"),
+    "8_jacobi": ((2, 2, 2), 10, False, "jacobi", False),
+    "1_jacobi": ((1, 1, 1), 18, False, "jacobi", False),
+    "8_chebyshev": ((2, 2, 2), 10, False, "chebyshev", False),
+    "1_chebyshev": ((1, 1, 1), 18, False, "chebyshev", False),
+    "8_jacobi_periodic": ((2, 2, 2), 10, True, "jacobi", False),
+    "1_chebyshev_periodic": ((1, 1, 1), 18, True, "chebyshev", False),
+    "8_jacobi_shift": ((2, 2, 2), 10, False, "jacobi", True),
+    "1_chebyshev_shift": ((1, 1, 1), 18, False, "chebyshev", True),
+    "8_chebyshev_periodic_shift": ((2, 2, 2), 10, True, "chebyshev", True),
 }
 SPACING = (1 / 17, 1 / 17, 1 / 17)
 
@@ -83,23 +89,25 @@ np.save(TMP + "/apply_shift.npy", np.asarray(
     mg.poisson_apply(None, a, c, {sp!r}, update_halo=False, shift=s)))
 
 mesh1 = make_grid_mesh(3, dims=(1, 1, 1), devices=jax.devices()[:1])
-for name, (dims, n, per, smoother) in {cycles!r}.items():
+for name, (dims, n, per, smoother, shifted) in {cycles!r}.items():
     kw = dict(mesh=mesh1) if dims == (1, 1, 1) else dict(dims=dims)
     g = init_global_grid(n, n, n, periodic=(per,) * 3, dtype=jnp.float64, **kw)
     grids = g.hierarchy()
     hs = mg.level_spacings(g, grids, {spacing!r})
     C = g.scatter(np.load(f"{{TMP}}/C_{{per}}.npy"))
     F = g.scatter(np.load(f"{{TMP}}/F_{{per}}.npy"))
+    S = g.scatter(np.load(f"{{TMP}}/S_{{per}}.npy"))
 
-    def local(c, f):
+    def local(c, f, s):
         cs = mg.build_coefficients(g, grids, c)
-        v_cycle, residual = mg.make_v_cycle(g, grids, hs, cs, smoother=smoother)
+        ss = mg.build_coefficients(g, grids, s) if shifted else None
+        v_cycle, residual = mg.make_v_cycle(g, grids, hs, cs, shifts=ss, smoother=smoother)
         u = v_cycle(0, jnp.zeros_like(f), f)
         return (u, residual(0, u, f)) + tuple(cs)
 
-    sm = jax.shard_map(local, mesh=g.mesh, in_specs=(g.spec, g.spec),
+    sm = jax.shard_map(local, mesh=g.mesh, in_specs=(g.spec, g.spec, g.spec),
                        out_specs=tuple(g.spec for _ in range(2 + len(grids))), check_vma=False)
-    outs = jax.jit(sm)(C, F)
+    outs = jax.jit(sm)(C, F, S)
     for k, o in enumerate(outs):
         np.save(f"{{TMP}}/cycle_{{name}}_{{k}}.npy", np.asarray(o))
 print("OK")
@@ -133,6 +141,13 @@ def _global_fields():
     return out
 
 
+def _shift_field(per):
+    """A seeded positive Helmholtz shift of the same order as the
+    operator's diagonal on the 18^3 grid (wrap-consistent if ``per``)."""
+    rng = np.random.RandomState(4)
+    return _wrap(100.0 + 500.0 * rng.rand(18, 18, 18), per)
+
+
 def _locals():
     rng = np.random.RandomState(2)
     return {n: rng.rand(*LOCAL) + (0.5 if n == "c" else 0.0) for n in "acs"}
@@ -146,6 +161,7 @@ def reference(tmp_path_factory):
     for per, (C, F) in _global_fields().items():
         np.save(tmp / f"C_{per}.npy", C)
         np.save(tmp / f"F_{per}.npy", F)
+        np.save(tmp / f"S_{per}.npy", _shift_field(per))
     run(REFERENCE.format(tmp=str(tmp), hier=HIERARCHY_CASES, sp=SP, cycles=CYCLES,
                          spacing=SPACING), ndev=8)
     return tmp, json.loads((tmp / "hierarchy.json").read_text())
@@ -193,7 +209,7 @@ def test_transfers_and_operator_vs_reference(reference):
 @pytest.mark.parametrize("name", list(CYCLES))
 def test_build_coefficients_and_one_v_cycle(reference, name):
     tmp, _ = reference
-    dims, n, per, smoother = CYCLES[name]
+    dims, n, per, smoother, shifted = CYCLES[name]
     g = init_global_grid(n, n, n, dims=dims, periodic=(per,) * 3, dtype=torch.float64,
                          device="cpu")
     grids = g.hierarchy()
@@ -203,7 +219,8 @@ def test_build_coefficients_and_one_v_cycle(reference, name):
     c0 = c.clone()
     cs = mg.build_coefficients(g, grids, c)
     assert torch.equal(c, c0)   # the caller's field is not touched
-    v_cycle, residual = mg.make_v_cycle(g, grids, hs, cs, smoother=smoother)
+    ss = mg.build_coefficients(g, grids, g.scatter(_shift_field(per))) if shifted else None
+    v_cycle, residual = mg.make_v_cycle(g, grids, hs, cs, shifts=ss, smoother=smoother)
     u = v_cycle(0, torch.zeros_like(f), f)
     got = [u, residual(0, u, f)] + cs
     assert len(got) == 2 + len(grids)
@@ -229,7 +246,7 @@ def test_what_the_kernels_do_not_take_raises(monkeypatch):
         mg.poisson_apply(g, u, u, SPACING, use_kernel="cuda")
     # where the kernels would run, a Helmholtz shift raises instead of
     # falling back to the plain version; use_kernel="ref" runs it
-    monkeypatch.setattr(mg.dispatch, "resolve",
+    monkeypatch.setattr(dispatch, "resolve",
                         lambda use_kernel, x, where="": "ref" if use_kernel == "ref" else "cuda")
     n0 = sk.apply_cuda.launches
     with pytest.raises(NotImplementedError, match="shift"):

@@ -212,9 +212,8 @@ def _ring_mask(shape, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("divide", [False, True])
 @pytest.mark.parametrize("dt", list(DTYPES))
-def test_kernels_vs_plain_on_card(cuda_device, dt, divide):
+def test_kernels_vs_plain_on_card(cuda_device, dt):
     dtype, tol = DTYPES[dt]
     rng = np.random.RandomState(8)
     for shape in [(1, 10, 10, 10), (8, 34, 18, 66), (2, 2, 2, 18, 10, 34)]:
@@ -226,16 +225,16 @@ def test_kernels_vs_plain_on_card(cuda_device, dt, divide):
             ring = _ring_mask(a_u.shape, cuda_device)
             n0 = [k.launches for k in (apply_cuda, residual_cuda, jacobi_cuda, cheb_cuda)]
             pairs = {
-                "apply": (apply_cuda(a_u, a_c, h2=H2, divide=divide),
+                "apply": (apply_cuda(a_u, a_c, h2=H2),
                           apply_op_ref(a_u, a_c, SP), 0),
-                "residual": (residual_cuda(a_u, a_c, a_f, h2=H2, divide=divide),
+                "residual": (residual_cuda(a_u, a_c, a_f, h2=H2),
                              residual_op_ref(a_u, a_c, a_f, SP), 0),
-                "jacobi": (jacobi_cuda(a_u, a_c, a_f, a_dia, omega=OMEGA, h2=H2, divide=divide),
+                "jacobi": (jacobi_cuda(a_u, a_c, a_f, a_dia, omega=OMEGA, h2=H2),
                            jacobi_sweep_ref(a_u, a_c, a_f, a_dia, omega=OMEGA, spacing=SP), a_u),
             }
             for a, b in CHEB:
                 ku, kd = cheb_cuda(a_u, a_c, a_f, a_dia, None if a is None else a_d, a=a, b=b,
-                                   h2=H2, divide=divide)
+                                   h2=H2)
                 ru, rd = cheb_sweep_ref(a_u, a_c, a_f, a_dia, a_d, a=a, b=b, spacing=SP)
                 pairs[f"cheb(a={a}) u"] = (ku, ru, a_u)
                 pairs[f"cheb(a={a}) d"] = (kd, rd, 0)
