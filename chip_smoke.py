@@ -2,9 +2,10 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels (K1 heat step, K2-K5 solver operators) from
-the sources in this checkout and holds each against its plain PyTorch
-version on the card.  Then it drives two paths through the kernels:
+Builds the port's CUDA kernels (K1 heat step, K2-K5 solver operators on
+cell centers and on faces) from the sources in this checkout and holds each
+against its plain PyTorch version on the card.  Then it drives three paths
+through the kernels:
 
 * the paper's Fig.-1 heat solver (``repro_torch.apps.Heat3D``) at 512^3
   cells on one rank and at 8 x 256^3 on eight virtual ranks, with and
@@ -12,7 +13,13 @@ version on the card.  Then it drives two paths through the kernels:
 * the variable-coefficient Poisson solve (``repro_torch.apps.Poisson3D``):
   every method at 18^3 global cells against the reference's iteration
   counts and the NumPy oracle, then mgcg, pipemgcg, Chebyshev multigrid
-  and 100 CG iterations at 514^3 f64 on one rank and on 8 x 258^3.
+  and 100 CG iterations at 514^3 f64 on one rank and on 8 x 258^3;
+* the staggered Stokes flagship (``repro_torch.apps.Stokes3D``): every
+  velocity preconditioner, Schur-CG and Uzawa at 14^3 global cells against
+  the reference's iteration counts, the NumPy oracle and the face-kernel
+  launch counts the cycle code implies; face multigrid on each face
+  location; then the velocity solves at 386^3 f64 on one rank and on
+  8 x 194^3, and one Schur-CG solve at 386^3.
 
 Times come from CUDA events or from host clocks around synchronised work.
 Every phase prints one line; any failure raises and exits non-zero.  The
@@ -420,6 +427,479 @@ def solver_phases(dev, rand) -> list:
     return entries
 
 
+# ---------------------------------------------------------------------------
+# the staggered slice: K2-K5 face and the Stokes path
+# ---------------------------------------------------------------------------
+
+FACE_LOCS = ("xface", "yface", "zface")
+FACE_OPS = ("apply", "residual", "jacobi", "cheb")
+FACE_REPLACES = {"apply": "src/repro/kernels/solver3d/kernel.py:236",
+                 "residual": "src/repro/kernels/solver3d/kernel.py:242",
+                 "jacobi": "src/repro/kernels/solver3d/kernel.py:250",
+                 "cheb": "src/repro/kernels/solver3d/kernel.py:258"}
+# words per cell (inputs read once, outputs written once; the mask is an
+# input of K3-K5) and f64 operations per cell, counted from solver3d.cu's
+# face_au (35 for A u: 6 own-dim, 13 per cross dim, 3 to sum and negate;
+# +2 residual, +3 Jacobi, +5 Chebyshev, +3 on its first step)
+FACE_WORDS = {"apply": 3, "residual": 5, "jacobi": 6, "cheb": 8, "cheb_first": 7}
+FACE_FLOP_PER_CELL = {"apply": 35, "residual": 37, "jacobi": 40, "cheb": 42, "cheb_first": 40}
+# The reference's iteration counts at Stokes3D(nx=8, ny=8, nz=8, dims=(2,2,2)) f64
+# (14^3 global), velocity solves at tol=1e-8: classic "face" 17, "stress" 7,
+# None 77 and stripped "face" 11 are tests/test_convergence_regression.py's and
+# the tentpole issue's table; "center" 18, pipelined "stress" 8 / "face" 18 and
+# free slip "stress" 19 are tests/test_torch_stokes.py's reference run; pipelined
+# None 78 / "center" 19 and stripped pipelined "face" 12 a run of the same
+# reference code on the CPU (jax 0.9.0, 8 fake devices).
+STOKES_VELOCITY = {
+    # name: (stress, bc, precond, variant, iterations)
+    "face": ("full", "noslip", "face", "classic", 17),
+    "stress": ("full", "noslip", "stress", "classic", 7),
+    "none": ("full", "noslip", None, "classic", 77),
+    "center": ("full", "noslip", "center", "classic", 18),
+    "face_pipelined": ("full", "noslip", "face", "pipelined", 18),
+    "stress_pipelined": ("full", "noslip", "stress", "pipelined", 8),
+    "none_pipelined": ("full", "noslip", None, "pipelined", 78),
+    "center_pipelined": ("full", "noslip", "center", "pipelined", 19),
+    "stripped_face": ("stripped", "noslip", "face", "classic", 11),
+    "stripped_face_pipelined": ("stripped", "noslip", "face", "pipelined", 12),
+    "freeslip_stress": ("full", "freeslip", "stress", "classic", 19),
+}
+# solve(tol=1e-6): (outer, total inner, first inner), the reference's
+# compiled=False loop (tests/test_torch_stokes_schur.py, test_torch_stokes_uzawa.py
+# reference runs; the issue's table)
+STOKES_SOLVES = {
+    "schur_face": (dict(method="schur", precond="face"), (10, 193, 17)),
+    "schur_stress": (dict(method="schur", precond="stress"), (10, 84, 7)),
+    "uzawa": (dict(method="uzawa"), (52, 212, 7)),
+}
+# multigrid_solve cycles on each face location at tol=1e-10, the reference's
+# configuration of tests/test_solvers.py:572-610 (tests/test_torch_face_mg.py's
+# reference run)
+FACE_MG_CYCLES = {(loc, sm): k for loc in FACE_LOCS for sm, k in (("jacobi", 23), ("chebyshev", 21))}
+
+
+def face_bound(op: str, n_cells: int, itemsize: int = 8):
+    """Least time (ms) of one face launch: bytes over the memory rate or f64
+    operations over the f64 rate, whichever is larger."""
+    t_bytes = FACE_WORDS[op] * n_cells * itemsize / HBM_BYTES_PER_S * 1e3
+    t_ops = FACE_FLOP_PER_CELL[op] * n_cells / F64_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def face_inputs(sk, grid, loc, rand, spacing, dtype=None):
+    """Random u, c (> 0.5), f, d on ``grid`` with the location's real interior
+    mask and its masked diagonal."""
+    from repro_torch.core import locations as L
+
+    dtype = dtype or grid.dtype
+    u, c, f, d = (rand(grid.shape, dtype) for _ in range(4))
+    c = c + 0.5
+    m = L.interior_mask(grid, loc, dtype)
+    return dict(u=u, c=c, f=f, d=d, m=m, dia=sk.full_diag(c, spacing, loc, m))
+
+
+def face_calls(sk, x, loc, spacing):
+    """{name: (kernel call, plain call)} for K2-K5 face on the inputs ``x``;
+    K5 on its first step and on a later one."""
+    from repro_torch.core import locations as L
+
+    sd, h2 = L.stagger_dim(loc), tuple(s * s for s in spacing)
+    u, c, f, d, m, dia = (x[k] for k in ("u", "c", "f", "d", "m", "dia"))
+    return {
+        "apply": (lambda: sk.apply_face_cuda(u, c, sd=sd, h2=h2),
+                  lambda: sk.apply_op_ref(u, c, spacing, loc)),
+        "residual": (lambda: sk.residual_face_cuda(u, c, f, m, sd=sd, h2=h2),
+                     lambda: sk.residual_op_ref(u, c, f, spacing, loc, imask=m)),
+        "jacobi": (lambda: sk.jacobi_face_cuda(u, c, f, dia, m, sd=sd, omega=OMEGA, h2=h2),
+                   lambda: sk.jacobi_sweep_ref(u, c, f, dia, omega=OMEGA, spacing=spacing,
+                                               loc=loc, imask=m)),
+        "cheb_first": (lambda: sk.cheb_face_cuda(u, c, f, dia, m, None, sd=sd, a=None, b=1.25,
+                                                 h2=h2),
+                       lambda: sk.cheb_sweep_ref(u, c, f, dia, d, a=None, b=1.25, spacing=spacing,
+                                                 loc=loc, imask=m)),
+        "cheb": (lambda: sk.cheb_face_cuda(u, c, f, dia, m, d, sd=sd, a=0.3, b=0.9, h2=h2),
+                 lambda: sk.cheb_sweep_ref(u, c, f, dia, d, a=0.3, b=0.9, spacing=spacing,
+                                           loc=loc, imask=m)),
+    }
+
+
+def check_face_kernels(sk, x, loc, spacing, tol: float, where: str) -> dict:
+    """Each face kernel against its plain version on the same inputs: every
+    cell normwise within ``tol`` (the wrapped ring and dead plane included),
+    the masked cells of K3-K5 bitwise.  Returns max |err| per kernel."""
+    u, masked = x["u"], (x["m"] == 0).expand(x["u"].shape)
+    errs = {}
+    for name, (kern, plain) in face_calls(sk, x, loc, spacing).items():
+        got = kern()
+        torch.cuda.synchronize()
+        want = plain()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        err = 0.0
+        for g, w in zip(got, want):
+            if g.shape != u.shape or g.dtype != u.dtype or not g.is_contiguous():
+                fail(f"{where} {loc} {name}: kernel gave {tuple(g.shape)} {g.dtype}")
+            e = (g.double() - w.double()).abs().max().item()
+            scale = max(w.double().abs().max().item(), 1.0)
+            if not e <= tol * scale:
+                fail(f"{where} {loc} {name}: kernel differs from the plain version, "
+                     f"max |err| {e} > {tol} * {scale}")
+            if name != "apply" and not torch.equal(g[masked], w[masked]):
+                fail(f"{where} {loc} {name}: masked cells not bitwise equal to the plain version")
+            err = max(err, e)
+        errs[name] = err
+        del got, want
+    return errs
+
+
+def face_counts(sk) -> dict:
+    return {k: getattr(sk, f"{k}_face_cuda").launches for k in FACE_OPS}
+
+
+def center_counts(sk) -> dict:
+    return {k: getattr(sk, f"{k}_cuda").launches for k in FACE_OPS}
+
+
+def diff(a: dict, b: dict) -> dict:
+    return {k: a[k] - b[k] for k in a}
+
+
+def cycle_launches(cycles: int, levels: int, leaves: int = 3, sweeps: int = 2,
+                   coarse: int = 50) -> dict:
+    """K2-K5 launches of ``cycles`` V-cycles of CyclePreconditioner's default
+    (Jacobi, nu_pre = nu_post = 1, 50 coarse sweeps) on each of ``leaves``
+    fields: per cycle and leaf one K3 and ``sweeps`` K4 on every level but
+    the coarsest, ``coarse`` K4 there."""
+    return {"apply": 0, "residual": leaves * cycles * (levels - 1),
+            "jacobi": leaves * cycles * (sweeps * (levels - 1) + coarse), "cheb": 0}
+
+
+def cg_cycles(variant: str, k: int) -> int:
+    """Preconditioner applications of a CG solve of ``k`` iterations: one per
+    iteration plus one (classic), or plus two per segment of 50 (pipelined)."""
+    return k + 1 if variant == "classic" else k + 2 * -(-k // 50)
+
+
+def cg_applies(variant: str, k: int) -> int:
+    """Operator applications of a CG solve of ``k`` iterations."""
+    return k + 1 if variant == "classic" else 1 + 4 * -(-k // 50) + k
+
+
+def oracle_errors(app, V, P) -> tuple[float, float]:
+    """The reference's criterion (tests/test_apps.py): velocity and interior
+    pressure against Stokes3D.oracle(tol=1e-9), relative to their largest
+    values."""
+    from repro_torch import fields
+
+    Vx, Vy, Vz, Po = app.oracle(tol=1e-9)
+    ref = {"vx": Vx[:-1, :, :], "vy": Vy[:, :-1, :], "vz": Vz[:, :, :-1]}
+    scale = max(np.abs(r).max() for r in ref.values())
+    verr = max(np.abs(fields.gather(V[k]) - ref[k]).max() / scale for k in ref)
+    inner = (slice(1, -1),) * 3
+    gp, rp = app.grid.gather(P.data)[inner], Po[inner]
+    return float(verr), float(np.abs(gp - rp).max() / np.abs(rp).max())
+
+
+def categories(run, steps: int) -> dict:
+    """Device time per step by kind (the solver kernels, PyTorch's elementwise
+    and reduction kernels, copies, the exchange's rolls) and the idle share,
+    from the profiler's CUDA activity over ``run()``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    ev = [(e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+          if e.device_type == DeviceType.CUDA]
+    if not ev:
+        return {"device_time": "not measured"}
+    kinds = (("face_kernels", ("_face_kernel<",)),
+             ("center_kernels", ("apply_kernel<", "residual_kernel<", "jacobi_kernel<",
+                                 "cheb_kernel<")),
+             ("roll", ("roll",)), ("reduce", ("reduce",)), ("copy", ("copy", "Copy", "Memcpy")),
+             ("elementwise", ("elementwise",)))
+    by_kind: dict = {}
+    busy, end = 0.0, -math.inf
+    for s_, e_, name in sorted(ev):
+        kind = next((k for k, keys in kinds if any(key in name for key in keys)), "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + (e_ - s_) / steps / 1e3
+        if e_ > end:
+            busy += e_ - max(s_, end)
+            end = e_
+    return {"ms_per_iteration_by_kind": json.dumps({k: round(v, 3) for k, v in
+                                                    sorted(by_kind.items())}).replace(" ", ""),
+            "device_busy_ms_per_iteration": busy / steps / 1e3,
+            "wall_ms_per_iteration": wall_us / steps / 1e3, "idle_share": 1 - busy / wall_us}
+
+
+FULL = (("1x386^3", 386, (1, 1, 1)), ("8x194^3", 194, (2, 2, 2)))   # the flagship's configs
+
+
+def face_kernel_checks(sk, rand, full=FULL) -> dict:
+    """Phase 13: K2-K5 face against their plain versions; returns the max
+    |err| per kernel over the main path's level shapes."""
+    from repro_torch.core import init_global_grid
+    from repro_torch.solvers import level_spacings
+
+    errs = {}
+    for dtype in (torch.float32, torch.float64):
+        for dims, local in (((1, 1, 1), (9, 7, 11)), ((2, 2, 2), (10, 6, 8)),
+                            ((1, 1, 1), (34, 18, 66))):
+            g = init_global_grid(*local, dims=dims, dtype=dtype)
+            sp = (0.5, 0.7, 1.1)
+            for loc in FACE_LOCS:
+                x = face_inputs(sk, g, loc, rand, sp)
+                e = check_face_kernels(sk, x, loc, sp, SOLVER_TOL[dtype], f"{dtype} {g.shape}")
+                errs[f"{str(dtype)[6:]}:{g.shape}:{loc}".replace(" ", "")] = max(e.values())
+                view = {k: v[..., 1:7, :, 2:6] for k, v in x.items()}   # a strided view
+                e = check_face_kernels(sk, view, loc, sp, SOLVER_TOL[dtype], f"{dtype} strided")
+                errs[f"{str(dtype)[6:]}:strided:{loc}"] = max(e.values())
+    # the main path's own shapes: every level of both full-size hierarchies
+    main_errs, level_errs = {}, {}
+    for _, n, dims in full:
+        g0 = init_global_grid(n, n, n, dims=dims, dtype=torch.float64)
+        grids = g0.hierarchy()
+        h = 1.0 / (g0.nx_g() - 1)
+        for g, sp in zip(grids, level_spacings(g0, grids, (h, h, h))):
+            for loc in FACE_LOCS:
+                x = face_inputs(sk, g, loc, rand, sp)
+                e = check_face_kernels(sk, x, loc, sp, SOLVER_TOL[torch.float64],
+                                       f"{math.prod(dims)}x{g.local_shape[0]}^3")
+                name = f"{math.prod(dims)}x{g.local_shape[0]}^3"
+                level_errs[name] = max(level_errs.get(name, 0.0), max(e.values()))
+                main_errs = {k: max(v, main_errs.get(k, 0.0)) for k, v in e.items()}
+                del x
+        torch.cuda.empty_cache()
+    say("face_kernels", small=json.dumps(errs).replace(" ", ""),
+        main_path_levels=json.dumps(level_errs).replace(" ", ""),
+        main_path_max=json.dumps(main_errs).replace(" ", ""), status="ok")
+    return main_errs
+
+
+def stokes_small(sk) -> None:
+    """Phase 14: the Stokes path at the reference's size (14^3 global on 8
+    blocks): iteration counts, launch counts, the oracle."""
+    from repro_torch import fields
+    from repro_torch.apps import Stokes3D
+
+    apps = {}
+
+    def app_for(stress, bc):
+        if (stress, bc) not in apps:
+            apps[stress, bc] = Stokes3D(nx=8, ny=8, nz=8, dims=(2, 2, 2), stress=stress, bc=bc)
+        return apps[stress, bc]
+
+    levels = len(app_for("full", "noslip").grid.hierarchy())
+    rows = []
+    for name, (stress, bc, precond, variant, want_k) in STOKES_VELOCITY.items():
+        app = app_for(stress, bc)
+        f0, c0 = face_counts(sk), center_counts(sk)
+        V, info = app.velocity_solve(precond=precond, tol=1e-8, variant=variant)
+        fl, cl = diff(face_counts(sk), f0), diff(center_counts(sk), c0)
+        k = info.iterations
+        if k != want_k:
+            fail(f"stokes {name}: {k} iterations, the reference takes {want_k}")
+        cycles = cg_cycles(variant, k)
+        want_f = cycle_launches(cycles, levels) if precond == "face" else cycle_launches(0, levels)
+        if stress == "stripped":
+            want_f["apply"] = 3 * cg_applies(variant, k)
+        want_c = cycle_launches(cycles, levels) if precond == "center" else cycle_launches(0, levels)
+        if fl != want_f or cl != want_c:
+            fail(f"stokes {name}: face launches {fl} / center launches {cl}, the cycle code makes "
+                 f"{want_f} / {want_c}")
+        rm, _ = app.residuals(V, fields.zeros(app.grid, "center"))
+        if not (info.converged and rm <= 1e-8):
+            fail(f"stokes {name}: relres {info.relres}, recomputed {rm}")
+        rows.append(f"{name}={k}")
+        say("stokes_small", solve=name, iterations=k, relres=info.relres, recomputed=rm,
+            face_launches=json.dumps(fl).replace(" ", ""),
+            center_launches=json.dumps(cl).replace(" ", ""))
+    app = app_for("full", "noslip")
+    for name, (kw, want) in STOKES_SOLVES.items():
+        for compiled in ((False, True) if kw["method"] == "schur" else (False,)):
+            f0 = face_counts(sk)
+            t0 = time.perf_counter()
+            V, P, info = app.solve(tol=1e-6, compiled=compiled, **kw)
+            seconds = time.perf_counter() - t0
+            fl = diff(face_counts(sk), f0)
+            got = (info.outer_iterations, info.inner_iterations, info.first_inner_iterations)
+            if got != want:
+                fail(f"stokes {name} compiled={compiled}: (outer, inner, first) {got}, the "
+                     f"reference takes {want}")
+            cycles = info.inner_iterations + info.outer_iterations + 2
+            want_f = cycle_launches(cycles if kw.get("precond") == "face" else 0, levels)
+            if fl != want_f:
+                fail(f"stokes {name}: face launches {fl}, the cycle code makes {want_f}")
+            verr, perr = oracle_errors(app, V, P)
+            if not (info.converged and info.relres_momentum < 1e-4 and verr < 1e-4
+                    and perr < 1e-4):
+                fail(f"stokes {name}: {info}, oracle errors {verr} {perr}")
+            rows.append(f"{name}{'_compiled' if compiled else ''}={got}".replace(" ", ""))
+            say("stokes_small", solve=name, compiled=compiled, outer=got[0], inner=got[1],
+                first_inner=got[2], relres_div=info.relres_div,
+                relres_momentum=info.relres_momentum, oracle_v_err=verr, oracle_p_err=perr,
+                seconds=seconds, face_launches=json.dumps(fl).replace(" ", ""))
+    del apps, app
+    say("stokes_small", iterations_equal_reference=" ".join(rows))
+
+
+def face_mg_small(sk) -> None:
+    """Phase 15: face multigrid at the reference's configuration (K5 face on
+    a solver path)."""
+    from repro_torch import fields, solvers
+    from repro_torch.core import init_global_grid
+
+    g = init_global_grid(10, 10, 10, dims=(2, 2, 2), dtype=torch.float64)
+    rng = np.random.RandomState(0)
+    c = fields.Field(g, g.update_halo(
+        fields.scatter(g, 1.0 + 0.5 * rng.rand(*g.global_shape)).data), "center")
+    mg_levels = len(g.hierarchy())
+    for loc in FACE_LOCS:
+        b = fields.from_global_fn(
+            g, lambda ix, iy, iz: torch.sin(ix * 0.3) + torch.cos(iy * 0.2 + iz * 0.1), loc)
+        b = b * (fields.interior_mask(g, loc) * fields.valid_mask(g, loc))
+        for smoother in ("jacobi", "chebyshev"):
+            f0 = face_counts(sk)
+            x, info = solvers.multigrid_solve(g, c, b, (0.1, 0.1, 0.1), tol=1e-10,
+                                              smoother=smoother)
+            fl = diff(face_counts(sk), f0)
+            k = info.iterations
+            if k != FACE_MG_CYCLES[loc, smoother]:
+                fail(f"face mg {loc} {smoother}: {k} cycles, the reference takes "
+                     f"{FACE_MG_CYCLES[loc, smoother]}")
+            sweeps = (mg_levels - 1) * 4
+            want_f = {"apply": 0, "residual": 1 + k * mg_levels,
+                      "jacobi": k * (100 + (sweeps if smoother == "jacobi" else 0)),
+                      "cheb": k * sweeps if smoother == "chebyshev" else 0}
+            if fl != want_f or x.loc != loc or not (info.converged and info.relres <= 1e-10):
+                fail(f"face mg {loc} {smoother}: launches {fl} (want {want_f}), {info}")
+            say("face_mg_small", loc=loc, smoother=smoother, cycles=k, relres=info.relres,
+                face_launches=json.dumps(fl).replace(" ", ""))
+    del g, c, b, x
+
+
+def stokes_full(sk, full=FULL) -> None:
+    """Phase 16: the flagship at full width, 386^3 f64 on 1 and 8 ranks."""
+    from repro_torch import fields
+    from repro_torch.apps import Stokes3D
+
+    shape = None
+    for name, n, dims in full:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        app = Stokes3D(nx=n, ny=n, nz=n, dims=dims)
+        shape = shape or app.grid.global_shape
+        if app.grid.global_shape != shape:
+            fail(f"{name}: global shape {app.grid.global_shape}, not {shape}")
+        P0 = fields.zeros(app.grid, "center")
+        for precond in ("face", "stress"):
+            torch.cuda.synchronize()
+            f0 = face_counts(sk)
+            V, info = app.velocity_solve(precond=precond, tol=1e-8)
+            fl = diff(face_counts(sk), f0)
+            rm, dn = app.residuals(V, P0)
+            if not (info.converged and rm <= 1e-8 and math.isfinite(dn)):
+                fail(f"{name} {precond}: relres {info.relres}, recomputed {rm}")
+            say("stokes_full", config=name, precond=precond, iterations=info.iterations,
+                seconds=info.wall_s, ms_per_iteration=1e3 * info.s_per_iter(),
+                t_eff_GBps=app.t_eff(info), relres=info.relres, recomputed=rm,
+                face_launches_per_iteration=json.dumps(
+                    {k: v / info.iterations for k, v in fl.items()}).replace(" ", ""),
+                peak_GB=torch.cuda.max_memory_allocated() / 1e9)
+            del V
+        if dims == (1, 1, 1):
+            t0 = time.perf_counter()
+            V, P, info = app.solve(tol=1e-6, method="schur", precond="face")
+            seconds = time.perf_counter() - t0
+            rm, dn = app.residuals(V, P)
+            if not (info.converged and info.relres_div <= 1e-6 and rm < 1e-4):
+                fail(f"{name} schur: {info}, recomputed momentum residual {rm}")
+            say("stokes_full", config=name, solve="schur face", outer=info.outer_iterations,
+                inner=info.inner_iterations, seconds=seconds,
+                ms_per_inner_iteration=1e3 * seconds / info.inner_iterations,
+                relres_div=info.relres_div, relres_momentum=info.relres_momentum,
+                recomputed_momentum=rm, div_norm=dn,
+                peak_GB=torch.cuda.max_memory_allocated() / 1e9)
+            del V, P
+            for precond, its in (("face", 5), ("stress", 2)):
+                app.velocity_solve(precond=precond, tol=0.0, maxiter=1)
+                say("breakdown", config=f"{name} velocity {precond}",
+                    **categories(lambda: app.velocity_solve(precond=precond, tol=0.0,
+                                                            maxiter=its), its))
+        del app, P0
+
+
+def stokes_phases(rand) -> list:
+    from repro_torch.kernels import solver3d as sk
+
+    # ---- 13. K2-K5 face against their plain versions ------------------------
+    main_errs = face_kernel_checks(sk, rand)
+    # ---- 14-16. the staggered path: every count zeroed just before, read after
+    for w in sk.WRAPPERS:
+        w.launches = 0
+    stokes_small(sk)
+    face_mg_small(sk)
+    stokes_full(sk)
+    path = face_counts(sk)
+    for k, v in path.items():
+        if v == 0:
+            fail(f"the staggered path never launched the {k} face kernel")
+    say("stokes_path", face_launches=json.dumps(path).replace(" ", ""),
+        center_launches=json.dumps(center_counts(sk)).replace(" ", ""),
+        peak_GB=torch.cuda.max_memory_allocated() / 1e9)
+    torch.cuda.empty_cache()
+
+    # ---- 17. each face kernel alone at 386^3 f64, in turns -----------------
+    return face_kernel_times(sk, rand, path, main_errs)
+
+
+def face_kernel_times(sk, rand, path, main_errs, n_side: int = 386) -> list:
+    """Phase 17: each face kernel alone on one 386^3 f64 block, each location
+    in turn; returns the kernels' JSON entries (the slowest location)."""
+    from repro_torch.core import init_global_grid
+
+    g = init_global_grid(n_side, n_side, n_side, dtype=torch.float64)
+    h = 1.0 / (n_side - 1)
+    sp = (h, h, h)
+    n = math.prod(g.shape)
+    ops = ("apply", "residual", "jacobi", "cheb_first", "cheb")
+    best = {op: 0.0 for op in ops}
+    plain = {op: 0.0 for op in ops}
+    for loc in FACE_LOCS:
+        x = face_inputs(sk, g, loc, rand, sp)
+        calls = face_calls(sk, x, loc, sp)
+        t = {op: [] for op in ops}
+        for _ in range(2):
+            for op in ops:
+                t[op].append(cuda_time_ms(calls[op][0], reps=20))
+        for op in ops:
+            p_ms = cuda_time_ms(calls[op][1], reps=3, warm=1)
+            bound, bound_by = face_bound(op, n)
+            say("face_kernel", op=op, loc=loc, shape=f"1x{n_side}^3", dtype="float64",
+                ms_runs=t[op],
+                plain_ms=p_ms, bound_ms=bound, bound_by=bound_by, share_of_bound=bound / min(t[op]),
+                achieved_GBps=FACE_WORDS[op] * n * 8 / min(t[op]) / 1e6)
+            best[op] = max(best[op], min(t[op]))   # the slowest location
+            plain[op] = max(plain[op], p_ms)
+        del x, calls
+        torch.cuda.empty_cache()
+    entries = []
+    for op in FACE_OPS:
+        bound, bound_by = face_bound(op, n)
+        entries.append({
+            "name": f"{op}_face", "route": "cuda",
+            "source": "src/repro_torch/kernels/solver3d/csrc/solver3d.cu",
+            "replaces": FACE_REPLACES[op], "launches": path[op],
+            "max_abs_err": main_errs[op] if op != "cheb" else max(main_errs["cheb"],
+                                                                   main_errs["cheb_first"]),
+            "ms": best[op], "plain_ms": plain[op], "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": None})
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible; nothing was run", file=sys.stderr)
@@ -572,8 +1052,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     solver_entries = solver_phases(dev, rand)
+    face_entries = stokes_phases(rand)
 
-    print(json.dumps({"kernels": [k1] + solver_entries}))
+    print(json.dumps({"kernels": [k1] + solver_entries + face_entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

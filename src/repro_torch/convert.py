@@ -2,7 +2,10 @@
 
 For this system the state is the fields: the reference stores each as one
 array of stacked local blocks (``grid.stacked_shape``); the port stores it
-as a ``(*dims, *local_shape)`` tensor on its grid's device.
+as a ``(*dims, *local_shape)`` tensor on its grid's device.  Staggered
+fields travel as :class:`~repro_torch.fields.Field` (a location with the
+tensor) and :class:`~repro_torch.fields.FieldSet` (named Fields), e.g. the
+Stokes viscosity ``eta``, forcing ``F``, pressure ``P`` and velocity ``V``.
 """
 
 from __future__ import annotations
@@ -10,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 
 from .core.grid import ImplicitGlobalGrid
+from .fields import Field, FieldSet
 
 
 def fields_from_reference(grid: ImplicitGlobalGrid, *stacked):
@@ -23,3 +27,24 @@ def fields_to_reference(grid: ImplicitGlobalGrid, *fields) -> tuple[np.ndarray, 
     """Field tensors -> stacked NumPy arrays in the reference's layout."""
     out = tuple(grid.to_stacked(t) for t in fields)
     return out[0] if len(out) == 1 else out
+
+
+def field_from_reference(grid: ImplicitGlobalGrid, stacked, loc: str = "center") -> Field:
+    """One stacked array of the reference (a ``repro.fields.Field``'s
+    ``data``) -> a Field at ``loc``."""
+    return Field(grid, grid.from_stacked(stacked), loc)
+
+
+def fieldset_from_reference(grid: ImplicitGlobalGrid, **named) -> FieldSet:
+    """``name=(stacked array, loc)`` pairs -> a FieldSet, in the given order."""
+    return FieldSet(**{k: field_from_reference(grid, a, loc) for k, (a, loc) in named.items()})
+
+
+def field_to_reference(field: Field) -> tuple[np.ndarray, str]:
+    """A Field -> (stacked NumPy array, location)."""
+    return field.grid.to_stacked(field.data), field.loc
+
+
+def fieldset_to_reference(fset: FieldSet) -> dict:
+    """A FieldSet -> ``{name: (stacked array, loc)}``, in its order."""
+    return {k: field_to_reference(f) for k, f in fset.items()}

@@ -10,6 +10,13 @@ dimension it is staggered along.
 The mask builders return a field ``(*dims, *local_shape)``: every block
 gets the mask of its own rank coordinate.  They take any grid object with
 the :class:`repro_torch.core.grid.ImplicitGlobalGrid` interface.
+
+``repro_torch.fields.Field`` and ``FieldSet`` are recognised here by
+duck-typed markers (:func:`is_field_node`, :func:`is_field_set`), so the
+solvers can take staggered systems without importing ``fields``.
+:func:`tree_leaves`, :func:`tree_map` (over tensors) and :func:`node_map`
+(over Fields) walk such a *tree*: a tensor, a ``Field``, a ``FieldSet`` or
+a tuple/list of them.
 """
 
 from __future__ import annotations
@@ -22,10 +29,67 @@ STAGGER_DIM = {"center": None, "xface": 0, "yface": 1, "zface": 2}
 
 def stagger_dim(loc: str) -> int | None:
     """Grid dimension a location is staggered along (None for center)."""
-    try:
-        return STAGGER_DIM[loc]
-    except KeyError:
-        raise ValueError(f"unknown location {loc!r}; expected one of {LOCATIONS}") from None
+    if loc not in STAGGER_DIM:
+        raise ValueError(f"unknown location {loc!r}; expected one of {LOCATIONS}")
+    return STAGGER_DIM[loc]
+
+
+def face_location(dim: int) -> str:
+    """Face location staggered along grid dimension ``dim``."""
+    return ("xface", "yface", "zface")[dim]
+
+
+def loc_of(x, default: str = "center") -> str:
+    """Location of a field-like object (a ``Field`` or anything with a
+    ``loc`` attribute); ``default`` for bare tensors."""
+    return getattr(x, "loc", default)
+
+
+def is_field_node(x) -> bool:
+    """True for a ``repro_torch.fields.Field``."""
+    return bool(getattr(x, "_staggered_tree", False)) and hasattr(x, "loc")
+
+
+def is_field_set(x) -> bool:
+    """True for a ``repro_torch.fields.FieldSet``."""
+    return bool(getattr(x, "_staggered_tree", False)) and not hasattr(x, "loc")
+
+
+def data_of(x):
+    """Underlying tensor of a field-like object (identity for tensors)."""
+    return x.data if is_field_node(x) else x
+
+
+def tree_leaves(t) -> list:
+    """The tensors of a tree, in order (a FieldSet in its key order)."""
+    if is_field_node(t):
+        return [t.data]
+    if is_field_set(t) or isinstance(t, (list, tuple)):
+        return [leaf for node in t for leaf in tree_leaves(node)]
+    return [t]
+
+
+def node_map(fn, tree, *rest):
+    """``fn`` over the Fields (and bare tensors) of structure-matching trees,
+    each Field handed over whole."""
+    if is_field_set(tree):
+        return type(tree)(**{k: node_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()})
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(node_map(fn, *nodes) for nodes in zip(tree, *rest))
+    return fn(tree, *rest)
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the tensors of structure-matching trees; the result has
+    the structure of ``tree`` (Fields keep their grid and location)."""
+    if is_field_node(tree):
+        return tree.with_data(fn(tree.data, *(data_of(r) for r in rest)))
+    if is_field_set(tree):
+        return type(tree)(**{k: tree_map(fn, v, *(r[k] for r in rest))
+                             for k, v in tree.items()})
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, *nodes) for nodes in zip(tree, *rest))
+    return fn(tree, *(data_of(r) for r in rest))
 
 
 def valid_mask(grid, loc: str, dtype=None) -> torch.Tensor:

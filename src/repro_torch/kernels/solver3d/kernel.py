@@ -1,12 +1,14 @@
 """Launchers of the CUDA solver kernels K2-K5 (``csrc/solver3d.cu``).
 
 Replace the TPU kernels ``apply_pallas``, ``residual_pallas``,
-``jacobi_pallas`` and ``cheb_pallas`` (center location).  Each wrapper
-checks device, dtype, rank and sizes, allocates its outputs with
-``torch.empty`` (the kernel writes every cell, ring included), launches on
-the current CUDA stream without synchronising, and raises if the launch was
-refused.  ``<wrapper>.launches`` counts the launches.  The kernels multiply
-by a host-computed ``1/h²`` where the plain version divides by ``h²``.
+``jacobi_pallas`` and ``cheb_pallas``: ``*_cuda`` for cell centers,
+``*_face_cuda`` for the face locations (``sd`` the stagger dim, ``imask``
+the location's interior mask).  Each wrapper checks device, dtype, rank and
+sizes, allocates its outputs with ``torch.empty`` (the kernel writes every
+cell, ring included), launches on the current CUDA stream without
+synchronising, and raises if the launch was refused.
+``<wrapper>.launches`` counts the launches.  The kernels multiply by a
+host-computed ``1/h²`` where the plain version divides by ``h²``.
 """
 
 from __future__ import annotations
@@ -27,17 +29,21 @@ _MAX_GRID_YZ = 65535
 @functools.lru_cache(maxsize=None)
 def _entry():
     fn = _build.load().repro_solver3d
-    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+    fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
                    + [ctypes.c_void_p] * 2 + [ctypes.c_double] * 3 + [ctypes.c_int]
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(op: str, u, c, f=None, dia=None, d=None, *, h2, omega=0.0, a=0.0, b=0.0,
-            first=False):
-    where = f"solver3d.{op}_cuda"
-    inputs = {"u": u, "c": c, "f": f, "dia": dia, "d": d}
+def _launch(op: str, u, c, f=None, dia=None, d=None, m=None, *, sd=None, h2, omega=0.0,
+            a=0.0, b=0.0, first=False):
+    where = f"solver3d.{op}{'' if sd is None else '_face'}_cuda"
+    if sd not in (None, 0, 1, 2):
+        raise ValueError(f"{where}: stagger dim {sd!r} is not 0, 1 or 2")
+    if sd is not None and op != "apply" and m is None:
+        raise ValueError(f"{where}: a face location needs its interior mask")
+    inputs = {"u": u, "c": c, "f": f, "dia": dia, "d": d, "m": m}
     given = {k: v for k, v in inputs.items() if v is not None}
     if u.device.type != "cuda" or any(v.device != u.device for v in given.values()):
         raise ValueError(f"{where}: inputs must lie on one CUDA device, got "
@@ -58,7 +64,7 @@ def _launch(op: str, u, c, f=None, dia=None, d=None, *, h2, omega=0.0, a=0.0, b=
         return out if dout is None else (out, dout)
     if -(-ny // _TILE[1]) > _MAX_GRID_YZ or -(-nx // _TILE[0]) * nb > _MAX_GRID_YZ:
         raise ValueError(f"{where}: shape {(nb, nx, ny, nz)} exceeds the launch grid")
-    strides = (ctypes.c_longlong * 20)(*[s for k in inputs for s in (
+    strides = (ctypes.c_longlong * 24)(*[s for k in inputs for s in (
         views[k].stride() if k in views else (0, 0, 0, 0))])
     h2s = (ctypes.c_double * 3)(*(float(h) for h in h2))
 
@@ -67,8 +73,8 @@ def _launch(op: str, u, c, f=None, dia=None, d=None, *, h2, omega=0.0, a=0.0, b=
 
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
-        err = _entry()(OPS[op], DTYPE_CODES[u.dtype], ptr("u"), ptr("c"), ptr("f"), ptr("dia"),
-                       ptr("d"), out.data_ptr(),
+        err = _entry()(OPS[op], DTYPE_CODES[u.dtype], -1 if sd is None else sd, ptr("u"),
+                       ptr("c"), ptr("f"), ptr("dia"), ptr("d"), ptr("m"), out.data_ptr(),
                        None if dout is None else dout.data_ptr(), nb, nx, ny, nz, strides, h2s,
                        float(omega), float(a), float(b), int(bool(first)), stream)
     if err != 0:
@@ -109,5 +115,40 @@ def cheb_cuda(u, c, f, dia, d, *, a, b, h2):
     return out
 
 
-for _fn in (apply_cuda, residual_cuda, jacobi_cuda, cheb_cuda):
+def apply_face_cuda(u, c, *, sd, h2):
+    """K2 face: the raw, unmasked roll-form ``A u`` of a field staggered
+    along ``sd``; same contract as ``ref.apply_op_ref(loc=<face>)``."""
+    out = _launch("apply", u, c, sd=sd, h2=h2)
+    apply_face_cuda.launches += 1
+    return out
+
+
+def residual_face_cuda(u, c, f, imask, *, sd, h2):
+    """K3 face: ``(f - A u) * imask`` over the whole block."""
+    out = _launch("residual", u, c, f, m=imask, sd=sd, h2=h2)
+    residual_face_cuda.launches += 1
+    return out
+
+
+def jacobi_face_cuda(u, c, f, dia, imask, *, sd, omega, h2):
+    """K4 face: ``u + (omega * ((f - A u) * imask)) / dia`` over the whole
+    block."""
+    out = _launch("jacobi", u, c, f, dia, m=imask, sd=sd, h2=h2, omega=omega)
+    jacobi_face_cuda.launches += 1
+    return out
+
+
+def cheb_face_cuda(u, c, f, dia, imask, d, *, sd, a, b, h2):
+    """K5 face: one Chebyshev step -> ``(u, d)`` over the whole block;
+    ``a=None`` is the first step, which does not read ``d``."""
+    first = a is None
+    out = _launch("cheb", u, c, f, dia, None if first else d, imask, sd=sd, h2=h2,
+                  a=0.0 if first else a, b=b, first=first)
+    cheb_face_cuda.launches += 1
+    return out
+
+
+WRAPPERS = (apply_cuda, residual_cuda, jacobi_cuda, cheb_cuda,
+            apply_face_cuda, residual_face_cuda, jacobi_face_cuda, cheb_face_cuda)
+for _fn in WRAPPERS:
     _fn.launches = 0

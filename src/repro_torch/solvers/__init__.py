@@ -1,24 +1,27 @@
-"""Iterative stencil solvers on the implicit global grid (cell centers).
+"""Iterative stencil solvers on the implicit global grid, at every
+staggering location.
 
 * :mod:`reductions` — exact deduplicated global dots/norms (halo-overlap
   cells masked out; wrap-aware on periodic dims), accumulated in f64;
   several dots as one stacked sum (:func:`tree_dot_many`).
 * :func:`cg` — matrix-free (preconditioned) conjugate gradient, classic or
-  pipelined; ``project_nullspace="constant"`` for singular all-periodic
+  pipelined, over a field tensor, a ``Field`` or a whole ``FieldSet``; ``project_nullspace="constant"`` for singular all-periodic
   operators; ``dtype=`` for f32 fields with f64 scalars.
 * :func:`pseudo_transient` — the accelerated pseudo-transient method.
 * :func:`multigrid_solve` — geometric V-cycles with damped-Jacobi or
-  Chebyshev smoothing; on a CUDA tensor the operator, residual and sweeps
-  are the kernels K2-K5.
+  Chebyshev smoothing at any location; on a CUDA tensor the operator,
+  residual and sweeps are the kernels K2-K5 (center or face);
+  :func:`make_tree_v_cycle` for coupled staggered systems.
 * :class:`CyclePreconditioner` — the V-cycle as an SPD preconditioner for
-  ``cg``, set up once per solve.
+  ``cg``, set up once per solve, one cycle per location.
 """
 
 from ..kernels.solver3d.ref import poisson_diag
 from . import transfers
 from .cg import SolveInfo, cg, cg_local, replacement_count
 from .multigrid import (
-    SMOOTHERS, build_coefficients, level_spacings, make_v_cycle, multigrid_solve, poisson_apply,
+    SMOOTHERS, build_coefficients, face_diag, face_stencil, level_spacings, make_tree_v_cycle,
+    make_v_cycle, multigrid_solve, poisson_apply,
 )
 from .preconditioner import CyclePreconditioner
 from .pseudo_transient import PTInfo, optimal_parameters, pseudo_transient
@@ -37,6 +40,7 @@ __all__ = [
     "cg", "cg_local", "SolveInfo", "replacement_count",
     "pseudo_transient", "PTInfo", "optimal_parameters",
     "multigrid_solve", "poisson_apply", "poisson_diag", "coarsen_coefficient",
-    "make_v_cycle", "build_coefficients", "level_spacings", "SMOOTHERS",
+    "make_v_cycle", "make_tree_v_cycle", "face_stencil", "face_diag", "build_coefficients",
+    "level_spacings", "SMOOTHERS",
     "CyclePreconditioner", "transfers",
 ]

@@ -6,6 +6,12 @@ the matrix.  Dot products are the deduplicated masked reductions of
 :mod:`.reductions` (f64 accumulators), so the result is that of a
 single-block solve of the global system.
 
+The unknown vector is a *tree*: a field tensor (scalar problems), a
+``repro_torch.fields.Field``, or a whole staggered system (a ``FieldSet``,
+e.g. the three face-located Stokes velocity components), with
+location-aware reduction and unknown masks per leaf; every dot over the
+tree is one reduction.  ``apply_A`` maps the tree to the same structure.
+
 Two Krylov schedules (``variant=``):
 
 * ``"classic"`` — textbook preconditioned CG: ``<p, Ap>``, then ``<r, z>``
@@ -34,6 +40,7 @@ import numpy as np
 import torch
 
 from .._device import synchronize
+from ..core import locations as _loc
 from . import reductions as red
 
 VARIANTS = ("classic", "pipelined")
@@ -68,6 +75,25 @@ class SolveInfo:
         return self.wall_s / self.iterations
 
 
+_tmap = _loc.tree_map
+
+
+def _mask_trees(grid, tree):
+    """(reduction masks, unknown masks) matching ``tree``'s structure: Fields
+    get their location's masks (as Fields), bare tensors the center masks."""
+    def solve(a):
+        if _loc.is_field_node(a):
+            return a.with_data(red.loc_solve_mask(grid, a.loc, a.dtype))
+        return red.solve_mask(grid, a.dtype)
+
+    def unknown(a):
+        if _loc.is_field_node(a):
+            return a.with_data(_loc.interior_mask(grid, a.loc, a.dtype))
+        return red.interior_mask(grid, dtype=a.dtype)
+
+    return _loc.node_map(solve, tree), _loc.node_map(unknown, tree)
+
+
 def replacement_count(iterations: int, replace_every: int) -> int:
     """Residual-replacement segments a pipelined solve of ``iterations``
     ran: one per started segment of ``replace_every`` iterations."""
@@ -77,7 +103,7 @@ def replacement_count(iterations: int, replace_every: int) -> int:
 def cg_local(grid, apply_A: Callable, b, x, *, tol: float = 1e-6, maxiter: int = 1000,
              apply_M: Callable | None = None, project_nullspace: str | None = None,
              variant: str = "classic", replace_every: int = 50):
-    """The Krylov loop on fields ``b``/``x`` with one-argument callables
+    """The Krylov loop on trees ``b``/``x`` with one-argument callables
     ``apply_A``/``apply_M`` (preconditioner setup already bound).
 
     Returns ``(x, k, relres, hist)``: the halo-fresh iterate, the iteration
@@ -85,30 +111,30 @@ def cg_local(grid, apply_A: Callable, b, x, *, tol: float = 1e-6, maxiter: int =
     f64 tensor).  ``x`` is updated out of place, except that the operator's
     halo update writes its halo cells.
     """
-    red_mask = red.solve_mask(grid, b.dtype)
-    unk_mask = red.interior_mask(grid, dtype=b.dtype)
+    red_masks, unk_masks = _mask_trees(grid, b)
 
     def mdot(u, v):
-        return red.tree_dot(grid, u, v, red_mask)
+        return red.tree_dot(grid, u, v, red_masks)
 
     def mdots(*pairs):
-        return red.tree_dot_many(grid, pairs, red_mask)
+        return red.tree_dot_many(grid, pairs, red_masks)
 
     def masked(t):
-        return t * unk_mask
+        return _tmap(lambda a, m: a * m, t, unk_masks)
 
     if project_nullspace == "constant":
         def project(t):
-            # subtract the masked mean on the unknowns only (a Dirichlet
-            # ring, if any dim has one, keeps its BC data)
-            return t - red.masked_mean(grid, t, red_mask).to(t.dtype) * unk_mask
+            # each leaf carries its own constant mode: subtract its masked
+            # mean on the unknowns only (a Dirichlet ring keeps its BC data)
+            return _tmap(lambda a, mr, mu: a - red.masked_mean(grid, a, mr).to(a.dtype) * mu,
+                         t, red_masks, unk_masks)
 
         b = project(b)
     else:
         def project(t):
             return t
 
-    bnorm = red.tree_rhs_norm(grid, b, red_mask)
+    bnorm = red.tree_rhs_norm(grid, b, red_masks)
     common = dict(maxiter=maxiter, project=project, masked=masked, mdot=mdot, mdots=mdots,
                   bnorm=bnorm)
     if variant == "classic":
@@ -117,14 +143,14 @@ def cg_local(grid, apply_A: Callable, b, x, *, tol: float = 1e-6, maxiter: int =
         x, res, k, hist = _pipelined_loop(apply_A, apply_M, b, x, tol * float(bnorm),
                                           replace_every=replace_every, **common)
     # the mean-zero representative of a singular solve, halo-fresh
-    x = grid.update_halo(project(x))
+    x = _tmap(grid.update_halo, project(x))
     hist = torch.stack(hist) if hist else torch.zeros(0, dtype=torch.float64)
     return x, k, res / bnorm, hist
 
 
 def _classic_loop(apply_A, M, b, x, thresh, *, maxiter, project, masked, mdot, mdots, bnorm):
     """Textbook preconditioned CG.  Returns ``(x, res, k, hist)``."""
-    r = masked(b - apply_A(x))
+    r = masked(_tmap(torch.sub, b, apply_A(x)))
     z = project(masked(M(r))) if M is not None else project(r)
     p = z
     rz = mdot(r, z)
@@ -133,8 +159,8 @@ def _classic_loop(apply_A, M, b, x, thresh, *, maxiter, project, masked, mdot, m
     while k < maxiter and float(res) > thresh:
         Ap = masked(apply_A(p))
         alpha = rz / mdot(p, Ap)
-        x = x + alpha.to(x.dtype) * p
-        r = r - alpha.to(r.dtype) * Ap
+        x = _tmap(lambda xi, pi: xi + alpha.to(xi.dtype) * pi, x, p)
+        r = _tmap(lambda ri, ai: ri - alpha.to(ri.dtype) * ai, r, Ap)
         if M is not None:
             z = project(masked(M(r)))
             rz_new, rr = mdots((r, z), (r, r))   # one stacked reduction
@@ -144,7 +170,7 @@ def _classic_loop(apply_A, M, b, x, thresh, *, maxiter, project, masked, mdot, m
             rz_new = mdot(r, z)   # unpreconditioned: <r, z> is ||r||^2
             res = torch.sqrt(rz_new)
         beta = rz_new / rz
-        p = z + beta.to(z.dtype) * p
+        p = _tmap(lambda zi, pi: zi + beta.to(zi.dtype) * pi, z, p)
         rz = rz_new
         hist.append(res / bnorm)
         k += 1
@@ -169,19 +195,20 @@ def _pipelined_loop(apply_A, M, b, x, thresh, *, maxiter, replace_every, project
         return masked(M(t)) if M is not None else t
 
     def axpy(add, a, ti, tj):
-        # ti + a * tj (add) or ti - a * tj, the f64 scalar cast per field
-        return ti + ((1.0 if add else -1.0) * a).to(ti.dtype) * tj
+        # ti + a * tj (add) or ti - a * tj, the f64 scalar cast per leaf
+        s = (1.0 if add else -1.0) * a
+        return _tmap(lambda u, v: u + s.to(u.dtype) * v, ti, tj)
 
-    r0 = masked(b - apply_A(x))
+    r0 = masked(_tmap(torch.sub, b, apply_A(x)))
     res = torch.sqrt(mdot(r0, r0))
     resf = float(res)
-    p = torch.zeros_like(b)
+    p = _tmap(torch.zeros_like, b)
     gp = ap = torch.ones((), dtype=res.dtype, device=res.device)
     hist, k = [], 0
     while k < maxiter and resf > thresh:
         # exact recomputation of the residual chain and of the search
         # direction's auxiliaries (s = A p, q = M s, z = A q)
-        r = masked(b - apply_A(x))
+        r = masked(_tmap(torch.sub, b, apply_A(x)))
         u = prec(r)
         w = masked(apply_A(u))
         s = masked(apply_A(p))
@@ -215,10 +242,12 @@ def cg(grid, apply_A: Callable, b, x0=None, *, tol: float = 1e-6, maxiter: int =
        variant: str = "classic", replace_every: int = 50):
     """Solve ``A x = b`` with (preconditioned) conjugate gradient.
 
-    ``apply_A(u, *args)`` is a local-view operator on a field; it must zero
-    the physical boundary ring so Dirichlet cells stay fixed (on periodic
-    dims its halo exchange maintains the ring duplicates).  ``args`` are
-    extra fields passed to the operator (e.g. the coefficient).
+    ``apply_A(u, *args)`` is a local-view operator on a tree of fields (a
+    tensor, a Field or a FieldSet); it must zero the physical boundary ring
+    (per-location boundary faces for staggered leaves) so Dirichlet cells
+    stay fixed (on periodic dims its halo exchange maintains the ring
+    duplicates).  ``args`` are extra fields passed to the operator (e.g.
+    the coefficient).
 
     ``apply_M`` is an optional SPD preconditioner ``z = M r``: a function of
     the residual, or an object with ``setup(*args) -> M`` (e.g.
@@ -229,8 +258,8 @@ def cg(grid, apply_A: Callable, b, x0=None, *, tol: float = 1e-6, maxiter: int =
     rhs, the preconditioned residual and the returned iterate (required for
     the singular all-periodic operator; the pipelined variant projects at
     segment heads only).  ``dtype`` casts ``b``, ``x0`` and ``args`` before
-    the solve (e.g. ``torch.float32``: f32 fields, f64 scalars).
-    Returns ``(x, SolveInfo)``.
+    the solve, leaf by leaf (e.g. ``torch.float32``: f32 fields, f64
+    scalars).  Returns ``(x, SolveInfo)``.
     """
     if project_nullspace not in (None, "constant"):
         raise ValueError(f"unknown project_nullspace {project_nullspace!r}; "
@@ -238,17 +267,20 @@ def cg(grid, apply_A: Callable, b, x0=None, *, tol: float = 1e-6, maxiter: int =
     if variant not in VARIANTS:
         raise ValueError(f"unknown cg variant {variant!r}; expected one of {VARIANTS}")
     if dtype is not None:
-        b = b.to(dtype)
-        args = tuple(a.to(dtype) for a in args)
-        x0 = None if x0 is None else x0.to(dtype)
-    x = torch.zeros_like(b) if x0 is None else x0.clone()
+        def cast(t):
+            return _tmap(lambda a: a.to(dtype), t)
+
+        b = cast(b)
+        args = tuple(cast(a) for a in args)
+        x0 = None if x0 is None else cast(x0)
+    x = _tmap(torch.zeros_like if x0 is None else torch.clone, b if x0 is None else x0)
     t0 = time.perf_counter()
     M = apply_M.setup(*args) if hasattr(apply_M, "setup") else apply_M
     x, k, relres, hist = cg_local(
         grid, lambda u: apply_A(u, *args), b, x, tol=tol, maxiter=maxiter, apply_M=M,
         project_nullspace=project_nullspace, variant=variant, replace_every=replace_every)
     relres = float(relres)
-    synchronize(x)
+    synchronize(_loc.tree_leaves(x)[0])
     wall = time.perf_counter() - t0
     nrep = replacement_count(k, replace_every) if variant == "pipelined" else 0
     return x, SolveInfo(iterations=k, relres=relres, converged=relres <= tol,

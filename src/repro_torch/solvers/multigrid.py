@@ -1,10 +1,18 @@
-"""Geometric multigrid (V-cycle) on the implicit global grid, cell centers.
+"""Geometric multigrid (V-cycle) on the implicit global grid, at every
+staggering location.
 
 Levels come from :meth:`ImplicitGlobalGrid.hierarchy`: every level keeps
 the block counts, periodicity and halo width, so ``update_halo`` works at
 every depth; only the local block shrinks (the local interior halves per
 level).  Restriction and prolongation (:mod:`.transfers`) are block-local
-passes followed by one halo exchange.
+passes followed by one halo exchange.  ``make_v_cycle(loc=...)`` is
+location-generic: on a face location the level operator is
+:func:`face_stencil` (center coefficient along the staggered dim,
+edge-averaged across), residual, diagonal and transfers are masked by the
+location's interior mask at every level, and the transfers are vertex-like
+along the staggered dim.  :func:`make_tree_v_cycle` smooths and transfers a
+tuple of staggered components coupled by one operator (the full-stress
+Stokes velocity block).
 
 The operator is the flux-form variable-coefficient Poisson operator
 ``A u = -div(c grad u)`` (:func:`poisson_apply`), smoothed by
@@ -18,10 +26,12 @@ The coarsest level is solved with damped-Jacobi sweeps.  With every dim
 periodic and no shift the operator is singular: the coarse rhs is projected
 onto mean-zero before the coarse sweeps.
 
-The operator, residual and smoother sweeps go through
-:mod:`repro_torch.kernels.solver3d.ops`, which decides between the CUDA
-kernels K2-K5 (a CUDA tensor) and their plain versions (a CPU tensor, or
-``use_kernel="ref"``) at every level.  The kernels take neither
+The operator, residual and smoother sweeps of :func:`make_v_cycle` go
+through :mod:`repro_torch.kernels.solver3d.ops`, which decides between the
+CUDA kernels K2-K5, center or face (a CUDA tensor), and their plain
+versions (a CPU tensor, or ``use_kernel="ref"``) at every level; the tree
+cycle applies the caller's operator (plain PyTorch, as the reference
+computes it outside any kernel).  The kernels take neither
 ``hide=True`` nor a Helmholtz ``shift``: on a CUDA tensor those raise
 unless ``use_kernel="ref"`` asks for the plain version (``hide=True``
 raises everywhere until ``hide_apply`` is ported).
@@ -41,8 +51,9 @@ import numpy as np
 import torch
 
 from .._device import synchronize
+from ..core import locations as _loc
 from ..kernels.solver3d import ops
-from ..kernels.solver3d.ref import center_only, full_diag
+from ..kernels.solver3d.ref import face_diag, face_stencil, full_diag  # noqa: F401
 from . import reductions as red
 from . import transfers
 from .cg import SolveInfo
@@ -126,21 +137,33 @@ def make_v_cycle(grid, grids, hs, cs, *, loc: str = "center", shifts=None, nu_pr
     """Build ``(v_cycle, residual)`` closures over a hierarchy.
 
     ``grids``/``hs``/``cs`` are the per-level grids, spacings
-    (:func:`level_spacings`) and halo-consistent coefficients
-    (:func:`build_coefficients`).  ``v_cycle(level, u, f)`` takes a
-    halo-consistent iterate and a rhs that is zero outside the unknowns;
-    ``residual(level, u, f)`` is ``f - A u`` on the interior, zero ring.
+    (:func:`level_spacings`) and halo-consistent CENTER coefficients
+    (:func:`build_coefficients`; one coefficient hierarchy serves every
+    location).  ``v_cycle(level, u, f)`` takes a halo-consistent iterate
+    and a rhs that is zero outside the location's unknowns;
+    ``residual(level, u, f)`` is ``f - A u``, zero outside the unknowns.
 
-    ``shifts`` (optional per-level halo-consistent fields ``s >= 0``) make
-    the operator Helmholtz-like and join the smoother diagonal (plain
-    version only).  ``smoother`` selects damped Jacobi or Chebyshev for the
-    pre/post sweeps (``nu_pre``/``nu_post`` = sweeps resp. polynomial
-    degree); the coarsest level always uses ``coarse_sweeps`` Jacobi sweeps.
-    On a CUDA tensor every level's residual and sweeps are the kernels
-    K3-K5; the choice is made once, here, for every level.
+    ``loc`` makes the whole cycle location-generic: on a face location the
+    level operator is :func:`face_stencil`, the smoother diagonal, residual
+    and transfers are masked by the location's interior mask (pinned
+    boundary faces and the dead plane stay zero at every level), and the
+    transfers are the per-location pairs of :mod:`.transfers`.
+
+    ``shifts`` (optional per-level halo-consistent fields ``s >= 0``, center
+    only) make the operator Helmholtz-like and join the smoother diagonal
+    (plain version only).  ``smoother`` selects damped Jacobi or Chebyshev
+    for the pre/post sweeps (``nu_pre``/``nu_post`` = sweeps resp.
+    polynomial degree); the coarsest level always uses ``coarse_sweeps``
+    Jacobi sweeps.  On a CUDA tensor every level's residual and sweeps are
+    the kernels K3-K5 of ``loc``; the choice is made once, here, for every
+    level.
     """
     if smoother not in SMOOTHERS:
         raise ValueError(f"unknown smoother {smoother!r}; pick from {SMOOTHERS}")
+    sd = _loc.stagger_dim(loc)
+    if sd is not None and shifts is not None:
+        raise ValueError(f"Helmholtz shifts are only supported for the center cycle "
+                         f"(got loc={loc!r})")
     nd = grid.ndims
     inner = _inner(nd)
     mode = ops.resolve(use_kernel, cs[0], hs[0], loc=loc, shift=shifts,
@@ -148,11 +171,17 @@ def make_v_cycle(grid, grids, hs, cs, *, loc: str = "center", shifts=None, nu_pr
     singular = shifts is None and all(grid.topo.periodic)
     shifts = [None] * len(grids) if shifts is None else shifts
 
-    # full-shape, safe-to-divide diagonals (ones on the ring)
-    dias = [full_diag(ck, hk) for ck, hk in zip(cs, hs)]
-    for dk, sk in zip(dias, shifts):
-        if sk is not None:
-            dk[inner] += sk[inner]
+    if sd is None:
+        imasks = [None] * len(grids)
+        # full-shape, safe-to-divide diagonals (ones on the ring)
+        dias = [full_diag(ck, hk) for ck, hk in zip(cs, hs)]
+        for dk, sk in zip(dias, shifts):
+            if sk is not None:
+                dk[inner] += sk[inner]
+    else:
+        # the unknowns of loc at every level; dia * m + (1 - m) is safe to divide
+        imasks = [_loc.interior_mask(g, loc, ck.dtype) for g, ck in zip(grids, cs)]
+        dias = [full_diag(ck, hk, loc, mk) for ck, hk, mk in zip(cs, hs, imasks)]
 
     def _demean(level, f):
         g = grids[level]
@@ -160,14 +189,15 @@ def make_v_cycle(grid, grids, hs, cs, *, loc: str = "center", shifts=None, nu_pr
         return f - mean.to(f.dtype)
 
     def residual(level, u, f):
-        """f - A u on the interior, zero ring (u halo-consistent)."""
-        return ops.residual_op(u, cs[level], f, spacing=hs[level], shift=shifts[level],
-                               use_kernel=mode)
+        """f - A u on the unknowns of ``loc``, zero elsewhere (u halo-consistent)."""
+        return ops.residual_op(u, cs[level], f, spacing=hs[level], loc=loc, shift=shifts[level],
+                               imask=imasks[level], use_kernel=mode)
 
     def jacobi(level, u, f, iters):
         for _ in range(iters):
             u = ops.jacobi_sweep(u, cs[level], f, dias[level], omega=omega, spacing=hs[level],
-                                 shift=shifts[level], use_kernel=mode)
+                                 loc=loc, shift=shifts[level], imask=imasks[level],
+                                 use_kernel=mode)
             grid.update_halo(u)
         return u
 
@@ -180,11 +210,20 @@ def make_v_cycle(grid, grids, hs, cs, *, loc: str = "center", shifts=None, nu_pr
             a = None if k == 0 else rhos[k] * rhos[k - 1]
             b = theta if k == 0 else 2.0 * rhos[k] / delta
             u, d = ops.cheb_sweep(u, cs[level], f, dias[level], d, a=a, b=b, spacing=hs[level],
-                                  shift=shifts[level], use_kernel=mode)
+                                  loc=loc, shift=shifts[level], imask=imasks[level],
+                                  use_kernel=mode)
             grid.update_halo(u)
         return u
 
     smooth = jacobi if smoother == "jacobi" else chebyshev
+
+    def restrict_to(level, r):
+        fc = transfers.restrict(r, loc, nd)
+        return fc if sd is None else fc * imasks[level]
+
+    def prolong_to(level, ec):
+        e = transfers.prolong(ec, loc, nd)
+        return e if sd is None else e * imasks[level]
 
     def v_cycle(level, u, f):
         if level == len(grids) - 1:
@@ -193,11 +232,94 @@ def make_v_cycle(grid, grids, hs, cs, *, loc: str = "center", shifts=None, nu_pr
             return jacobi(level, u, f, coarse_sweeps)
         u = smooth(level, u, f, nu_pre)
         r = grid.update_halo(residual(level, u, f))
-        fc = grid.update_halo(transfers.restrict(r, loc, nd))
+        fc = grid.update_halo(restrict_to(level + 1, r))
         ec = v_cycle(level + 1, torch.zeros(grids[level + 1].shape, dtype=u.dtype,
                                             device=u.device), fc)
-        e = grid.update_halo(transfers.prolong(ec, loc, nd))
+        e = grid.update_halo(prolong_to(level, ec))
         return smooth(level, u + e, f, nu_post)
+
+    return v_cycle, residual
+
+
+def make_tree_v_cycle(grid, grids, locs, apply_level, diag_level, *, nu_pre: int = 1,
+                      nu_post: int = 1, omega: float = 0.6, coarse_sweeps: int = 50,
+                      smoother: str = "jacobi", cheb_upper: float = 3.0):
+    """V-cycle over a TUPLE of staggered components coupled by ONE operator.
+
+    For systems whose components couple through the operator (the
+    full-stress Stokes velocity block, where the shear ties ``vx``/``vy``/
+    ``vz`` together) the cycle smooths and transfers the whole tuple, each
+    leaf on its own staggered grid:
+
+    * ``locs`` — per-leaf locations (e.g. ``("xface", "yface", "zface")``),
+      fixing each leaf's transfers and interior masks at every level;
+    * ``apply_level(level, u_tuple) -> tuple`` — the coupled operator on
+      halo-consistent leaves, raw and unmasked (the cycle masks);
+    * ``diag_level(level) -> tuple`` — full-shape positive per-leaf
+      diagonals of that operator.
+
+    Smoothing is damped block-pointwise Jacobi or the 3-term Chebyshev
+    recurrence on ``D^-1 A`` with the Gershgorin bound ``cheb_upper`` (3 for
+    the full-stress block; the default damping ``omega = 0.6 < 2/3``
+    accordingly).  One halo exchange of all leaves per sweep and transfer;
+    restriction and prolongation are per leaf, so ``P = 2**nd R^T`` holds
+    leaf-wise and the cycle with ``nu_pre == nu_post`` is a symmetric
+    preconditioner for CG over the same FieldSet.  Plain PyTorch throughout,
+    as the reference computes it outside any kernel.
+
+    Returns ``(v_cycle, residual)``; both take and return tuples of field
+    tensors.
+    """
+    if smoother not in SMOOTHERS:
+        raise ValueError(f"unknown smoother {smoother!r}; pick from {SMOOTHERS}")
+    locs = tuple(locs)
+    nd = grid.ndims
+    imasks = [tuple(_loc.interior_mask(g, loc, grid.dtype) for loc in locs) for g in grids]
+    dias = [tuple(dk * mk + (1.0 - mk) for dk, mk in zip(diag_level(level), imasks[level]))
+            for level in range(len(grids))]
+
+    def _halo(u):
+        out = grid.update_halo(*u)
+        return out if isinstance(out, tuple) else (out,)
+
+    def residual(level, u, f):
+        """f - A u on each leaf's unknowns, zero elsewhere."""
+        Au = apply_level(level, u)
+        return tuple((fi - ai) * mi for fi, ai, mi in zip(f, Au, imasks[level]))
+
+    def jacobi(level, u, f, iters):
+        for _ in range(iters):
+            r = residual(level, u, f)
+            u = _halo(tuple(ui + omega * ri / di for ui, ri, di in zip(u, r, dias[level])))
+        return u
+
+    def chebyshev(level, u, f, degree):
+        theta, delta, rhos = _cheb_rhos(degree, upper=cheb_upper)
+        z = tuple(ri / di for ri, di in zip(residual(level, u, f), dias[level]))
+        d = tuple(zi / theta for zi in z)
+        u = _halo(tuple(ui + di for ui, di in zip(u, d)))
+        for k in range(1, degree):
+            z = tuple(ri / di for ri, di in zip(residual(level, u, f), dias[level]))
+            d = tuple((rhos[k] * rhos[k - 1]) * di + (2.0 * rhos[k] / delta) * zi
+                      for di, zi in zip(d, z))
+            u = _halo(tuple(ui + di for ui, di in zip(u, d)))
+        return u
+
+    smooth = jacobi if smoother == "jacobi" else chebyshev
+
+    def v_cycle(level, u, f):
+        if level == len(grids) - 1:
+            return jacobi(level, u, f, coarse_sweeps)
+        u = smooth(level, u, f, nu_pre)
+        r = _halo(residual(level, u, f))
+        fc = _halo(tuple(transfers.restrict(ri, loc, nd) * mi
+                         for ri, loc, mi in zip(r, locs, imasks[level + 1])))
+        zeros = tuple(torch.zeros(grids[level + 1].shape, dtype=ui.dtype, device=ui.device)
+                      for ui in u)
+        ec = v_cycle(level + 1, zeros, fc)
+        e = _halo(tuple(transfers.prolong(eci, loc, nd) * mi
+                        for eci, loc, mi in zip(ec, locs, imasks[level])))
+        return smooth(level, tuple(ui + ei for ui, ei in zip(u, e)), f, nu_post)
 
     return v_cycle, residual
 
@@ -211,10 +333,17 @@ def multigrid_solve(grid, c, b, spacing, x0=None, *, loc: str | None = None, tol
                     omega: float = 6.0 / 7.0, coarse_sweeps: int = 100,
                     max_levels: int | None = None, smoother: str = "jacobi",
                     use_kernel: str = "auto"):
-    """Solve ``-div(c grad x) = b`` by V-cycles on cell centers.
+    """Solve ``-div(c grad x) = b`` by V-cycles, at any staggering location.
 
-    Homogeneous Dirichlet on non-periodic dims (the ring holds the BC),
-    wraparound on periodic dims.  With EVERY dim periodic the operator is
+    ``b``/``x0`` may be center tensors or ``repro_torch.fields.Field``s at
+    any location: a face-located ``b`` gets the staggered cycle of
+    ``make_v_cycle(loc=...)`` and a Field of the same location back.
+    ``loc`` names the location of bare tensors; ``c`` is always the CENTER
+    coefficient (a Field or a tensor).
+
+    Homogeneous Dirichlet on non-periodic dims (the ring holds the BC; for
+    the staggered dim of a face field the pinned planes are the boundary
+    faces and the dead plane), wraparound on periodic dims.  With EVERY dim periodic the operator is
     singular; the rhs is projected onto mean-zero and the mean-zero
     representative is returned.  Convergence is the deduplicated global
     relative residual on the fine level, read on the host once per cycle.
@@ -224,8 +353,10 @@ def multigrid_solve(grid, c, b, spacing, x0=None, *, loc: str | None = None, tol
         raise ValueError("multigrid assumes halo width 1 (overlap=2)")
     if smoother not in SMOOTHERS:
         raise ValueError(f"unknown smoother {smoother!r}; pick from {SMOOTHERS}")
-    loc = "center" if loc is None else loc
-    center_only(loc, "multigrid_solve")
+    loc = _loc.loc_of(b) if loc is None else loc
+    wrap = b.with_data if _loc.is_field_node(b) else None
+    b, c = _loc.data_of(b), _loc.data_of(c)
+    x0 = None if x0 is None else _loc.data_of(x0)
     grids = grid.hierarchy(max_levels=max_levels)
     if len(grids) < 2:
         raise ValueError(f"grid {grid.local_shape} cannot coarsen; multigrid needs >= 2 levels")
@@ -263,5 +394,7 @@ def multigrid_solve(grid, c, b, spacing, x0=None, *, loc: str | None = None, tol
     synchronize(x)
     wall = time.perf_counter() - t0
     residuals = torch.stack(hist).cpu().numpy() if hist else np.zeros(0)
+    if wrap is not None:
+        x = wrap(x)
     return x, SolveInfo(iterations=k, relres=relres, converged=relres <= tol,
                         residuals=residuals, wall_s=wall)

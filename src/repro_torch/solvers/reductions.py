@@ -97,7 +97,9 @@ def _partial(a, b, m) -> torch.Tensor:
 
 
 def _leaves(t) -> list:
-    return list(t) if isinstance(t, (list, tuple)) else [t]
+    """The tensors of a tree: a tensor, a Field, a FieldSet, or a list/tuple
+    of them (:func:`repro_torch.core.locations.tree_leaves`)."""
+    return _loc.tree_leaves(t)
 
 
 def masked_mean(grid, a, mask) -> torch.Tensor:
@@ -117,8 +119,9 @@ def dot(grid, a, b, mask=None) -> torch.Tensor:
 
 
 def tree_dot(grid, a, b, masks) -> torch.Tensor:
-    """Deduplicated global dot over sequences of fields (one tensor, or a
-    list/tuple of tensors with matching masks), as one reduction."""
+    """Deduplicated global dot over trees of fields (a tensor, a Field, a
+    FieldSet or a list/tuple, with a structure-matching tree of masks), as
+    one reduction: a whole staggered system is one Krylov vector."""
     la, lb, lm = _leaves(a), _leaves(b), _leaves(masks)
     if not (len(la) == len(lb) == len(lm)):
         raise ValueError(f"tree_dot: mismatched leaves — {len(la)}/{len(lb)}/{len(lm)} "
@@ -147,7 +150,7 @@ def tree_dot_many(grid, pairs, masks) -> tuple[torch.Tensor, ...]:
 
 
 def tree_rhs_norm(grid, b, masks) -> torch.Tensor:
-    """``||b||`` over sequences of fields with the zero-rhs guard."""
+    """``||b||`` over trees of fields with the zero-rhs guard."""
     bn = torch.sqrt(tree_dot(grid, b, b, masks))
     return torch.where(bn > 0, bn, torch.ones_like(bn))
 

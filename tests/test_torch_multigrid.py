@@ -236,10 +236,12 @@ def test_what_the_kernels_do_not_take_raises(monkeypatch):
     u = g.ones()
     with pytest.raises(NotImplementedError, match="hide_apply"):
         mg.poisson_apply(g, u, u, SPACING, hide=True, use_kernel="ref")
-    with pytest.raises(NotImplementedError, match="staggered"):
-        mg.make_v_cycle(g, g.hierarchy(), [SPACING] * 3, [u] * 3, loc="xface")
-    with pytest.raises(NotImplementedError, match="staggered"):
-        mg.multigrid_solve(g, u, u, SPACING, loc="yface")
+    # face locations are ported; a Helmholtz shift stays center only
+    grids = g.hierarchy()
+    hs, cs = mg.level_spacings(g, grids, SPACING), mg.build_coefficients(g, grids, u)
+    assert callable(mg.make_v_cycle(g, grids, hs, cs, loc="xface")[0])
+    with pytest.raises(ValueError, match="center cycle"):
+        mg.make_v_cycle(g, grids, hs, cs, loc="xface", shifts=cs)
     with pytest.raises(ValueError, match="smoother"):
         mg.multigrid_solve(g, u, u, SPACING, smoother="sor")
     with pytest.raises(ValueError, match="CUDA tensor"):

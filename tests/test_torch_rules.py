@@ -7,7 +7,8 @@ back quietly.
 * the entry points raise without CUDA unless a device is given;
 * ``use_kernel="cuda"`` on a CPU tensor raises, and no module that
   launches a kernel (the heat step, the solver ops, multigrid, the solvers
-  and apps above them) holds a ``try``.
+  and apps above them, the staggered fields and the Stokes app) holds a
+  ``try``.
 """
 
 from __future__ import annotations
@@ -26,7 +27,8 @@ PKG = ROOT / "src" / "repro_torch"
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import solvers  # noqa: E402
-from repro_torch.apps import Heat3D, Poisson3D  # noqa: E402
+from repro_torch import fields  # noqa: E402
+from repro_torch.apps import Heat3D, Poisson3D, Stokes3D  # noqa: E402
 from repro_torch.core import init_global_grid  # noqa: E402
 from repro_torch.kernels import solver3d  # noqa: E402
 from repro_torch.kernels.stencil3d import heat_step, ops  # noqa: E402
@@ -116,6 +118,33 @@ def test_solver_entry_points_raise_without_cuda(monkeypatch):
         Poisson3D()
     app = Poisson3D(device="cpu")
     assert app.grid.device.type == "cpu" and app.c.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Stokes3D()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fields.zeros(init_global_grid(8, 8, 8), "xface")
+    st = Stokes3D(nx=8, ny=8, nz=8, device="cpu")
+    assert st.eta.device.type == "cpu" and st.F.vz.device.type == "cpu"
+
+
+@pytest.mark.parametrize("stress", ["full", "stripped"])
+def test_stokes_cuda_mode_on_cpu_tensor_raises(stress):
+    app = Stokes3D(nx=8, ny=8, nz=8, stress=stress, use_kernel="cuda", device="cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        app.velocity_solve(precond="face", maxiter=2)
+    with pytest.raises(ValueError, match="CUDA"):
+        solvers.multigrid_solve(app.grid, app.eta, app.F.vx, app.spacing, use_kernel="cuda",
+                                maxiter=1)
+    u, m = app.F.vy.data, fields.interior_mask(app.grid, "yface")
+    for op in (lambda: solver3d.apply_op(u, u, spacing=app.spacing, loc="yface",
+                                         use_kernel="cuda"),
+               lambda: solver3d.residual_op(u, u, u, spacing=app.spacing, loc="yface", imask=m,
+                                            use_kernel="cuda"),
+               lambda: solver3d.jacobi_sweep(u, u, u, u, omega=0.5, spacing=app.spacing,
+                                             loc="yface", imask=m, use_kernel="cuda"),
+               lambda: solver3d.cheb_sweep(u, u, u, u, u, a=None, b=1.0, spacing=app.spacing,
+                                           loc="yface", imask=m, use_kernel="cuda")):
+        with pytest.raises(ValueError, match="CUDA"):
+            op()
 
 
 @pytest.mark.parametrize("method", ["cg", "pipecg", "mgcg", "pipemgcg", "pt", "mg"])
@@ -142,11 +171,14 @@ def test_solver_cuda_mode_on_cpu_tensor_raises(method):
 @pytest.mark.parametrize("module", [
     "kernels/solver3d/ops.py", "kernels/solver3d/kernel.py", "solvers/multigrid.py",
     "solvers/cg.py", "solvers/preconditioner.py", "solvers/pseudo_transient.py",
-    "apps/poisson.py"])
+    "solvers/transfers.py", "solvers/reductions.py", "apps/poisson.py", "apps/stokes.py",
+    "fields/field.py", "fields/ops.py", "stencil/mac.py", "core/boundary.py",
+    "core/locations.py"])
 def test_solver_path_has_no_try_around_a_launch(module):
     tree = ast.parse((PKG / module).read_text())
     assert not [n for n in ast.walk(tree) if isinstance(n, (ast.Try, ast.TryStar))]
     if module == "kernels/solver3d/ops.py":   # the one module that launches K2-K5
         src = ast.unparse(tree)
-        for k in ("apply_cuda", "residual_cuda", "jacobi_cuda", "cheb_cuda"):
+        for k in ("apply_cuda", "residual_cuda", "jacobi_cuda", "cheb_cuda", "apply_face_cuda",
+                  "residual_face_cuda", "jacobi_face_cuda", "cheb_face_cuda"):
             assert f"{k}(" in src, k

@@ -166,11 +166,12 @@ def test_dispatch_rules():
     with pytest.raises(ValueError, match="unknown use_kernel"):
         residual_op(u, u, u, spacing=SP, use_kernel="pallas")
     for loc in ("xface", "yface", "zface"):
-        with pytest.raises(NotImplementedError, match="staggered"):
-            apply_op(u, u, spacing=SP, loc=loc)
-        with pytest.raises(NotImplementedError, match="staggered"):
+        # the face variants take the location's interior mask (ported with
+        # the staggered slice; tests/test_torch_solver3d_face.py holds them)
+        assert apply_op(u, u, spacing=SP, loc=loc).shape == u.shape
+        with pytest.raises(ValueError, match="interior mask"):
             cheb_sweep(u, u, u, u, u, a=None, b=1.0, spacing=SP, loc=loc, use_kernel="ref")
-        with pytest.raises(NotImplementedError, match="staggered"):
+        with pytest.raises(ValueError, match="interior mask"):
             full_diag(u, SP, loc)
     with pytest.raises(ValueError, match="unknown location"):
         residual_op(u, u, u, spacing=SP, loc="edge")
