@@ -3,9 +3,9 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels (K1 heat step, K2-K5 solver operators on
-cell centers and on faces) from the sources in this checkout and holds each
-against its plain PyTorch version on the card.  Then it drives three paths
-through the kernels:
+cell centers and on faces, K7 SSD intra-chunk block) from the sources in
+this checkout and holds each against its plain PyTorch version on the card.
+Then it drives four paths through the kernels:
 
 * the paper's Fig.-1 heat solver (``repro_torch.apps.Heat3D``) at 512^3
   cells on one rank and at 8 x 256^3 on eight virtual ranks, with and
@@ -19,7 +19,15 @@ through the kernels:
   the reference's iteration counts, the NumPy oracle and the face-kernel
   launch counts the cycle code implies; face multigrid on each face
   location; then the velocity solves at 386^3 f64 on one rank and on
-  8 x 194^3, and one Schur-CG solve at 386^3.
+  8 x 194^3, and one Schur-CG solve at 386^3;
+* the Mamba-2 serving path (``repro_torch.serve.Engine``): the SSD
+  intra-chunk kernel K7 against its plain version at the prefill shapes
+  of mamba2-1.3b, the SMOKE width in f32 (K7 against the plain scan, the
+  prefill/decode relation, the same greedy ids), then mamba2-1.3b at full
+  width and depth in bf16 with random weights: two ``generate`` calls
+  (4 x 2048 prompt tokens + 32 new, 1 x 1000 + 16), 48 K7 launches each,
+  timed, with a device-time breakdown of one prefill, and four layers of
+  the full width in f32 against the plain scan.
 
 Times come from CUDA events or from host clocks around synchronised work.
 Every phase prints one line; any failure raises and exits non-zero.  The
@@ -600,10 +608,18 @@ def oracle_errors(app, V, P) -> tuple[float, float]:
     return float(verr), float(np.abs(gp - rp).max() / np.abs(rp).max())
 
 
-def categories(run, steps: int) -> dict:
-    """Device time per step by kind (the solver kernels, PyTorch's elementwise
-    and reduction kernels, copies, the exchange's rolls) and the idle share,
-    from the profiler's CUDA activity over ``run()``."""
+SOLVER_KINDS = (("face_kernels", ("_face_kernel<",)),
+                ("center_kernels", ("apply_kernel<", "residual_kernel<", "jacobi_kernel<",
+                                    "cheb_kernel<")),
+                ("roll", ("roll",)), ("reduce", ("reduce",)),
+                ("copy", ("copy", "Copy", "Memcpy")), ("elementwise", ("elementwise",)))
+
+
+def categories(run, steps: int, kinds=SOLVER_KINDS) -> dict:
+    """Device time per step by kind (by default the solver kernels, PyTorch's
+    elementwise and reduction kernels, copies, the exchange's rolls; the first
+    kind whose key is in a kernel's name) and the idle share, from the
+    profiler's CUDA activity over ``run()``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -616,13 +632,9 @@ def categories(run, steps: int) -> dict:
           if e.device_type == DeviceType.CUDA]
     if not ev:
         return {"device_time": "not measured"}
-    kinds = (("face_kernels", ("_face_kernel<",)),
-             ("center_kernels", ("apply_kernel<", "residual_kernel<", "jacobi_kernel<",
-                                 "cheb_kernel<")),
-             ("roll", ("roll",)), ("reduce", ("reduce",)), ("copy", ("copy", "Copy", "Memcpy")),
-             ("elementwise", ("elementwise",)))
     by_kind: dict = {}
     busy, end = 0.0, -math.inf
+    kernels = sum(1 for *_, name in ev if not any(k in name for k in ("Memcpy", "Memset")))
     for s_, e_, name in sorted(ev):
         kind = next((k for k, keys in kinds if any(key in name for key in keys)), "other")
         by_kind[kind] = by_kind.get(kind, 0.0) + (e_ - s_) / steps / 1e3
@@ -632,7 +644,8 @@ def categories(run, steps: int) -> dict:
     return {"ms_per_iteration_by_kind": json.dumps({k: round(v, 3) for k, v in
                                                     sorted(by_kind.items())}).replace(" ", ""),
             "device_busy_ms_per_iteration": busy / steps / 1e3,
-            "wall_ms_per_iteration": wall_us / steps / 1e3, "idle_share": 1 - busy / wall_us}
+            "wall_ms_per_iteration": wall_us / steps / 1e3, "idle_share": 1 - busy / wall_us,
+            "kernels_per_iteration": kernels / steps}
 
 
 FULL = (("1x386^3", 386, (1, 1, 1)), ("8x194^3", 194, (2, 2, 2)))   # the flagship's configs
@@ -900,6 +913,285 @@ def face_kernel_times(sk, rand, path, main_errs, n_side: int = 386) -> list:
     return entries
 
 
+# ---------------------------------------------------------------------------
+# the serving slice: K7 and the Mamba-2 path
+# ---------------------------------------------------------------------------
+
+BF16_FLOP_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense (data sheet)
+K7_REPLACES = "src/repro/kernels/ssd/kernel.py:57"
+# K7's tolerances, normwise (max |kernel - plain| <= tol * max |plain|): f32 is
+# the summation order of L <= 64 and N <= 128 float32 terms; bf16 y_diag is one
+# bf16 rounding of a float32 result (the two sides may land on neighbouring
+# bf16 values, 2^-7 apart); the states are float32 from exactly converted inputs
+K7_TOL = {"float32": {"y_diag": 1e-5, "states": 1e-5, "s": 0.0},
+          "bfloat16": {"y_diag": 1e-2, "states": 1e-5, "s": 0.0}}
+# Ba, T, H, P, N, G, L: the main path's prefill (4 x 2048 tokens of mamba2-1.3b),
+# a 1000-token prompt (L = 50), one-token chunks, two groups, the SMOKE width
+K7_MAIN = (4, 2048, 64, 64, 128, 1, 64)
+K7_SHAPES = (K7_MAIN, (1, 1000, 64, 64, 128, 1, 50), (2, 7, 64, 64, 128, 1, 1),
+             (2, 64, 8, 16, 16, 2, 8), (2, 20, 8, 16, 16, 1, 5))
+SERVE_TOL = 1e-4   # f32 logits, normwise: K7 against the chunked plain scan, summation order
+
+
+def k7_inputs(shape, dtype, gen, dev):
+    """x, B, C as strided slices of one projection, as the Mamba layer passes
+    them; dt as softplus gives it, A = -exp(A_log)."""
+    Ba, T, H, P, N, G, L = shape
+    w = H * P + 2 * G * N
+    zx = torch.randn(Ba, T, w + H, generator=gen, device=dev).to(dtype)
+    x = zx[..., :H * P].view(Ba, T, H, P)
+    B = zx[..., H * P:H * P + G * N].view(Ba, T, G, N)
+    C = zx[..., H * P + G * N:w].view(Ba, T, G, N)
+    dt = torch.nn.functional.softplus(
+        torch.randn(Ba, T, H, generator=gen, device=dev) - 2.0)
+    A = -torch.exp(torch.rand(H, generator=gen, device=dev))
+    return x, dt, A, B, C
+
+
+def k7_bound(shape, itemsize: int, per_head: bool = False) -> tuple[float, str, float]:
+    """Least time (ms) of one K7 launch: inputs x, B, C, dt read once and
+    y_diag, states, s written once over the memory rate, or its products
+    (C B^T, W X, B'^T X on full L x L tiles) over the bf16 tensor-core rate.
+    Also returns the float32 CUDA-core floor of the same products."""
+    Ba, T, H, P, N, G, L = shape
+    g = H if per_head else G
+    nbytes = (Ba * T * H * P * itemsize * 2 + 2 * Ba * T * g * N * itemsize
+              + Ba * T * H * 4 * 2 + Ba * (T // L) * H * N * P * 4)
+    flop = Ba * H * (T // L) * (2 * L * L * N + 2 * L * L * P + 2 * N * P * L)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flop / BF16_FLOP_PER_S * 1e3
+    bound = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return (*bound, flop / F32_FLOP_PER_S * 1e3)
+
+
+def k7_phase(kssd, dev, gen) -> dict:
+    """Phase 18: K7 against its plain version at every listed shape, f32 and
+    bf16; then the two timed in turns at the main path's shape.  Returns the
+    max |err| of y_diag at the main path's shapes and the times."""
+    from repro_torch.kernels.ssd import ssd_intra_chunk_ref
+
+    main_err = 0.0
+    for shape in K7_SHAPES:
+        for dt_name in ("bfloat16", "float32"):
+            ins = k7_inputs(shape, getattr(torch, dt_name), gen, dev)
+            got = kssd.ssd_intra_chunk_cuda(*ins, chunk=shape[-1])
+            torch.cuda.synchronize()
+            want = ssd_intra_chunk_ref(*ins, chunk=shape[-1])
+            errs = {}
+            for name, a, b in zip(("y_diag", "states", "s"), got, want):
+                if a.shape != b.shape or a.dtype != b.dtype:
+                    fail(f"K7 {shape} {dt_name}: {name} is {tuple(a.shape)} {a.dtype}, "
+                         f"expected {tuple(b.shape)} {b.dtype}")
+                d = (a.float() - b.float()).abs().max().item()
+                scale = b.float().abs().max().item()
+                norm = d / scale if scale > 0 else d
+                if not math.isfinite(norm) or norm > K7_TOL[dt_name][name]:
+                    fail(f"K7 {shape} {dt_name}: {name} differs from the plain version, "
+                         f"normwise {norm} > {K7_TOL[dt_name][name]}")
+                errs[name] = (norm, d)
+            if shape[-1] in (64, 50) and dt_name == "bfloat16":
+                main_err = max(main_err, errs["y_diag"][1])
+            say("ssd_kernel", shape="Ba,T,H,P,N,G,L=" + ",".join(map(str, shape)), dtype=dt_name,
+                **{f"{k}_normwise": v[0] for k, v in errs.items()},
+                **{f"{k}_max_abs": v[1] for k, v in errs.items()},
+                tol=json.dumps(K7_TOL[dt_name]).replace(" ", ""))
+            del ins, got, want
+    # timed in turns at the main path's shape: plain, kernel, kernel, plain
+    out = {"main_err": main_err}
+    for dt_name in ("bfloat16", "float32"):
+        ins = k7_inputs(K7_MAIN, getattr(torch, dt_name), gen, dev)
+        k_ms, p_ms = [], []
+        for who in ("plain", "kernel", "kernel", "plain"):
+            if who == "plain":
+                p_ms.append(cuda_time_ms(lambda: ssd_intra_chunk_ref(*ins, chunk=64), reps=3,
+                                         warm=1))
+            else:
+                k_ms.append(cuda_time_ms(lambda: kssd.ssd_intra_chunk_cuda(*ins, chunk=64),
+                                         reps=20))
+        item = 2 if dt_name == "bfloat16" else 4
+        bound, bound_by, f32_floor = k7_bound(K7_MAIN, item)
+        per_head, _, _ = k7_bound(K7_MAIN, item, per_head=True)
+        say("ssd_kernel_time", shape="Ba,T,H,P,N,G,L=" + ",".join(map(str, K7_MAIN)),
+            dtype=dt_name, bc_form="grouped (G=1), read once per head", ms_runs=k_ms,
+            plain_ms_runs=p_ms, bound_ms=bound, bound_by=bound_by,
+            bound_ms_per_head_bc=per_head, share_of_bound=bound / min(k_ms),
+            f32_cuda_core_floor_ms=f32_floor)
+        out[dt_name] = (min(k_ms), min(p_ms), bound, bound_by)
+        del ins
+    torch.cuda.empty_cache()
+    return out
+
+
+def logit_err(a, b, vocab: int) -> float:
+    """Normwise difference of two logit arrays over the real vocabulary (the
+    pad rows hold -1e30)."""
+    a, b = a[..., :vocab].float(), b[..., :vocab].float()
+    return (a - b).abs().max().item() / b.abs().max().item()
+
+
+def mamba_small(kssd, dev) -> None:
+    """Phase 19: the SMOKE width in f32 on the card, K7 against the chunked
+    plain scan, the prefill/decode relation, and the same greedy ids."""
+    import dataclasses
+
+    from repro_torch.configs.mamba2_1p3b import SMOKE
+    from repro_torch.models import Model
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import Engine
+
+    cfg = dataclasses.replace(SMOKE, dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    model = Model(cfg, generator=gen, device=dev)
+    tokens = torch.randint(0, cfg.vocab, (2, 21), generator=gen, device=dev)
+    n0 = kssd.ssd_intra_chunk_cuda.launches
+    lk, _ = tf.prefill(model, tokens[:, :20])
+    if kssd.ssd_intra_chunk_cuda.launches - n0 != cfg.n_layers:
+        fail(f"SMOKE prefill launched K7 {kssd.ssd_intra_chunk_cuda.launches - n0} times")
+    lr, _ = tf.prefill(model, tokens[:, :20], use_kernel="ref")
+    e_ref = logit_err(lk, lr, cfg.vocab)
+    full, _ = tf.prefill(model, tokens)
+    _, caches = tf.prefill(model, tokens[:, :20])
+    step, _ = tf.decode_step(model, tokens[:, 20:], 20, caches)
+    e_dec = logit_err(step, full, cfg.vocab)
+    ids_k = Engine(cfg, model).generate(tokens[:, :20], 8)
+    ids_r = Engine(cfg, model, use_kernel="ref").generate(tokens[:, :20], 8)
+    if not (e_ref <= SERVE_TOL and e_dec <= SERVE_TOL and torch.equal(ids_k, ids_r)):
+        fail(f"SMOKE on the card: K7 vs plain {e_ref}, prefill/decode {e_dec}, "
+             f"ids equal {torch.equal(ids_k, ids_r)}")
+    say("mamba2_small", cfg="SMOKE f32", prompt="2x20 (L=5)", k7_vs_plain_normwise=e_ref,
+        prefill_vs_decode_normwise=e_dec, tol=SERVE_TOL, greedy_ids_equal=True, status="ok")
+
+
+def generate_timed(eng, prompt, n_new: int):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids = eng.generate(prompt, n_new)
+    torch.cuda.synchronize()
+    return ids, time.perf_counter() - t0
+
+
+def mamba_full(kssd, dev) -> int:
+    """Phase 20: mamba2-1.3b at full width and depth, bf16, through
+    Engine.generate; returns K7's launches on this (main) path."""
+    import dataclasses
+
+    from repro_torch.configs import get
+    from repro_torch.configs.base import Layer
+    from repro_torch.models import Model
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import Engine
+
+    cfg = get("mamba2-1.3b")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    model = Model(cfg, generator=gen)
+    torch.cuda.synchronize()
+    say("mamba2_full", cfg=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+        vocab=f"{cfg.vocab}->{cfg.padded_vocab}", params=sum(p.numel() for p in model.parameters()),
+        dtype=cfg.dtype, materialize_s=time.perf_counter() - t0)
+    eng = Engine(cfg, model)
+    prompts = {"4x2048": torch.randint(0, cfg.vocab, (4, 2048), generator=gen, device=dev),
+               "1x1000": torch.randint(0, cfg.vocab, (1, 1000), generator=gen, device=dev)}
+    # the main path: two generate calls, counts zeroed just before, read just after
+    kssd.ssd_intra_chunk_cuda.launches = 0
+    per_call = []
+    for name, n_new in (("4x2048", 32), ("1x1000", 16)):
+        before = kssd.ssd_intra_chunk_cuda.launches
+        ids = eng.generate(prompts[name], n_new)
+        torch.cuda.synchronize()
+        per_call.append(kssd.ssd_intra_chunk_cuda.launches - before)
+        if ids.shape != (prompts[name].shape[0], n_new) or int(ids.max()) >= cfg.vocab:
+            fail(f"{name}: ids {tuple(ids.shape)}, max {int(ids.max())}")
+    launches = kssd.ssd_intra_chunk_cuda.launches
+    if per_call != [cfg.n_layers, cfg.n_layers]:
+        fail(f"K7 launches per generate call {per_call}, expected {cfg.n_layers} each")
+    # decode launches no K7; logits finite
+    with torch.inference_mode():
+        logits, caches = tf.prefill(model, prompts["4x2048"])
+        n0 = kssd.ssd_intra_chunk_cuda.launches
+        step, caches = tf.decode_step(model, logits.argmax(-1, keepdim=True), 2048, caches)
+        dec_launches = kssd.ssd_intra_chunk_cuda.launches - n0
+    if dec_launches or not (torch.isfinite(logits[:, :cfg.vocab]).all()
+                            and torch.isfinite(step[:, :cfg.vocab]).all()):
+        fail(f"decode launched K7 {dec_launches} times, or non-finite logits")
+    say("mamba2_full", k7_launches_per_generate=per_call, k7_launches_in_decode=dec_launches,
+        logits_finite=True)
+    del logits, caches, step
+    # timed through Engine.generate: n_new=1 is prefill and the first id (the
+    # time to first token); the rest are decode steps
+    for name, n_new in (("4x2048", 32), ("1x1000", 16)):
+        p = prompts[name]
+        torch.cuda.reset_peak_memory_stats()
+        t1 = sorted(generate_timed(eng, p, 1)[1] for _ in range(3))[1]
+        tn = sorted(generate_timed(eng, p, n_new)[1] for _ in range(2))[0]
+        say("mamba2_full", prompt=name, new_tokens=n_new, ttft_ms=t1 * 1e3,
+            prefill_tokens_per_s=p.numel() / t1,
+            decode_ms_per_token=(tn - t1) / (n_new - 1) * 1e3,
+            generate_ms=tn * 1e3, peak_GB=torch.cuda.max_memory_allocated() / 1e9)
+    # where one prefill's device time goes
+    kinds = (("k7", ("ssd_chunk_kernel",)),
+             ("matmul", ("gemm", "Gemm", "gemv", "nvjet", "xmma", "cutlass")),
+             ("reduce", ("reduce",)), ("copy", ("copy", "Copy", "Memcpy", "cat")),
+             ("elementwise", ("elementwise", "Elementwise")))
+    p = prompts["4x2048"]
+    with torch.inference_mode():
+        tf.prefill(model, p)
+        say("breakdown", config="mamba2-1.3b prefill 4x2048 bf16",
+            **categories(lambda: tf.prefill(model, p), 1, kinds))
+        logits, caches = tf.prefill(model, p)
+        cur = logits.argmax(-1, keepdim=True)
+        tf.decode_step(model, cur, 2048, caches)
+        say("breakdown", config="mamba2-1.3b decode step, batch 4, bf16",
+            **categories(lambda: tf.decode_step(model, cur, 2048, caches), 1, kinds))
+        del logits, caches
+        # the inter-chunk recurrence and Y_off around K7, one layer's shape, CUDA events
+        ins = k7_inputs(K7_MAIN, torch.bfloat16, gen, dev)
+        full_ms = cuda_time_ms(lambda: kssd.ssd_kernel(*ins, chunk=64), reps=10)
+        k7_ms = cuda_time_ms(lambda: kssd.ssd_intra_chunk_cuda(*ins, chunk=64), reps=10)
+    say("breakdown", config="one layer's SSD at 4x2048", ssd_scan_ms=full_ms, k7_ms=k7_ms,
+        inter_chunk_and_y_off_ms=full_ms - k7_ms, per_prefill_ms=cfg.n_layers * full_ms)
+    del model, eng, ins
+    torch.cuda.empty_cache()
+
+    # four layers of the full width in f32: K7 against the plain scan, and the
+    # prefill/decode relation, at a 1000-token prompt (L = 50)
+    cfg4 = dataclasses.replace(cfg, stacks=(((Layer(mixer="mamba", ffn=False),), 4),),
+                               dtype="float32")
+    m4 = Model(cfg4, generator=torch.Generator(device=dev).manual_seed(2))
+    tok = torch.randint(0, cfg.vocab, (2, 1001), generator=gen, device=dev)
+    with torch.inference_mode():
+        lk, caches = tf.prefill(m4, tok[:, :1000])
+        lr, _ = tf.prefill(m4, tok[:, :1000], use_kernel="ref")
+        step, _ = tf.decode_step(m4, tok[:, 1000:], 1000, caches)
+        longer, _ = tf.prefill(m4, tok)
+    e_ref, e_dec = logit_err(lk, lr, cfg.vocab), logit_err(step, longer, cfg.vocab)
+    if not (e_ref <= SERVE_TOL and e_dec <= SERVE_TOL):
+        fail(f"4 layers f32: K7 vs plain {e_ref}, prefill/decode {e_dec} > {SERVE_TOL}")
+    say("mamba2_full", check="4 layers full width f32, prompt 2x1000", k7_vs_plain_normwise=e_ref,
+        prefill_vs_decode_normwise=e_dec, tol=SERVE_TOL, status="ok")
+    del m4
+    torch.cuda.empty_cache()
+    return launches
+
+
+def serving_phases(dev) -> list:
+    import importlib
+
+    kssd = importlib.import_module("repro_torch.kernels.ssd.kernel")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    # ---- 18. K7 against its plain version, then timed -----------------------
+    k7 = k7_phase(kssd, dev, gen)
+    # ---- 19-20. the serving path: the count zeroed just before, read after --
+    kssd.ssd_intra_chunk_cuda.launches = 0
+    mamba_small(kssd, dev)
+    launches = mamba_full(kssd, dev)
+    ms, plain_ms, bound, bound_by = k7["bfloat16"]
+    return [{"name": "ssd_intra_chunk", "route": "cuda",
+             "source": "src/repro_torch/kernels/ssd/csrc/ssd.cu", "replaces": K7_REPLACES,
+             "launches": launches, "max_abs_err": k7["main_err"], "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by, "library_ms": None}]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible; nothing was run", file=sys.stderr)
@@ -1053,8 +1345,9 @@ def main() -> int:
 
     solver_entries = solver_phases(dev, rand)
     face_entries = stokes_phases(rand)
+    ssd_entries = serving_phases(dev)
 
-    print(json.dumps({"kernels": [k1] + solver_entries + face_entries}))
+    print(json.dumps({"kernels": [k1] + solver_entries + face_entries + ssd_entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -348,13 +348,15 @@ class Stokes3D:
         ``method="schur"`` runs CG on the viscosity-preconditioned Schur
         complement, each matvec one velocity solve to ``inner_tol``
         (default ``tol * 1e-2``, floored at 1e-12).  ``compiled=True`` (the
-        default) is the reference's device-resident outer loop: the
-        preconditioner is set up once above it, the inner solves run through
+        default) follows the schedule of the reference's compiled outer
+        loop, but it is not device-resident: the preconditioner is set up
+        once above it, the inner solves run through
         :func:`repro_torch.solvers.cg_local`, every outer scalar is a 0-d
-        device tensor, the only host read per outer iteration is the
-        stopping test, and the inner solves' convergence is checked after
-        the loop.  ``compiled=False`` is the host loop; both give the same
-        iterates.  ``variant`` selects the inner CG schedule.
+        device tensor, and the inner solves' convergence is checked after
+        the loop; the host reads the device once per outer iteration (the
+        stopping test) and once per inner CG iteration (``cg_local``'s
+        residual test).  ``compiled=False`` is the host loop; both give the
+        same iterates.  ``variant`` selects the inner CG schedule.
         ``method="uzawa"`` is the Richardson loop ``P <- P - theta eta div V``
         (warm-started velocity solves).  Both stop when ``||div V||`` has
         dropped by ``tol`` relative to that of the first velocity iterate.
@@ -465,14 +467,16 @@ class Stokes3D:
 
     def _solve_schur_compiled(self, tol, outer_maxiter, inner_tol, precond, variant="classic",
                               inner_maxiter=2000):
-        """The Schur-CG recurrence of :meth:`_solve_schur` kept on the
-        device: the preconditioner is set up once, each matvec is one
-        :func:`repro_torch.solvers.cg_local` velocity solve, every outer
-        scalar stays a 0-d tensor, and the only host read per outer
-        iteration is the stopping test (which also stops at the first inner
-        solve that did not converge, as the reference's loop predicate
-        does).  The inner solves' convergence flag and worst relative
-        residual are checked after the loop."""
+        """The Schur-CG recurrence of :meth:`_solve_schur` on the schedule
+        of the reference's compiled loop: the preconditioner is set up
+        once, each matvec is one :func:`repro_torch.solvers.cg_local`
+        velocity solve, and every outer scalar stays a 0-d tensor.  The
+        host reads the device once per outer iteration, for the stopping
+        test (which also stops at the first inner solve that did not
+        converge, as the reference's loop predicate does), and once per
+        inner CG iteration inside ``cg_local``.  The inner solves'
+        convergence flag and worst relative residual are checked after the
+        loop."""
         g = self.grid
         eta = self.eta
         pre = self._precond(precond)
@@ -538,8 +542,8 @@ class Stokes3D:
         ok, worst = ok & (rrf <= inner_tol), torch.maximum(worst, rrf)
         if not bool(ok):
             raise RuntimeError(
-                "Schur-CG inner velocity solve did not converge inside the device-resident "
-                f"outer loop (worst inner relres {float(worst):.2e} vs inner_tol "
+                "Schur-CG inner velocity solve did not converge inside the outer loop "
+                f" (worst inner relres {float(worst):.2e} vs inner_tol "
                 f"{inner_tol:.2e}); raise inner_tol/maxiter or strengthen the velocity "
                 "preconditioner")
         P = Field(g, Ph, "center")

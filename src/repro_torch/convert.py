@@ -6,14 +6,22 @@ as a ``(*dims, *local_shape)`` tensor on its grid's device.  Staggered
 fields travel as :class:`~repro_torch.fields.Field` (a location with the
 tensor) and :class:`~repro_torch.fields.FieldSet` (named Fields), e.g. the
 Stokes viscosity ``eta``, forcing ``F``, pressure ``P`` and velocity ``V``.
+
+For the language models the state is the parameters:
+:func:`params_from_reference` turns the JAX package's parameter tree into
+the state dict of a :class:`repro_torch.models.Model`.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+import torch
+
 from .core.grid import ImplicitGlobalGrid
 from .fields import Field, FieldSet
+from .models import params as pm
+from .models import transformer
 
 
 def fields_from_reference(grid: ImplicitGlobalGrid, *stacked):
@@ -48,3 +56,16 @@ def field_to_reference(field: Field) -> tuple[np.ndarray, str]:
 def fieldset_to_reference(fset: FieldSet) -> dict:
     """A FieldSet -> ``{name: (stacked array, loc)}``, in its order."""
     return {k: field_to_reference(f) for k, f in fset.items()}
+
+
+def params_from_reference(cfg, tree) -> dict:
+    """The JAX package's parameter tree of ``cfg`` with NumPy leaves
+    (``stacks[i]["layers"][j][name]`` with a leading repeat axis,
+    ``embed``, ``final_norm``) -> the state dict of
+    ``repro_torch.models.Model(cfg, state)``, as CPU tensors.  Every leaf
+    maps to one parameter (transposed where the port keeps an
+    ``nn.Linear`` weight); a leaf left over or missing raises."""
+    leaf = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    state = transformer.state_from_tree(cfg, pm.tree_map(leaf, tree))
+    transformer.check_state(cfg, state)
+    return state

@@ -1,0 +1,69 @@
+"""Minimal batched serving engine: prefill + greedy/temperature decode.
+
+The port's twin of the JAX package's ``serve/engine.py``.  Caches are the
+Mamba layers' SSM and conv states (``transformer.prefill``); the engine
+drives prefill and one decode step per new token.  The ids stay on the
+device until the caller reads them: no host read per token.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .._device import resolve_device
+from ..models import transformer as tf
+
+
+class Engine:
+    """``Engine(cfg, model).generate(tokens, n_new)``.  ``model`` is a
+    :class:`repro_torch.models.Model` of ``cfg`` on ``device`` (default the
+    CUDA card; ``device="cpu"`` for the plain path).  ``use_kernel`` is
+    passed to the SSD scan (``"auto" | "cuda" | "ref" | "naive"``).
+    ``cache_len`` is kept for the attention layers' KV caches; the Mamba
+    layers' caches do not depend on it."""
+
+    def __init__(self, cfg, model, *, cache_len: int | None = None, device=None,
+                 flight_dir: str | None = None, use_kernel: str = "auto"):
+        if flight_dir is not None:
+            raise NotImplementedError(
+                "flight_dir: the port's flight recorder comes with its telemetry "
+                "(ROADMAP.md, Queue A item 3)")
+        self.device = resolve_device(device)
+        if model.cfg != cfg:
+            raise ValueError(f"the model is built for {model.cfg.name!r}, not {cfg.name!r}")
+        if model.device != self.device:
+            raise ValueError(f"the model lives on {model.device}, the engine on {self.device}")
+        self.cfg = cfg
+        self.model = model
+        self.cache_len = cache_len or cfg.max_seq
+        self.use_kernel = use_kernel
+
+    def generate(self, tokens, n_new: int, *, cross_inputs=None, temperature: float = 0.0,
+                 generator: torch.Generator | None = None):
+        """tokens: (B, T) prompt ids.  Returns (B, n_new) generated ids on the
+        engine's device.  Greedy (argmax) at ``temperature=0``; otherwise
+        sampled from ``softmax(logits / temperature)`` with ``generator``.
+        The reference runs one more decode step after the last id; its
+        logits are never used, so the port leaves it out."""
+        if cross_inputs is not None:
+            raise NotImplementedError(
+                "cross_inputs belong to the encoder-decoder and vision configs "
+                "(ROADMAP.md, Queue A item 6)")
+        if temperature > 0.0 and generator is None:
+            raise ValueError("temperature sampling needs an explicit torch.Generator")
+        tokens = torch.as_tensor(tokens, device=self.device)
+        T = tokens.shape[1]
+        out = []
+        with torch.inference_mode():
+            logits, caches = tf.prefill(self.model, tokens, use_kernel=self.use_kernel)
+            for i in range(n_new):
+                if temperature > 0.0:
+                    probs = torch.softmax(logits / temperature, dim=-1)
+                    cur = torch.multinomial(probs, 1, generator=generator)
+                else:
+                    cur = torch.argmax(logits, dim=-1, keepdim=True)
+                out.append(cur)
+                if i + 1 < n_new:
+                    logits, caches = tf.decode_step(self.model, cur, T + i, caches,
+                                                    use_kernel=self.use_kernel)
+        return torch.cat(out, dim=1) if out else tokens.new_zeros(tokens.shape[0], 0)

@@ -21,7 +21,7 @@ from . import transfers
 from .cg import SolveInfo, cg, cg_local, replacement_count
 from .multigrid import (
     SMOOTHERS, build_coefficients, face_diag, face_stencil, level_spacings, make_tree_v_cycle,
-    make_v_cycle, multigrid_solve, poisson_apply,
+    make_v_cycle, multigrid_solve, poisson_apply, prolong_trilinear, restrict_full_weighting,
 )
 from .preconditioner import CyclePreconditioner
 from .pseudo_transient import PTInfo, optimal_parameters, pseudo_transient
@@ -41,6 +41,6 @@ __all__ = [
     "pseudo_transient", "PTInfo", "optimal_parameters",
     "multigrid_solve", "poisson_apply", "poisson_diag", "coarsen_coefficient",
     "make_v_cycle", "make_tree_v_cycle", "face_stencil", "face_diag", "build_coefficients",
-    "level_spacings", "SMOOTHERS",
+    "level_spacings", "SMOOTHERS", "restrict_full_weighting", "prolong_trilinear",
     "CyclePreconditioner", "transfers",
 ]

@@ -91,6 +91,21 @@ def poisson_apply(grid, u, c, spacing, update_halo=True, hide=False, shift=None,
 
 
 # ---------------------------------------------------------------------------
+# the reference's center-only names of the grid transfers (public aliases of
+# transfers.restrict / transfers.prolong at cell centers)
+# ---------------------------------------------------------------------------
+
+def restrict_full_weighting(fine):
+    """Center restriction (see :func:`repro_torch.solvers.transfers.restrict`)."""
+    return transfers.restrict(fine, "center")
+
+
+def prolong_trilinear(coarse):
+    """Center prolongation (see :func:`repro_torch.solvers.transfers.prolong`)."""
+    return transfers.prolong(coarse, "center")
+
+
+# ---------------------------------------------------------------------------
 # V-cycle construction (shared by the solver and the CG preconditioner)
 # ---------------------------------------------------------------------------
 

@@ -7,8 +7,8 @@ back quietly.
 * the entry points raise without CUDA unless a device is given;
 * ``use_kernel="cuda"`` on a CPU tensor raises, and no module that
   launches a kernel (the heat step, the solver ops, multigrid, the solvers
-  and apps above them, the staggered fields and the Stokes app) holds a
-  ``try``.
+  and apps above them, the staggered fields and the Stokes app, the SSD
+  scan and the Mamba-2 model and engine above it) holds a ``try``.
 """
 
 from __future__ import annotations
@@ -108,7 +108,7 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()
-    assert [p.name for p in _build.sources()] == ["solver3d.cu", "heat_step.cu"]
+    assert [p.name for p in _build.sources()] == ["solver3d.cu", "ssd.cu", "heat_step.cu"]
     assert _build.library_path().parent == tmp_path / "build"
 
 
@@ -182,3 +182,55 @@ def test_solver_path_has_no_try_around_a_launch(module):
         for k in ("apply_cuda", "residual_cuda", "jacobi_cuda", "cheb_cuda", "apply_face_cuda",
                   "residual_face_cuda", "jacobi_face_cuda", "cheb_face_cuda"):
             assert f"{k}(" in src, k
+
+
+def test_serving_entry_points_raise_without_cuda(monkeypatch):
+    from repro_torch.configs.mamba2_1p3b import SMOKE
+    from repro_torch.models import Model
+    from repro_torch.models import params as pm
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import Engine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    g = torch.Generator().manual_seed(0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Model(SMOKE, generator=g)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pm.materialize(tf.param_specs(SMOKE), g, torch.float32)
+    model = Model(SMOKE, generator=g, dtype=torch.float32, device="cpu")
+    assert model.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Engine(SMOKE, model)
+    assert Engine(SMOKE, model, device="cpu").generate(torch.zeros(1, 4, dtype=torch.long),
+                                                       2).shape == (1, 2)
+
+
+def test_serving_cuda_mode_on_cpu_tensor_raises():
+    from repro_torch.configs.mamba2_1p3b import SMOKE
+    from repro_torch.kernels.ssd import ssd_scan
+    from repro_torch.models import Model
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import Engine
+
+    model = Model(SMOKE, generator=torch.Generator().manual_seed(0), dtype=torch.float32,
+                  device="cpu")
+    tokens = torch.zeros(1, 8, dtype=torch.long)
+    with pytest.raises(ValueError, match="CUDA"):
+        Engine(SMOKE, model, device="cpu", use_kernel="cuda").generate(tokens, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        tf.prefill(model, tokens, use_kernel="cuda")
+    x = torch.zeros(1, 8, 2, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_scan(x, torch.ones(1, 8, 2), -torch.ones(2), torch.zeros(1, 8, 1, 4),
+                 torch.zeros(1, 8, 1, 4), chunk=4, use_kernel="cuda")
+
+
+@pytest.mark.parametrize("module", [
+    "kernels/ssd/ops.py", "kernels/ssd/kernel.py", "kernels/ssd/ref.py", "models/ssm.py",
+    "models/blocks.py", "models/transformer.py", "serve/engine.py",
+    "distributed/seqpar.py"])
+def test_serving_path_has_no_try_around_a_launch(module):
+    tree = ast.parse((PKG / module).read_text())
+    assert not [n for n in ast.walk(tree) if isinstance(n, (ast.Try, ast.TryStar))]
+    if module == "kernels/ssd/ops.py":   # the one place that picks K7 or its plain version
+        assert "ssd_kernel(" in ast.unparse(tree)

@@ -7,7 +7,7 @@ preconditioners, from the reference's viscosity and forcing:
 * outer, total inner and first inner iteration counts EQUAL to the
   reference's (its ``compiled=False`` loop; the reference requires its
   compiled loop to give the same counts, ``tests/test_stokes_full.py``);
-* the port's device-resident loop (``compiled=True``) and its host loop
+* the port's loop on the compiled schedule (``compiled=True``) and its host loop
   (``compiled=False``) give the same counts and pressures and velocities
   within 1e-10 of their largest values (the reference's criterion for its
   own two loops);
