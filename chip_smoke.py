@@ -3,9 +3,10 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels (K1 heat step, K2-K5 solver operators on
-cell centers and on faces, K7 SSD intra-chunk block) from the sources in
-this checkout and holds each against its plain PyTorch version on the card.
-Then it drives four paths through the kernels:
+cell centers and on faces, K6 sliding-window attention, K7 SSD intra-chunk
+block) from the sources in this checkout and holds each against its plain
+PyTorch version on the card.  Then it drives five paths through the
+kernels:
 
 * the paper's Fig.-1 heat solver (``repro_torch.apps.Heat3D``) at 512^3
   cells on one rank and at 8 x 256^3 on eight virtual ranks, with and
@@ -27,7 +28,17 @@ Then it drives four paths through the kernels:
   width and depth in bf16 with random weights: two ``generate`` calls
   (4 x 2048 prompt tokens + 32 new, 1 x 1000 + 16), 48 K7 launches each,
   timed, with a device-time breakdown of one prefill, and four layers of
-  the full width in f32 against the plain scan.
+  the full width in f32 against the plain scan;
+* the gemma3 serving path (global and sliding-window attention, GeGLU
+  FFN): K6 against its plain version at the reference tests' cases, ragged
+  prompts and gemma3-4b's prefill shapes, then timed beside the plain
+  version and ``scaled_dot_product_attention`` (a yardstick only); the
+  SMOKE width in f32 (K6 against the plain path, every decode step, the
+  same greedy ids); gemma3-4b at full width and depth in bf16 with random
+  weights: two ``generate`` calls (4 x 2048 prompt tokens + 32 new,
+  1 x 1000 + 16, cache_len = prompt + new), 34 K6 launches each and none in
+  decode, timed, with device-time breakdowns of one prefill and one decode
+  step, and four layers of the full width in f32 against the plain path.
 
 Times come from CUDA events or from host clocks around synchronised work.
 Every phase prints one line; any failure raises and exits non-zero.  The
@@ -1070,6 +1081,18 @@ def generate_timed(eng, prompt, n_new: int):
     return ids, time.perf_counter() - t0
 
 
+def generate_metrics(eng, p, n_new: int) -> dict:
+    """Through Engine.generate: n_new=1 is prefill and the first id (the
+    time to first token, median of 3); the rest are decode steps (the better
+    of 2 full calls)."""
+    torch.cuda.reset_peak_memory_stats()
+    t1 = sorted(generate_timed(eng, p, 1)[1] for _ in range(3))[1]
+    tn = sorted(generate_timed(eng, p, n_new)[1] for _ in range(2))[0]
+    return {"ttft_ms": t1 * 1e3, "prefill_tokens_per_s": p.numel() / t1,
+            "decode_ms_per_token": (tn - t1) / (n_new - 1) * 1e3, "generate_ms": tn * 1e3,
+            "peak_GB": torch.cuda.max_memory_allocated() / 1e9}
+
+
 def mamba_full(kssd, dev) -> int:
     """Phase 20: mamba2-1.3b at full width and depth, bf16, through
     Engine.generate; returns K7's launches on this (main) path."""
@@ -1120,14 +1143,8 @@ def mamba_full(kssd, dev) -> int:
     # timed through Engine.generate: n_new=1 is prefill and the first id (the
     # time to first token); the rest are decode steps
     for name, n_new in (("4x2048", 32), ("1x1000", 16)):
-        p = prompts[name]
-        torch.cuda.reset_peak_memory_stats()
-        t1 = sorted(generate_timed(eng, p, 1)[1] for _ in range(3))[1]
-        tn = sorted(generate_timed(eng, p, n_new)[1] for _ in range(2))[0]
-        say("mamba2_full", prompt=name, new_tokens=n_new, ttft_ms=t1 * 1e3,
-            prefill_tokens_per_s=p.numel() / t1,
-            decode_ms_per_token=(tn - t1) / (n_new - 1) * 1e3,
-            generate_ms=tn * 1e3, peak_GB=torch.cuda.max_memory_allocated() / 1e9)
+        say("mamba2_full", prompt=name, new_tokens=n_new,
+            **generate_metrics(eng, prompts[name], n_new))
     # where one prefill's device time goes
     kinds = (("k7", ("ssd_chunk_kernel",)),
              ("matmul", ("gemm", "Gemm", "gemv", "nvjet", "xmma", "cutlass")),
@@ -1190,6 +1207,298 @@ def serving_phases(dev) -> list:
              "source": "src/repro_torch/kernels/ssd/csrc/ssd.cu", "replaces": K7_REPLACES,
              "launches": launches, "max_abs_err": k7["main_err"], "ms": ms,
              "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by, "library_ms": None}]
+
+
+# ---------------------------------------------------------------------------
+# the gemma3 slice: K6 and the attention serving path
+# ---------------------------------------------------------------------------
+
+K6_REPLACES = "src/repro/kernels/swa/kernel.py:90"
+# K6's tolerances, normwise (max |kernel - plain| <= tol * max |plain|): f32 is
+# the summation order of up to D + S float32 terms and the online softmax's
+# rescaling; in bf16 the plain version rounds q * scale, the logits and the
+# probabilities to bf16 where the kernel keeps float32
+K6_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# B, H, Hkv, T, S, D, window: the cases of tests/test_kernel_swa.py (windows
+# 4/16/64/10000, GQA 8 -> 2, queries offset into a longer kv sequence, its bf16
+# case), ragged T of 1, 5, 50, 1000 and 1500 at gemma3-4b's heads, and the
+# main path's prefill shapes: 4 x 2048 (window 1024 and window = S) and 1 x 1000
+K6_MAIN = (4, 8, 4, 2048, 2048, 256, 1024)
+K6_GLOBAL = (4, 8, 4, 2048, 2048, 256, 2048)
+K6_PATH = (K6_MAIN, K6_GLOBAL, (1, 8, 4, 1000, 1000, 256, 1024), (1, 8, 4, 1000, 1000, 256, 1000))
+K6_SHAPES = tuple((2, 4, 2, 64, 64, 32, w) for w in (4, 16, 64, 10000)) + (
+    (1, 8, 2, 32, 32, 16, 16), (1, 4, 4, 16, 128, 32, 8), (1, 4, 4, 16, 128, 32, 48),
+    (1, 4, 4, 16, 128, 32, 128), (1, 2, 1, 64, 64, 64, 32), (1, 8, 4, 1, 1, 256, 1024),
+    (1, 8, 4, 5, 5, 256, 1024), (1, 8, 4, 50, 50, 256, 1024), (2, 8, 4, 1500, 1500, 256, 1024),
+    (1, 8, 4, 333, 1000, 256, 200)) + K6_PATH
+GEMMA_RUNS = (("4x2048", 4, 2048, 32), ("1x1000", 1, 1000, 16))   # name, batch, prompt, new
+
+
+def k6_inputs(shape, dtype, gen, dev):
+    """q (B, H, T, D), k/v (B, Hkv, S, D) as views of (B, T, H, D)
+    projections, as the attention layer passes them."""
+    B, H, Hkv, T, S, D, _ = shape
+    q = torch.randn(B, T, H, D, generator=gen, device=dev).to(dtype).transpose(1, 2)
+    k = torch.randn(B, S, Hkv, D, generator=gen, device=dev).to(dtype).transpose(1, 2)
+    v = torch.randn(B, S, Hkv, D, generator=gen, device=dev).to(dtype).transpose(1, 2)
+    return q, k, v
+
+
+def k6_bound(shape, itemsize: int) -> tuple[float, str, float]:
+    """Least time (ms) of one K6 launch: q, k, v read once and the output
+    written once over the memory rate, or 4 D operations per unmasked
+    (query, key) pair of these shapes over the inputs' type's peak (bf16
+    tensor cores; float32 outside them).  Also returns the float32
+    CUDA-core floor of the same operations."""
+    B, H, Hkv, T, S, D, window = shape
+    w = min(window, S)
+    pairs = int(np.minimum(np.arange(T) + (S - T) + 1, w).sum())
+    flop = 4 * D * pairs * B * H
+    t_bytes = (2 * B * H * T * D + 2 * B * Hkv * S * D) * itemsize / HBM_BYTES_PER_S * 1e3
+    t_ops = flop / (BF16_FLOP_PER_S if itemsize == 2 else F32_FLOP_PER_S) * 1e3
+    bound = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return (*bound, flop / F32_FLOP_PER_S * 1e3)
+
+
+def normwise(got, want) -> tuple[float, float]:
+    d = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    return (d / scale if scale > 0 else d), d
+
+
+def k6_phase(kswa, dev, gen) -> dict:
+    """Phase 21: K6 against its plain version at every listed shape, bf16
+    and f32; then K6, the plain version and one library call timed in turns
+    at the main path's shapes.  Returns the max |err| over the main path's
+    bf16 shapes and the times."""
+    from repro_torch.kernels.swa import swa_ref
+
+    main_err = 0.0
+    for shape in K6_SHAPES:
+        for dt_name in ("bfloat16", "float32"):
+            q, k, v = k6_inputs(shape, getattr(torch, dt_name), gen, dev)
+            got = kswa.swa_attention_cuda(q, k, v, window=shape[-1])
+            torch.cuda.synchronize()
+            want = swa_ref(q, k, v, window=shape[-1])
+            if got.shape != want.shape or got.dtype != want.dtype:
+                fail(f"K6 {shape} {dt_name}: gave {tuple(got.shape)} {got.dtype}")
+            norm, d = normwise(got, want)
+            if not math.isfinite(norm) or norm > K6_TOL[dt_name]:
+                fail(f"K6 {shape} {dt_name}: differs from the plain version, normwise {norm} > "
+                     f"{K6_TOL[dt_name]}")
+            if shape in K6_PATH and dt_name == "bfloat16":
+                main_err = max(main_err, d)
+            say("swa_kernel", shape="B,H,Hkv,T,S,D,window=" + ",".join(map(str, shape)),
+                dtype=dt_name, normwise=norm, max_abs=d, tol=K6_TOL[dt_name])
+            del q, k, v, got, want
+    # timed in turns at the main path's shapes: plain, kernel, library, kernel, plain, library
+    import torch.nn.functional as F
+
+    out = {"main_err": main_err}
+    for name, shape in (("window", K6_MAIN), ("global", K6_GLOBAL)):
+        B, H, Hkv, T, S, D, w = shape
+        for dt_name in ("bfloat16", "float32"):
+            q, k, v = k6_inputs(shape, getattr(torch, dt_name), gen, dev)
+            if name == "window":
+                qpos = torch.arange(T, device=dev)[:, None] + (S - T)
+                kpos = torch.arange(S, device=dev)[None, :]
+                band = (kpos <= qpos) & (kpos > qpos - w)
+                lib = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=band,  # noqa: E731
+                                                             enable_gqa=True)
+            else:
+                lib = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,  # noqa: E731
+                                                             enable_gqa=True)
+            lib_err, _ = normwise(lib(), kswa.swa_attention_cuda(q, k, v, window=w))
+            if lib_err > K6_TOL[dt_name]:
+                fail(f"K6 {name} {dt_name}: the library call computes another function "
+                     f"({lib_err})")
+            times = {"plain": [], "kernel": [], "library": []}
+            for who in ("plain", "kernel", "library", "kernel", "plain", "library"):
+                fn = {"plain": lambda: swa_ref(q, k, v, window=w), "library": lib,
+                      "kernel": lambda: kswa.swa_attention_cuda(q, k, v, window=w)}[who]
+                times[who].append(cuda_time_ms(fn, reps=5 if who == "plain" else 20,
+                                               warm=1 if who == "plain" else 3))
+            item = 2 if dt_name == "bfloat16" else 4
+            bound, bound_by, f32_floor = k6_bound(shape, item)
+            ms = min(times["kernel"])
+            say("swa_kernel_time", case=name, shape="B,H,Hkv,T,S,D,window=" + ",".join(
+                map(str, shape)), dtype=dt_name, ms_runs=times["kernel"],
+                plain_ms_runs=times["plain"], library_ms_runs=times["library"],
+                library="scaled_dot_product_attention(" + ("band mask" if name == "window"
+                                                           else "is_causal") + ", enable_gqa)",
+                library_vs_kernel_normwise=lib_err, bound_ms=bound, bound_by=bound_by,
+                share_of_bound=bound / ms, f32_cuda_core_floor_ms=f32_floor,
+                share_of_f32_floor=f32_floor / ms)
+            out[(name, dt_name)] = (ms, min(times["plain"]), min(times["library"]), bound,
+                                    bound_by)
+            del q, k, v
+    torch.cuda.empty_cache()
+    return out
+
+
+def gemma3_small(kswa, dev) -> None:
+    """Phase 22: the SMOKE width in f32 on the card, K6 against the plain
+    path: prefill logits at prompts below, at and above the window (8), every
+    decode step after each against the plain path's, and the same greedy
+    ids."""
+    import dataclasses
+
+    from repro_torch.configs.gemma3_4b import SMOKE
+    from repro_torch.models import Model
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import Engine
+
+    cfg = dataclasses.replace(SMOKE, dtype="float32", max_seq=32)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    model = Model(cfg, generator=gen, device=dev)
+    tokens = torch.randint(0, cfg.vocab, (2, 21), generator=gen, device=dev)
+    h, _, _ = tf.fwd(model, tokens, mode="train", use_kernel="ref")
+    full = tf.logits_fn(model, h)
+    h, _, _ = tf.fwd(model, tokens, mode="train")
+    e_train = logit_err(tf.logits_fn(model, h), full, cfg.vocab)
+    e_pre = e_dec = 0.0
+    for tp in (5, 8, 12):
+        n0 = kswa.swa_attention_cuda.launches
+        lk, ck = tf.prefill(model, tokens[:, :tp], cache_len=24)
+        if kswa.swa_attention_cuda.launches - n0 != cfg.n_layers:
+            fail(f"SMOKE prefill launched K6 {kswa.swa_attention_cuda.launches - n0} times")
+        lr, cr = tf.prefill(model, tokens[:, :tp], cache_len=24, use_kernel="ref")
+        e_pre = max(e_pre, logit_err(lk, lr, cfg.vocab))
+        for t in range(tp, 21):
+            n0 = kswa.swa_attention_cuda.launches
+            sk, ck = tf.decode_step(model, tokens[:, t:t + 1], t, ck)
+            sr, cr = tf.decode_step(model, tokens[:, t:t + 1], t, cr)
+            if kswa.swa_attention_cuda.launches != n0:
+                fail("a decode step launched K6")
+            e_dec = max(e_dec, logit_err(sk, sr, cfg.vocab), logit_err(sk, full[:, t], cfg.vocab))
+    ids_k = Engine(cfg, model).generate(tokens[:, :12], 8)
+    ids_r = Engine(cfg, model, use_kernel="ref").generate(tokens[:, :12], 8)
+    if not (max(e_train, e_pre, e_dec) <= SERVE_TOL and torch.equal(ids_k, ids_r)):
+        fail(f"gemma3 SMOKE on the card: K6 vs plain train {e_train}, prefill {e_pre}, decode "
+             f"{e_dec}, ids equal {torch.equal(ids_k, ids_r)}")
+    say("gemma3_small", cfg="SMOKE f32", prompts="2x5,2x8,2x12 (window 8)",
+        k6_vs_plain_train_normwise=e_train, k6_vs_plain_prefill_normwise=e_pre,
+        decode_vs_plain_normwise=e_dec, tol=SERVE_TOL, greedy_ids_equal=True, status="ok")
+
+
+def gemma3_full(kswa, dev) -> int:
+    """Phase 23: gemma3-4b at full width and depth, bf16, through
+    Engine.generate (cache_len = prompt + new tokens); returns K6's launches
+    on this (main) path."""
+    import dataclasses
+
+    from repro_torch.configs import get
+    from repro_torch.models import Model
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import Engine
+
+    cfg = get("gemma3-4b")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    model = Model(cfg, generator=gen)
+    torch.cuda.synchronize()
+    n_swa = sum(l.mixer == "swa" for l in cfg.layers_flat)
+    say("gemma3_full", cfg=cfg.name, layers=cfg.n_layers, window_layers=n_swa,
+        global_layers=cfg.n_layers - n_swa, d_model=cfg.d_model, heads=f"{cfg.n_heads}x"
+        f"{cfg.head_dim} kv {cfg.n_kv}", d_ff=cfg.d_ff, vocab=cfg.vocab,
+        params=sum(p.numel() for p in model.parameters()), dtype=cfg.dtype,
+        materialize_s=time.perf_counter() - t0)
+    prompts = {name: torch.randint(0, cfg.vocab, (b, t), generator=gen, device=dev)
+               for name, b, t, _ in GEMMA_RUNS}
+    engines = {name: Engine(cfg, model, cache_len=t + n) for name, _, t, n in GEMMA_RUNS}
+    # the main path: two generate calls, counts zeroed just before, read just after
+    kswa.swa_attention_cuda.launches = 0
+    per_call = []
+    for name, b, t, n_new in GEMMA_RUNS:
+        before = kswa.swa_attention_cuda.launches
+        ids = engines[name].generate(prompts[name], n_new)
+        torch.cuda.synchronize()
+        per_call.append(kswa.swa_attention_cuda.launches - before)
+        if ids.shape != (b, n_new) or int(ids.max()) >= cfg.vocab or int(ids.min()) < 0:
+            fail(f"{name}: ids {tuple(ids.shape)}, range {int(ids.min())}..{int(ids.max())}")
+    launches = kswa.swa_attention_cuda.launches
+    if per_call != [cfg.n_layers, cfg.n_layers]:
+        fail(f"K6 launches per generate call {per_call}, expected {cfg.n_layers} each")
+    # decode launches no K6; logits finite; the caches' shapes
+    name, b, t, n_new = GEMMA_RUNS[0]
+    p, S = prompts[name], t + n_new
+    with torch.inference_mode():
+        logits, caches = tf.prefill(model, p, cache_len=S)
+        n0 = kswa.swa_attention_cuda.launches
+        step, caches = tf.decode_step(model, logits.argmax(-1, keepdim=True), t, caches)
+        dec_launches = kswa.swa_attention_cuda.launches - n0
+    shapes = sorted({tuple(c["mixer"]["k"].shape) for c in caches})
+    want = sorted({(b, min(cfg.layers_flat[0].window, S), cfg.n_kv, cfg.head_dim),
+                   (b, S, cfg.n_kv, cfg.head_dim)})
+    if dec_launches or shapes != want or not (torch.isfinite(logits).all()
+                                              and torch.isfinite(step).all()):
+        fail(f"decode launched K6 {dec_launches} times, cache shapes {shapes} (expected "
+             f"{want}), or non-finite logits")
+    say("gemma3_full", k6_launches_per_generate=per_call, k6_launches_in_decode=dec_launches,
+        cache_shapes=repr(shapes).replace(" ", ""), logits_finite=True)
+    del logits, caches, step
+    # timed through Engine.generate: n_new=1 is prefill and the first id (the
+    # time to first token); the rest are decode steps
+    for run_name, _, run_t, run_new in GEMMA_RUNS:
+        say("gemma3_full", prompt=run_name, new_tokens=run_new, cache_len=run_t + run_new,
+            **generate_metrics(engines[run_name], prompts[run_name], run_new))
+    # where one prefill's and one decode step's device time goes
+    kinds = (("k6", ("swa_kernel",)),
+             ("matmul", ("gemm", "Gemm", "gemv", "nvjet", "xmma", "cutlass")),
+             ("reduce", ("reduce",)), ("copy", ("copy", "Copy", "Memcpy", "cat", "index")),
+             ("elementwise", ("elementwise", "Elementwise")))
+    with torch.inference_mode():
+        tf.prefill(model, p, cache_len=S)
+        say("breakdown", config=f"gemma3-4b prefill {name} bf16",
+            **categories(lambda: tf.prefill(model, p, cache_len=S), 1, kinds))
+        logits, caches = tf.prefill(model, p, cache_len=S)
+        cur = logits.argmax(-1, keepdim=True)
+        tf.decode_step(model, cur, t, caches)
+        say("breakdown", config=f"gemma3-4b decode step, batch {b}, cache {S}, bf16",
+            **categories(lambda: tf.decode_step(model, cur, t, caches), 1, kinds))
+        del logits, caches
+    del model, engines
+    torch.cuda.empty_cache()
+
+    # four layers of the full width in f32 (3 window, 1 global): K6 against the
+    # plain path, and the prefill/decode relation, at a 1500-token prompt
+    swa_l, attn_l = cfg.layers_flat[0], cfg.layers_flat[5]
+    cfg4 = dataclasses.replace(cfg, stacks=(((swa_l,) * 3 + (attn_l,), 1),), dtype="float32")
+    m4 = Model(cfg4, generator=torch.Generator(device=dev).manual_seed(2))
+    tok = torch.randint(0, cfg.vocab, (2, 1501), generator=gen, device=dev)
+    with torch.inference_mode():
+        lk, caches = tf.prefill(m4, tok[:, :1500], cache_len=1501)
+        lr, _ = tf.prefill(m4, tok[:, :1500], cache_len=1501, use_kernel="ref")
+        step, _ = tf.decode_step(m4, tok[:, 1500:], 1500, caches)
+        longer, _ = tf.prefill(m4, tok, use_kernel="ref")
+    e_ref, e_dec = logit_err(lk, lr, cfg.vocab), logit_err(step, longer, cfg.vocab)
+    if not (e_ref <= SERVE_TOL and e_dec <= SERVE_TOL):
+        fail(f"4 layers f32: K6 vs plain {e_ref}, prefill/decode {e_dec} > {SERVE_TOL}")
+    say("gemma3_full", check="4 layers (3 window, 1 global) full width f32, prompt 2x1500",
+        k6_vs_plain_normwise=e_ref, prefill_vs_decode_normwise=e_dec, tol=SERVE_TOL,
+        status="ok")
+    del m4
+    torch.cuda.empty_cache()
+    return launches
+
+
+def gemma3_phases(dev) -> list:
+    import importlib
+
+    kswa = importlib.import_module("repro_torch.kernels.swa.kernel")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    # ---- 21. K6 against its plain version, then timed -----------------------
+    k6 = k6_phase(kswa, dev, gen)
+    # ---- 22-23. the attention serving path: the count zeroed just before ----
+    kswa.swa_attention_cuda.launches = 0
+    gemma3_small(kswa, dev)
+    launches = gemma3_full(kswa, dev)
+    ms, plain_ms, library_ms, bound, bound_by = k6[("window", "bfloat16")]
+    return [{"name": "swa_attention", "route": "cuda",
+             "source": "src/repro_torch/kernels/swa/csrc/swa.cu", "replaces": K6_REPLACES,
+             "launches": launches, "max_abs_err": k6["main_err"], "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+             "library_ms": library_ms}]
 
 
 def main() -> int:
@@ -1346,8 +1655,10 @@ def main() -> int:
     solver_entries = solver_phases(dev, rand)
     face_entries = stokes_phases(rand)
     ssd_entries = serving_phases(dev)
+    swa_entries = gemma3_phases(dev)
 
-    print(json.dumps({"kernels": [k1] + solver_entries + face_entries + ssd_entries}))
+    print(json.dumps({"kernels": [k1] + solver_entries + face_entries + ssd_entries
+                      + swa_entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

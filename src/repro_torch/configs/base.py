@@ -112,7 +112,6 @@ _REGISTRY: dict[str, ModelCfg] = {}
 # (item 6, the rest of the LM scaffolding) that brings their layers
 LATER = {
     "starcoder2-15b": "attention and dense FFN layers",
-    "gemma3-4b": "attention (global and sliding-window) and dense FFN layers",
     "gemma-2b": "attention and dense FFN layers",
     "llama3.2-1b": "attention and dense FFN layers",
     "kimi-k2-1t-a32b": "attention and MoE layers",
@@ -145,4 +144,4 @@ def names() -> list[str]:
 
 
 def _load_all() -> None:
-    from . import mamba2_1p3b  # noqa: F401  (registers its config)
+    from . import gemma3_4b, mamba2_1p3b  # noqa: F401  (register their configs)

@@ -1,0 +1,88 @@
+"""Launcher of the CUDA kernel K6 (``csrc/swa.cu``): causal sliding-window
+GQA flash attention.
+
+:func:`swa_attention_cuda` replaces the TPU kernel ``swa_pallas`` and
+computes the function of :func:`~repro_torch.kernels.swa.ref.swa_ref`:
+q ``(B, H, T, D)``, k/v ``(B, Hkv, S, D)``, the queries being the last T
+of the S keys.  Unlike ``swa_pallas`` it takes any T >= 1 and S >= T (the
+kernel masks its ragged tiles), and any batch, head and time strides with
+D contiguous: the model passes transposed views of its ``(B, T, H, D)``
+projections.  The output is allocated ``(B, T, H, D)`` with
+``torch.empty`` and returned as its ``(B, H, T, D)`` view.
+
+It checks device, dtype (float32, bfloat16), shapes, strides and the
+kernel's limits (D a multiple of 4, at most 256), raises on anything
+else, launches on the current CUDA stream without synchronising, and
+raises if the launch was refused.  ``swa_attention_cuda.launches`` counts
+the launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from .. import _build
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_D = 256
+_MAX_GRID_Y = 65535
+
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    fn = _build.load().repro_swa_attention
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                   + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def swa_attention_cuda(q, k, v, *, window: int, scale: float | None = None):
+    """K6 on the card; the contract of ``swa_ref`` for any T >= 1, S >= T."""
+    where = "swa_attention_cuda"
+    ins = {"q": q, "k": k, "v": v}
+    if q.device.type != "cuda" or any(t.device != q.device for t in ins.values()):
+        raise ValueError(f"{where}: inputs must lie on one CUDA device, got "
+                         + ", ".join(f"{n} on {t.device}" for n, t in ins.items()))
+    if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"{where} takes q, k, v of one dtype in {tuple(DTYPE_CODES)}, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
+        raise ValueError(f"{where}: expected q (B,H,T,D), k/v (B,Hkv,S,D); "
+                         + ", ".join(f"{n} {tuple(t.shape)}" for n, t in ins.items()))
+    B, H, T, D = q.shape
+    _, Hkv, S, _ = k.shape
+    if k.shape[0] != B or k.shape[3] != D or Hkv == 0 or H % Hkv:
+        raise ValueError(f"{where}: shapes disagree: "
+                         + ", ".join(f"{n} {tuple(t.shape)}" for n, t in ins.items()))
+    if not (T >= 1 and S >= T):
+        raise ValueError(f"{where}: needs T >= 1 queries, the last T of S >= T keys; "
+                         f"got T={T}, S={S}")
+    if not (0 < D <= MAX_D and D % 4 == 0):
+        raise ValueError(f"{where}: the kernel takes D <= {MAX_D}, a multiple of 4, got D={D}")
+    if window < 1:
+        raise ValueError(f"{where}: window must be >= 1, got {window}")
+    if B * H > _MAX_GRID_Y:
+        raise ValueError(f"{where}: B*H={B * H} exceeds the launch grid")
+    if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
+        raise ValueError(f"{where}: the last axis of q, k and v must be contiguous")
+    scale = D ** -0.5 if scale is None else float(scale)
+    o = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
+    if o.numel() == 0:
+        return o
+    strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                                       *o.stride()[:3])
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _entry()(DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       o.data_ptr(), B, H, Hkv, T, S, D, min(window, S), scale, strides, stream)
+    if err != 0:
+        raise RuntimeError(f"{where}: launch failed with CUDA error {err}")
+    swa_attention_cuda.launches += 1
+    return o
+
+
+swa_attention_cuda.launches = 0

@@ -1,0 +1,39 @@
+"""Public sliding-window attention ops: K6 on a CUDA tensor, the plain
+version on a CPU tensor.
+
+``use_kernel``: ``"auto" | "cuda" | "ref"`` through
+:mod:`repro_torch.kernels.dispatch`.  :func:`swa_attention` is K6's one
+dispatch point; the model's attention calls it for every causal
+self-attention in train and prefill, at any T.
+:func:`sliding_window_attention` is the JAX package's op: the same
+function under the reference op's contract, which raises where its
+Pallas kernel's tiles do not divide T and S.
+"""
+
+from __future__ import annotations
+
+from .. import dispatch
+from .kernel import swa_attention_cuda
+from .ref import swa_ref
+
+
+def swa_attention(q, k, v, *, window: int, scale: float | None = None,
+                  use_kernel: str = "auto"):
+    """Causal sliding-window GQA attention, q (B, H, T, D), k/v
+    (B, Hkv, S, D), the queries the last T of S; see ``ref.swa_ref``."""
+    if dispatch.resolve(use_kernel, q, where="swa.swa_attention") == "ref":
+        return swa_ref(q, k, v, window=window, scale=scale)
+    return swa_attention_cuda(q, k, v, window=window, scale=scale)
+
+
+def sliding_window_attention(q, k, v, *, window: int, scale: float | None = None,
+                             use_kernel: str = "auto", bq: int = 128, bk: int = 128):
+    """The reference op: raises ``ValueError`` where ``T % min(bq, T)`` or
+    ``S % min(bk, S)`` is not 0, as ``swa_pallas`` does; otherwise
+    :func:`swa_attention` (K6 takes its own tiles, so ``bq``/``bk`` only
+    set that contract)."""
+    T, S = q.shape[2], k.shape[2]
+    bq, bk = min(bq, T), min(bk, S)
+    if T % bq or S % bk:
+        raise ValueError(f"T={T} % bq={bq} or S={S} % bk={bk} != 0")
+    return swa_attention(q, k, v, window=window, scale=scale, use_kernel=use_kernel)

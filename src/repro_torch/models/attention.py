@@ -1,0 +1,176 @@
+"""GQA self-attention, global and sliding-window: train, prefill, decode.
+
+The port's twin of the JAX package's ``models/attention.py`` for causal
+self-attention.  Train and prefill go through K6's dispatch point
+(:func:`repro_torch.kernels.swa.swa_attention`): the CUDA kernel on the
+card, ``swa_ref`` on the CPU.  A window layer passes ``layer.window``, a
+global layer ``window = S``, which ``swa_ref`` defines as plain causal
+attention.  The reference computes the same function with the jnp
+``_attend`` under a band mask, or ``_attend_swa`` for long sequences.
+Decode is the plain :func:`_attend` over the cache, with the reference's
+ring-buffer slots and masks.
+
+Cross-attention, the int8 KV cache, a sequence axis, non-causal layers and
+a soft cap on the kernel path raise: they come with the rest of the LM
+scaffolding (ROADMAP.md, Queue A item 6).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..kernels.swa import swa_attention
+from .layers import rms_norm, rope, softcap
+from .params import ParamSpec
+
+LATER = "ROADMAP.md, Queue A item 6"
+NEG_INF = -1e30
+
+
+def specs(cfg, layer) -> dict:
+    check_layer(cfg, layer)
+    d, H, Hkv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
+    out = {
+        "wq": ParamSpec((d, H, Dh), ("fsdp", "heads", None)),
+        "wk": ParamSpec((d, Hkv, Dh), ("fsdp", "kv_heads", None)),
+        "wv": ParamSpec((d, Hkv, Dh), ("fsdp", "kv_heads", None)),
+        "wo": ParamSpec((H, Dh, d), ("heads", None, "fsdp")),
+    }
+    if cfg.qk_norm:
+        out["q_norm"] = ParamSpec((Dh,), (None,), "ones")
+        out["k_norm"] = ParamSpec((Dh,), (None,), "ones")
+    return out
+
+
+def check_layer(cfg, layer) -> None:
+    """Raise on what the port's attention does not implement yet."""
+    for what, unsupported in (("cross-attention", layer.cross), ("kv_quant", cfg.kv_quant),
+                              ("a non-causal layer", not layer.causal)):
+        if unsupported:
+            raise NotImplementedError(f"{what}: not in the port yet ({LATER})")
+
+
+class Attention(nn.Module):
+    """The projections as ``nn.Linear`` (weight ``(out, in)``: ``wq`` is
+    the reference's ``(d, H, Dh)`` leaf flattened to ``(d, H*Dh)`` and
+    transposed, ``wo`` its ``(H, Dh, d)`` leaf flattened to ``(H*Dh, d)``
+    and transposed); ``q_norm``/``k_norm`` as they are.  Built on the meta
+    device; the model assigns the real tensors."""
+
+    def __init__(self, cfg, layer):
+        super().__init__()
+        check_layer(cfg, layer)
+        d, H, Hkv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
+        meta = {"device": "meta", "bias": False}
+        self.wq = nn.Linear(d, H * Dh, **meta)
+        self.wk = nn.Linear(d, Hkv * Dh, **meta)
+        self.wv = nn.Linear(d, Hkv * Dh, **meta)
+        self.wo = nn.Linear(H * Dh, d, **meta)
+        if cfg.qk_norm:
+            for name in ("q_norm", "k_norm"):
+                self.register_parameter(
+                    name, nn.Parameter(torch.empty(Dh, device="meta"), requires_grad=False))
+
+
+def _expand_kv(kv, H):
+    """(B, S, Hkv, D) -> (B, S, H, D) by repeating each kv head g times."""
+    return torch.repeat_interleave(kv, H // kv.shape[2], dim=2)
+
+
+def _attend(q, kh, vh, mask, *, attn_softcap=0.0):
+    """The plain attention of decode.  q: (B,T,H,D); kh/vh: (B,S,H,D);
+    mask: (T,S) bool."""
+    scale = q.shape[-1] ** -0.5
+    logits = torch.einsum("bthd,bshd->bhts", q * scale, kh).float()
+    if attn_softcap:
+        logits = softcap(logits, attn_softcap)
+    logits = torch.where(mask, logits, logits.new_full((), NEG_INF))
+    p = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhts,bshd->bthd", p, vh)
+
+
+def _ring(kv, S_c: int, last):
+    """The last ``S_c`` tokens of ``kv`` (B, T, Hkv, D) laid out as the
+    reference's ring buffer: ``roll`` by ``(last + 1) % S_c`` along time,
+    as a gather so that ``last`` (a 0-d tensor) stays on the device."""
+    idx = torch.remainder(torch.arange(S_c, device=kv.device) - (last + 1), S_c)
+    return kv[:, -S_c:].index_select(1, idx)
+
+
+def fwd(attn: Attention, cfg, layer, x, *, mode, positions, cache=None, cache_len=None,
+        seq_axis: str | None = None, use_kernel: str = "auto"):
+    """Returns (out, new_cache).
+
+    mode: train | prefill | decode.  positions: (T,) absolute positions of
+    the x tokens (decode: (1,) the current position), a tensor on x's
+    device.  cache (decode): {"k", "v": (B, S_cache, Hkv, Dh)}; prefill
+    creates it at ``cache_len`` (default T).  Decode returns new cache
+    tensors and leaves the given ones as they are."""
+    check_layer(cfg, layer)
+    if seq_axis is not None:
+        raise NotImplementedError(f"seq_axis (context parallelism): not in the port yet ({LATER})")
+    B, T, _ = x.shape
+    H, Hkv, Dh = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    q = F.linear(x, attn.wq.weight).view(B, T, H, Dh)
+    k = F.linear(x, attn.wk.weight).view(B, T, Hkv, Dh)
+    v = F.linear(x, attn.wv.weight).view(B, T, Hkv, Dh)
+    if cfg.qk_norm:  # no (1 + w) here, even under gemma_norm, as in the reference
+        q = rms_norm(q, attn.q_norm, cfg.norm_eps)
+        k = rms_norm(k, attn.k_norm, cfg.norm_eps)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)  # the cache stores post-RoPE keys
+
+    window = layer.window if layer.mixer == "swa" else 0
+
+    if mode == "decode":
+        if cache is None or T != 1:
+            raise ValueError(f"decode takes one token and a cache, got T={T}")
+        S = cache["k"].shape[1]
+        pos = positions[0]
+        slot = torch.remainder(pos, S) if window else torch.clamp(pos, max=S - 1)
+        knew = cache["k"].index_copy(1, slot.reshape(1), k.to(cache["k"].dtype))
+        vnew = cache["v"].index_copy(1, slot.reshape(1), v.to(cache["v"].dtype))
+        new_cache = dict(cache, k=knew, v=vnew)
+        sl = torch.arange(S, device=x.device)
+        valid = (sl <= pos) | (pos >= S) if window else sl <= pos  # a full ring: every slot
+        out = _attend(q, _expand_kv(knew, H), _expand_kv(vnew, H), valid[None, :],
+                      attn_softcap=cfg.attn_softcap)
+    else:  # train / prefill: K6's dispatch point, window = T for a global layer
+        if cfg.attn_softcap:
+            raise NotImplementedError(f"attn_softcap on the kernel path: not in the port yet "
+                                      f"({LATER})")
+        out = swa_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                            window=window or T, use_kernel=use_kernel).transpose(1, 2)
+        new_cache = None
+        if mode == "prefill":
+            S_target = cache_len if cache_len is not None else T
+            if window:
+                S_c = min(window, S_target)
+                if T >= S_c:  # keep the last S_c tokens, laid out ring-buffer style
+                    ks, vs = _ring(k, S_c, positions[-1]), _ring(v, S_c, positions[-1])
+                else:
+                    ks = F.pad(k, (0, 0, 0, 0, 0, S_c - T))
+                    vs = F.pad(v, (0, 0, 0, 0, 0, S_c - T))
+            else:
+                pad = max(0, S_target - T)
+                ks = F.pad(k, (0, 0, 0, 0, 0, pad))
+                vs = F.pad(v, (0, 0, 0, 0, 0, pad))
+            new_cache = {"k": ks, "v": vs}
+
+    out = F.linear(out.reshape(B, T, H * Dh), attn.wo.weight)
+    return out, new_cache
+
+
+def cache_len_hint(cfg, layer) -> int:
+    return layer.window if (layer.mixer == "swa" and layer.window) else cfg.max_seq
+
+
+def init_cache_specs(cfg, layer, batch: int, cache_len: int, dtype) -> dict:
+    """The decode cache's shapes and dtype, as meta tensors (no memory)."""
+    check_layer(cfg, layer)
+    Hkv, Dh = cfg.n_kv, cfg.head_dim
+    S = min(layer.window, cache_len) if (layer.mixer == "swa" and layer.window) else cache_len
+    return {"k": torch.empty((batch, S, Hkv, Dh), dtype=dtype, device="meta"),
+            "v": torch.empty((batch, S, Hkv, Dh), dtype=dtype, device="meta")}

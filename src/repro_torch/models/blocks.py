@@ -1,51 +1,106 @@
-"""Residual blocks: pre-norm mixer wiring per Layer spec.
+"""Residual blocks: pre-norm (mixer | ffn) wiring per Layer spec.
 
 The port's twin of the JAX package's ``models/blocks.py`` for the layers it
-runs: a Mamba mixer with no FFN (``Layer(mixer="mamba", ffn=False)``).
-Attention mixers, cross-attention, MoE and dense FFNs come with the rest
-of the LM scaffolding (ROADMAP.md, Queue A item 6) and raise until then.
+runs: a Mamba mixer with no FFN (``Layer(mixer="mamba", ffn=False)``), and
+causal self-attention, global (``"attn"``) or sliding-window (``"swa"``),
+with a dense FFN (gated ``swiglu``/``geglu`` or a plain activation).
+Cross-attention and MoE come with the rest of the LM scaffolding
+(ROADMAP.md, Queue A item 6) and raise until then.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from . import attention
 from . import ssm as ssm_mod
-from .layers import rms_norm
+from .layers import act_fn, glu, rms_norm
 from .params import ParamSpec
 
-LATER = "ROADMAP.md, Queue A item 6 (attention, MoE and dense FFN layers)"
+LATER = "ROADMAP.md, Queue A item 6 (cross-attention and MoE layers)"
+GATED = ("swiglu", "geglu")
 
 
 def check_layer(layer) -> None:
     """Raise on a layer the port does not implement yet."""
-    if layer.mixer != "mamba":
-        raise NotImplementedError(f"mixer {layer.mixer!r}: not in the port yet ({LATER})")
-    if layer.cross or layer.moe or layer.ffn:
+    if layer.mixer == "mamba":
+        ok = not layer.ffn
+    else:
+        ok = layer.mixer in ("attn", "swa") and layer.ffn
+    if not ok or layer.cross or layer.moe:
         raise NotImplementedError(
-            f"cross={layer.cross}, moe={layer.moe}, ffn={layer.ffn}: not in the port yet ({LATER})")
+            f"mixer={layer.mixer!r}, cross={layer.cross}, moe={layer.moe}, ffn={layer.ffn}: "
+            f"not in the port yet ({LATER})")
+
+
+def _norm_spec(cfg) -> ParamSpec:
+    return ParamSpec((cfg.d_model,), (None,), "zeros" if cfg.gemma_norm else "ones")
+
+
+def ffn_specs(cfg) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.act in GATED:
+        return {"wi": ParamSpec((d, 2, f), ("fsdp", None, "ffn")),
+                "wo": ParamSpec((f, d), ("ffn", "fsdp"))}
+    return {"wi": ParamSpec((d, f), ("fsdp", "ffn")),
+            "wo": ParamSpec((f, d), ("ffn", "fsdp"))}
+
+
+class FFN(nn.Module):
+    """``wi`` and ``wo`` as ``nn.Linear``: the reference's gated ``(d, 2, f)``
+    leaf flattened to ``(d, 2f)`` (gate rows first, then up) and
+    transposed; its ``(f, d)`` leaf transposed."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        d, f = cfg.d_model, cfg.d_ff
+        meta = {"device": "meta", "bias": False}
+        self.wi = nn.Linear(d, 2 * f if cfg.act in GATED else f, **meta)
+        self.wo = nn.Linear(f, d, **meta)
+
+
+def ffn_fwd(ffn: FFN, cfg, x):
+    h = F.linear(x, ffn.wi.weight)
+    if cfg.act in GATED:
+        h = glu(h.unflatten(-1, (2, cfg.d_ff)), cfg.act)
+    else:
+        h = act_fn(cfg.act)(h)
+    return F.linear(h, ffn.wo.weight)
 
 
 def layer_specs(cfg, layer) -> dict:
     check_layer(layer)
-    d = cfg.d_model
-    return {"ln1": ParamSpec((d,), (None,), "zeros" if cfg.gemma_norm else "ones"),
-            "mixer": ssm_mod.specs(cfg)}
+    out = {"ln1": _norm_spec(cfg)}
+    if layer.mixer == "mamba":
+        out["mixer"] = ssm_mod.specs(cfg)
+    else:
+        out["mixer"] = attention.specs(cfg, layer)
+        out["ln2"] = _norm_spec(cfg)
+        out["ffn"] = ffn_specs(cfg)
+    return out
 
 
 class Block(nn.Module):
-    """One layer's parameters: ``ln1`` and the mixer (meta until loaded)."""
+    """One layer's parameters: ``ln1``, the mixer and, for an attention
+    layer, ``ln2`` and the FFN (meta until loaded)."""
 
     def __init__(self, cfg, layer):
         super().__init__()
         check_layer(layer)
-        self.ln1 = nn.Parameter(torch.empty(cfg.d_model, device="meta"), requires_grad=False)
-        self.mixer = ssm_mod.Mamba2(cfg)
+        meta = {"device": "meta"}
+        self.ln1 = nn.Parameter(torch.empty(cfg.d_model, **meta), requires_grad=False)
+        if layer.mixer == "mamba":
+            self.mixer = ssm_mod.Mamba2(cfg)
+        else:
+            self.mixer = attention.Attention(cfg, layer)
+            self.ln2 = nn.Parameter(torch.empty(cfg.d_model, **meta), requires_grad=False)
+            self.ffn = FFN(cfg)
 
 
 def layer_fwd(block: Block, cfg, layer, x, *, mode, positions=None, cache=None,
-              use_kernel: str = "auto"):
+              cache_len=None, use_kernel: str = "auto"):
     """Returns (x, new_cache, aux)."""
     aux = x.new_zeros((), dtype=torch.float32)
     if cache is not None:
@@ -54,16 +109,28 @@ def layer_fwd(block: Block, cfg, layer, x, *, mode, positions=None, cache=None,
         new_cache = {}  # prefill CREATES the cache
     else:
         new_cache = None
-    h, c = ssm_mod.fwd(block.mixer, cfg,
-                       rms_norm(x, block.ln1, cfg.norm_eps, scale_plus_one=cfg.gemma_norm),
-                       mode=mode, cache=cache.get("mixer") if cache is not None else None,
-                       use_kernel=use_kernel)
+
+    def norm(h, w):
+        return rms_norm(h, w, cfg.norm_eps, scale_plus_one=cfg.gemma_norm)
+
+    mixer_cache = cache.get("mixer") if cache is not None else None
+    if layer.mixer == "mamba":
+        h, c = ssm_mod.fwd(block.mixer, cfg, norm(x, block.ln1), mode=mode, cache=mixer_cache,
+                           use_kernel=use_kernel)
+    else:
+        h, c = attention.fwd(block.mixer, cfg, layer, norm(x, block.ln1), mode=mode,
+                             positions=positions, cache=mixer_cache, cache_len=cache_len,
+                             use_kernel=use_kernel)
     x = x + h
     if new_cache is not None and c is not None:
         new_cache["mixer"] = c
+    if layer.ffn:
+        x = x + ffn_fwd(block.ffn, cfg, norm(x, block.ln2))
     return x, new_cache, aux
 
 
 def layer_cache_specs(cfg, layer, batch: int, cache_len: int, dtype) -> dict:
     check_layer(layer)
-    return {"mixer": ssm_mod.init_cache_specs(cfg, batch, dtype)}
+    if layer.mixer == "mamba":
+        return {"mixer": ssm_mod.init_cache_specs(cfg, batch, dtype)}
+    return {"mixer": attention.init_cache_specs(cfg, layer, batch, cache_len, dtype)}

@@ -12,6 +12,8 @@ converted; :func:`state_from_tree` maps it onto the modules.
 
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
 
@@ -21,12 +23,23 @@ from . import params as pm
 from .layers import rms_norm
 from .params import ParamSpec, stack_tree
 
-# reference leaf -> port parameter of a mixer, and whether it is stored
-# transposed (nn.Linear keeps (out, in) where the reference keeps (in, out))
-MIXER_LEAVES = {"in_proj": ("in_proj.weight", True), "out_proj": ("out_proj.weight", True),
-                "conv_w": ("conv_w", False), "conv_b": ("conv_b", False),
-                "A_log": ("A_log", False), "D": ("D", False), "dt_bias": ("dt_bias", False),
-                "norm_w": ("norm_w", False)}
+# reference leaf -> port parameter, and how many leading axes of the leaf
+# are the input of the port's nn.Linear (0: kept as it is).  An nn.Linear
+# keeps (out, in) where the reference keeps (in..., out...): the leaf is
+# flattened to (in, out) and transposed.
+MIXER_LEAVES = {"in_proj": ("in_proj.weight", 1), "out_proj": ("out_proj.weight", 1),
+                "conv_w": ("conv_w", 0), "conv_b": ("conv_b", 0), "A_log": ("A_log", 0),
+                "D": ("D", 0), "dt_bias": ("dt_bias", 0), "norm_w": ("norm_w", 0),
+                "wq": ("wq.weight", 1), "wk": ("wk.weight", 1), "wv": ("wv.weight", 1),
+                "wo": ("wo.weight", 2), "q_norm": ("q_norm", 0), "k_norm": ("k_norm", 0)}
+FFN_LEAVES = {"wi": ("wi.weight", 1), "wo": ("wo.weight", 1)}
+
+
+def _to_port(arr, n_in: int):
+    """One layer's reference leaf -> the port's parameter (see MIXER_LEAVES)."""
+    if not n_in:
+        return arr
+    return arr.reshape(math.prod(arr.shape[:n_in]), -1).T.contiguous()
 
 
 def param_specs(cfg) -> dict:
@@ -74,23 +87,26 @@ def state_from_tree(cfg, tree) -> dict:
                              f"expected 'layers' with {len(pattern)}")
         for j, leaf in enumerate(layers):
             leaf = dict(leaf)
-            ln1 = leaf.pop("ln1", None)
-            mixer = dict(leaf.pop("mixer", {}))
+            norms = {n: leaf.pop(n) for n in ("ln1", "ln2") if n in leaf}
+            groups = {g: (dict(leaf.pop(g, {})), table)
+                      for g, table in (("mixer", MIXER_LEAVES), ("ffn", FFN_LEAVES))}
             if leaf:
                 raise ValueError(f"layer leaves left over: {sorted(leaf)}")
-            for name, arr in mixer.items():
-                if name not in MIXER_LEAVES:
-                    raise ValueError(f"mixer leaf left over: {name!r}")
-                if arr.shape[0] != repeat:
-                    raise ValueError(f"mixer leaf {name!r} has {arr.shape[0]} repeats, "
-                                     f"expected {repeat}")
+            for g, (sub, table) in groups.items():
+                for name, arr in sub.items():
+                    if name not in table:
+                        raise ValueError(f"{g} leaf left over: {name!r}")
+                    if arr.shape[0] != repeat:
+                        raise ValueError(f"{g} leaf {name!r} has {arr.shape[0]} repeats, "
+                                         f"expected {repeat}")
             for r in range(repeat):
                 pre = f"layers.{base + r * len(pattern) + j}."
-                if ln1 is not None:
-                    state[pre + "ln1"] = ln1[r]
-                for name, arr in mixer.items():
-                    target, transpose = MIXER_LEAVES[name]
-                    state[pre + "mixer." + target] = arr[r].T.contiguous() if transpose else arr[r]
+                for name, arr in norms.items():
+                    state[pre + name] = arr[r]
+                for g, (sub, table) in groups.items():
+                    for name, arr in sub.items():
+                        target, n_in = table[name]
+                        state[f"{pre}{g}.{target}"] = _to_port(arr[r], n_in)
         base += repeat * len(pattern)
     return state
 
@@ -167,20 +183,26 @@ def embed_tokens(model: Model, cfg, tokens):
     return x
 
 
-def fwd(model: Model, inputs, *, mode, positions=None, caches=None, use_kernel: str = "auto"):
+def fwd(model: Model, inputs, *, mode, positions=None, caches=None, cache_len=None,
+        use_kernel: str = "auto"):
     """Backbone forward.
 
     inputs: int tokens (B, T) if cfg.vocab else embeddings (B, T, d).
-    caches: list (one entry per layer) of cache dicts, or None.  Returns
-    (hidden (B, T, d), new_caches, aux)."""
+    positions: (T,) absolute positions, an int tensor on the model's device
+    (default ``arange(T)``; decode: ``[pos]``).  caches: list (one entry per
+    layer) of cache dicts, or None.  cache_len: the attention layers' cache
+    length at prefill (default T).  Returns (hidden (B, T, d), new_caches,
+    aux)."""
     cfg = model.cfg
     x = embed_tokens(model, cfg, inputs) if cfg.vocab else inputs
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)
     new_caches = [] if (caches is not None or mode == "prefill") else None
     aux = x.new_zeros((), dtype=torch.float32)
     for i, (layer, block) in enumerate(zip(cfg.layers_flat, model.layers)):
         x, c, a = blocks.layer_fwd(block, cfg, layer, x, mode=mode, positions=positions,
                                    cache=None if caches is None else caches[i],
-                                   use_kernel=use_kernel)
+                                   cache_len=cache_len, use_kernel=use_kernel)
         aux = aux + a
         if new_caches is not None:
             new_caches.append(c)
@@ -213,16 +235,22 @@ def cache_specs(cfg, batch: int, cache_len: int, dtype=torch.bfloat16) -> list:
     return [blocks.layer_cache_specs(cfg, l, batch, cache_len, dtype) for l in cfg.layers_flat]
 
 
-def prefill(model: Model, tokens, *, use_kernel: str = "auto"):
-    """Process the prompt; returns (last-token logits (B, V), caches)."""
-    h, caches, _ = fwd(model, tokens, mode="prefill", use_kernel=use_kernel)
+def prefill(model: Model, tokens, *, cache_len=None, use_kernel: str = "auto"):
+    """Process the prompt; returns (last-token logits (B, V), caches).
+    ``cache_len``: the length of the global attention layers' KV caches
+    (default the prompt's; a window layer keeps ``min(window, cache_len)``
+    slots)."""
+    h, caches, _ = fwd(model, tokens, mode="prefill", cache_len=cache_len,
+                       use_kernel=use_kernel)
     logits = logits_fn(model, h[:, -1:])
     return logits[:, 0], caches
 
 
 def decode_step(model: Model, token, pos, caches, *, use_kernel: str = "auto"):
-    """One decode step.  token: (B, 1) ids; pos: its position (unused by
-    the Mamba layers).  Returns (logits (B, V), caches)."""
+    """One decode step.  token: (B, 1) ids; pos: its position, an int or a
+    0-d tensor (unused by the Mamba layers).  Returns (logits (B, V),
+    caches)."""
+    pos = torch.as_tensor(pos, dtype=torch.long, device=token.device).reshape(1)
     h, caches, _ = fwd(model, token, mode="decode", positions=pos, caches=caches,
                        use_kernel=use_kernel)
     return logits_fn(model, h)[:, -1], caches

@@ -1,9 +1,12 @@
 """Minimal batched serving engine: prefill + greedy/temperature decode.
 
-The port's twin of the JAX package's ``serve/engine.py``.  Caches are the
-Mamba layers' SSM and conv states (``transformer.prefill``); the engine
-drives prefill and one decode step per new token.  The ids stay on the
-device until the caller reads them: no host read per token.
+The port's twin of the JAX package's ``serve/engine.py``.  Caches are
+per layer (``transformer.prefill``): KV caches of ``cache_len`` slots for
+the global attention layers, KV ring buffers of ``min(window, cache_len)``
+slots for the sliding-window layers, SSM and conv states for the Mamba
+layers.  The engine drives prefill and one decode step per new token.
+The ids and the positions stay on the device until the caller reads the
+ids: no host read per token.
 """
 
 from __future__ import annotations
@@ -18,9 +21,12 @@ class Engine:
     """``Engine(cfg, model).generate(tokens, n_new)``.  ``model`` is a
     :class:`repro_torch.models.Model` of ``cfg`` on ``device`` (default the
     CUDA card; ``device="cpu"`` for the plain path).  ``use_kernel`` is
-    passed to the SSD scan (``"auto" | "cuda" | "ref" | "naive"``).
-    ``cache_len`` is kept for the attention layers' KV caches; the Mamba
-    layers' caches do not depend on it."""
+    passed to the kernels of prefill, the sliding-window attention K6 and
+    the SSD scan K7 (``"auto" | "cuda" | "ref"``; the SSD scan also takes
+    ``"naive"``).  ``cache_len`` (default ``cfg.max_seq``) is the length
+    of the global attention layers' KV caches: prompt plus new tokens must
+    fit in it (past it the reference's decode overwrites the last slot).
+    The Mamba layers' caches do not depend on it."""
 
     def __init__(self, cfg, model, *, cache_len: int | None = None, device=None,
                  flight_dir: str | None = None, use_kernel: str = "auto"):
@@ -55,7 +61,9 @@ class Engine:
         T = tokens.shape[1]
         out = []
         with torch.inference_mode():
-            logits, caches = tf.prefill(self.model, tokens, use_kernel=self.use_kernel)
+            logits, caches = tf.prefill(self.model, tokens, cache_len=self.cache_len,
+                                        use_kernel=self.use_kernel)
+            positions = torch.arange(T, T + n_new, device=self.device)
             for i in range(n_new):
                 if temperature > 0.0:
                     probs = torch.softmax(logits / temperature, dim=-1)
@@ -64,6 +72,6 @@ class Engine:
                     cur = torch.argmax(logits, dim=-1, keepdim=True)
                 out.append(cur)
                 if i + 1 < n_new:
-                    logits, caches = tf.decode_step(self.model, cur, T + i, caches,
+                    logits, caches = tf.decode_step(self.model, cur, positions[i], caches,
                                                     use_kernel=self.use_kernel)
         return torch.cat(out, dim=1) if out else tokens.new_zeros(tokens.shape[0], 0)

@@ -237,7 +237,7 @@ def test_generate_sampling_uses_the_generator(reference):
 
 def test_param_count_from_specs():
     assert CFG.param_count() == 1_344_576_512
-    assert cb.get("mamba2-1.3b") is CFG and cb.names() == ["mamba2-1.3b"]
+    assert cb.get("mamba2-1.3b") is CFG and cb.names() == ["gemma3-4b", "mamba2-1.3b"]
     shapes = tf.parameter_shapes(CFG)   # the module skeleton, on the meta device
     assert sum(int(np.prod(s)) for s in shapes.values()) == CFG.param_count()
     assert len(shapes) == 2 + 48 * 9 and CFG.padded_vocab == 50688
@@ -286,7 +286,7 @@ def test_materialize_init_laws_and_generator():
 
 def test_layers_the_port_lacks_raise():
     from repro_torch.configs.base import Layer
-    for layer in (Layer(mixer="attn"), Layer(mixer="mamba", ffn=True),
+    for layer in (Layer(mixer="attn", cross=True), Layer(mixer="mamba", ffn=True),
                   Layer(mixer="mamba", ffn=False, moe=True)):
         cfg = dataclasses.replace(CFG32, stacks=(((layer,), 1),))
         with pytest.raises(NotImplementedError, match="Queue A"):

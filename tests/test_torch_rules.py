@@ -8,7 +8,8 @@ back quietly.
 * ``use_kernel="cuda"`` on a CPU tensor raises, and no module that
   launches a kernel (the heat step, the solver ops, multigrid, the solvers
   and apps above them, the staggered fields and the Stokes app, the SSD
-  scan and the Mamba-2 model and engine above it) holds a ``try``.
+  scan and the Mamba-2 model and engine above it, the sliding-window
+  attention and the attention layers above it) holds a ``try``.
 """
 
 from __future__ import annotations
@@ -108,7 +109,8 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()
-    assert [p.name for p in _build.sources()] == ["solver3d.cu", "ssd.cu", "heat_step.cu"]
+    assert [p.name for p in _build.sources()] == ["solver3d.cu", "ssd.cu", "heat_step.cu",
+                                                  "swa.cu"]
     assert _build.library_path().parent == tmp_path / "build"
 
 
@@ -234,3 +236,53 @@ def test_serving_path_has_no_try_around_a_launch(module):
     assert not [n for n in ast.walk(tree) if isinstance(n, (ast.Try, ast.TryStar))]
     if module == "kernels/ssd/ops.py":   # the one place that picks K7 or its plain version
         assert "ssd_kernel(" in ast.unparse(tree)
+
+
+def test_gemma3_entry_points_raise_without_cuda(monkeypatch):
+    from repro_torch.configs.gemma3_4b import SMOKE
+    from repro_torch.models import Model
+    from repro_torch.serve import Engine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    g = torch.Generator().manual_seed(0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Model(SMOKE, generator=g)
+    model = Model(SMOKE, generator=g, dtype=torch.float32, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Engine(SMOKE, model)
+    ids = Engine(SMOKE, model, device="cpu").generate(torch.zeros(1, 4, dtype=torch.long), 2)
+    assert ids.shape == (1, 2) and ids.device.type == "cpu"
+
+
+def test_gemma3_cuda_mode_on_cpu_tensor_raises():
+    from repro_torch.configs.gemma3_4b import SMOKE
+    from repro_torch.kernels.swa import sliding_window_attention, swa_attention
+    from repro_torch.models import Model
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import Engine
+
+    model = Model(SMOKE, generator=torch.Generator().manual_seed(0), dtype=torch.float32,
+                  device="cpu")
+    tokens = torch.zeros(1, 8, dtype=torch.long)
+    with pytest.raises(ValueError, match="CUDA"):
+        Engine(SMOKE, model, device="cpu", use_kernel="cuda").generate(tokens, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        tf.fwd(model, tokens, mode="train", use_kernel="cuda")
+    q, kv = torch.zeros(1, 4, 8, 16), torch.zeros(1, 2, 8, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        swa_attention(q, kv, kv, window=4, use_kernel="cuda")
+    with pytest.raises(ValueError, match="CUDA"):
+        sliding_window_attention(q, kv, kv, window=4, use_kernel="cuda")
+
+
+@pytest.mark.parametrize("module", [
+    "kernels/swa/ops.py", "kernels/swa/kernel.py", "kernels/swa/ref.py", "models/attention.py",
+    "models/layers.py", "configs/gemma3_4b.py"])
+def test_attention_path_has_no_try_around_a_launch(module):
+    tree = ast.parse((PKG / module).read_text())
+    assert not [n for n in ast.walk(tree) if isinstance(n, (ast.Try, ast.TryStar))]
+    src = ast.unparse(tree)
+    if module == "kernels/swa/ops.py":   # the one place that picks K6 or its plain version
+        assert "swa_attention_cuda(" in src
+    if module == "models/attention.py":   # train and prefill go through that dispatch point
+        assert "swa_attention(" in src and "scaled_dot_product_attention" not in src
