@@ -31,13 +31,14 @@ kernels:
   the full width in f32 against the plain scan;
 * the gemma3 serving path (global and sliding-window attention, GeGLU
   FFN): K6 against its plain version at the reference tests' cases, ragged
-  prompts and gemma3-4b's prefill shapes, then timed beside the plain
-  version and ``scaled_dot_product_attention`` (a yardstick only); the
+  prompts and gemma3-4b's prefill shapes, bf16 on its tensor-core kernel and
+  f32 on its CUDA-core kernel, then timed beside the plain version and
+  ``scaled_dot_product_attention`` (a yardstick only); the
   SMOKE width in f32 (K6 against the plain path, every decode step, the
   same greedy ids); gemma3-4b at full width and depth in bf16 with random
   weights: two ``generate`` calls (4 x 2048 prompt tokens + 32 new,
-  1 x 1000 + 16, cache_len = prompt + new), 34 K6 launches each and none in
-  decode, timed, with device-time breakdowns of one prefill and one decode
+  1 x 1000 + 16, cache_len = prompt + new), 34 K6 launches each, all on the
+  tensor cores, and none in decode, timed, with device-time breakdowns of one prefill and one decode
   step, and four layers of the full width in f32 against the plain path.
 
 Times come from CUDA events or from host clocks around synchronised work.
@@ -1217,12 +1218,25 @@ K6_REPLACES = "src/repro/kernels/swa/kernel.py:90"
 # K6's tolerances, normwise (max |kernel - plain| <= tol * max |plain|): f32 is
 # the summation order of up to D + S float32 terms and the online softmax's
 # rescaling; in bf16 the plain version rounds q * scale, the logits and the
-# probabilities to bf16 where the kernel keeps float32
+# normalised probabilities to bf16 where the tensor-core kernel keeps the
+# logits float32 and rounds the unnormalised probabilities (the CPU tests of
+# tests/test_torch_swa.py hold both against a float64 model of the kernel's
+# rounding)
 K6_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# and, in bf16, the relative Frobenius error ||kernel - plain|| / ||plain||,
+# which no few large outputs can hide: the plain version lies within 7.5e-3
+# (at most 5.0e-3) of the float64 model of the kernel's rounding at every CPU
+# case of tests/test_torch_swa.py, so 1e-2 is twice the most that rounding
+# alone gave there
+K6_FRO_TOL = 1e-2
+K6_KERNEL = {"float32": "CUDA cores", "bfloat16": "tensor cores"}   # chosen by the dtype alone
 # B, H, Hkv, T, S, D, window: the cases of tests/test_kernel_swa.py (windows
 # 4/16/64/10000, GQA 8 -> 2, queries offset into a longer kv sequence, its bf16
-# case), ragged T of 1, 5, 50, 1000 and 1500 at gemma3-4b's heads, and the
-# main path's prefill shapes: 4 x 2048 (window 1024 and window = S) and 1 x 1000
+# case), ragged T of 1, 5, 50, 1000 and 1500 at gemma3-4b's heads, the edges
+# of the tensor-core kernel's tile rule (T 5 of S 77 at window 3, T 333 of S
+# 1000 at window 200; each in q tiles of 64 and of 128 rows, the launcher
+# taking 128 when the grid fills the card's SMs), and the main path's prefill
+# shapes: 4 x 2048 (window 1024 and window = S) and 1 x 1000
 K6_MAIN = (4, 8, 4, 2048, 2048, 256, 1024)
 K6_GLOBAL = (4, 8, 4, 2048, 2048, 256, 2048)
 K6_PATH = (K6_MAIN, K6_GLOBAL, (1, 8, 4, 1000, 1000, 256, 1024), (1, 8, 4, 1000, 1000, 256, 1000))
@@ -1230,7 +1244,8 @@ K6_SHAPES = tuple((2, 4, 2, 64, 64, 32, w) for w in (4, 16, 64, 10000)) + (
     (1, 8, 2, 32, 32, 16, 16), (1, 4, 4, 16, 128, 32, 8), (1, 4, 4, 16, 128, 32, 48),
     (1, 4, 4, 16, 128, 32, 128), (1, 2, 1, 64, 64, 64, 32), (1, 8, 4, 1, 1, 256, 1024),
     (1, 8, 4, 5, 5, 256, 1024), (1, 8, 4, 50, 50, 256, 1024), (2, 8, 4, 1500, 1500, 256, 1024),
-    (1, 8, 4, 333, 1000, 256, 200)) + K6_PATH
+    (1, 8, 4, 333, 1000, 256, 200), (6, 8, 4, 333, 1000, 256, 200), (1, 2, 1, 5, 77, 64, 3),
+    (17, 8, 4, 5, 77, 64, 3)) + K6_PATH
 GEMMA_RUNS = (("4x2048", 4, 2048, 32), ("1x1000", 1, 1000, 16))   # name, batch, prompt, new
 
 
@@ -1260,25 +1275,56 @@ def k6_bound(shape, itemsize: int) -> tuple[float, str, float]:
     return (*bound, flop / F32_FLOP_PER_S * 1e3)
 
 
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device time (ms) per call of ``fn``: ``reps`` calls captured in one
+    CUDA graph and replayed, so no host time lies between the launches."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    ms = cuda_time_ms(graph.replay, reps=5) / reps
+    del graph
+    return ms
+
+
 def normwise(got, want) -> tuple[float, float]:
     d = (got.float() - want.float()).abs().max().item()
     scale = want.float().abs().max().item()
     return (d / scale if scale > 0 else d), d
 
 
+def frobenius(got, want) -> float:
+    """||got - want||_F / ||want||_F (the difference's norm where want is 0)."""
+    d = torch.linalg.vector_norm(got.float() - want.float()).item()
+    scale = torch.linalg.vector_norm(want.float()).item()
+    return d / scale if scale > 0 else d
+
+
 def k6_phase(kswa, dev, gen) -> dict:
     """Phase 21: K6 against its plain version at every listed shape, bf16
-    and f32; then K6, the plain version and one library call timed in turns
-    at the main path's shapes.  Returns the max |err| over the main path's
-    bf16 shapes and the times."""
+    (the tensor-core kernel; normwise and relative Frobenius) and f32 (the
+    CUDA-core kernel), each launch
+    checked to have taken the kernel of its dtype; then K6, the plain version
+    and one library call timed in turns at the main path's shapes (4 x 2048
+    at window 1024 and global, bf16 and f32; 1 x 1000, bf16).  Returns the
+    max |err| over the main path's bf16 shapes and the times."""
     from repro_torch.kernels.swa import swa_ref
 
-    main_err = 0.0
+    main_err = main_norm = main_fro = 0.0
     for shape in K6_SHAPES:
         for dt_name in ("bfloat16", "float32"):
             q, k, v = k6_inputs(shape, getattr(torch, dt_name), gen, dev)
+            n0 = kswa.swa_attention_cuda.tc_launches
             got = kswa.swa_attention_cuda(q, k, v, window=shape[-1])
             torch.cuda.synchronize()
+            ran = "tensor cores" if kswa.swa_attention_cuda.tc_launches > n0 else "CUDA cores"
+            if ran != K6_KERNEL[dt_name]:
+                fail(f"K6 {shape} {dt_name}: ran on the {ran}, expected the {K6_KERNEL[dt_name]}")
             want = swa_ref(q, k, v, window=shape[-1])
             if got.shape != want.shape or got.dtype != want.dtype:
                 fail(f"K6 {shape} {dt_name}: gave {tuple(got.shape)} {got.dtype}")
@@ -1286,20 +1332,28 @@ def k6_phase(kswa, dev, gen) -> dict:
             if not math.isfinite(norm) or norm > K6_TOL[dt_name]:
                 fail(f"K6 {shape} {dt_name}: differs from the plain version, normwise {norm} > "
                      f"{K6_TOL[dt_name]}")
+            fro = frobenius(got, want)
+            if dt_name == "bfloat16" and not fro <= K6_FRO_TOL:
+                fail(f"K6 {shape} {dt_name}: differs from the plain version, relative "
+                     f"Frobenius {fro} > {K6_FRO_TOL}")
             if shape in K6_PATH and dt_name == "bfloat16":
-                main_err = max(main_err, d)
+                main_err, main_norm = max(main_err, d), max(main_norm, norm)
+                main_fro = max(main_fro, fro)
             say("swa_kernel", shape="B,H,Hkv,T,S,D,window=" + ",".join(map(str, shape)),
-                dtype=dt_name, normwise=norm, max_abs=d, tol=K6_TOL[dt_name])
+                dtype=dt_name, kernel=repr(ran), normwise=norm, max_abs=d, frobenius=fro,
+                tol=K6_TOL[dt_name], frobenius_tol=K6_FRO_TOL if dt_name == "bfloat16" else None)
             del q, k, v, got, want
+    say("swa_kernel", main_path_bf16_max_abs=main_err, main_path_bf16_normwise=main_norm,
+        main_path_bf16_frobenius=main_fro, status="ok")
     # timed in turns at the main path's shapes: plain, kernel, library, kernel, plain, library
     import torch.nn.functional as F
 
     out = {"main_err": main_err}
-    for name, shape in (("window", K6_MAIN), ("global", K6_GLOBAL)):
+    for name, shape in (("window", K6_MAIN), ("global", K6_GLOBAL), ("1x1000", K6_PATH[2])):
         B, H, Hkv, T, S, D, w = shape
-        for dt_name in ("bfloat16", "float32"):
+        for dt_name in ("bfloat16", "float32") if name != "1x1000" else ("bfloat16",):
             q, k, v = k6_inputs(shape, getattr(torch, dt_name), gen, dev)
-            if name == "window":
+            if w < T:
                 qpos = torch.arange(T, device=dev)[:, None] + (S - T)
                 kpos = torch.arange(S, device=dev)[None, :]
                 band = (kpos <= qpos) & (kpos > qpos - w)
@@ -1321,10 +1375,12 @@ def k6_phase(kswa, dev, gen) -> dict:
             item = 2 if dt_name == "bfloat16" else 4
             bound, bound_by, f32_floor = k6_bound(shape, item)
             ms = min(times["kernel"])
+            device_ms = graph_ms(lambda: kswa.swa_attention_cuda(q, k, v, window=w))
             say("swa_kernel_time", case=name, shape="B,H,Hkv,T,S,D,window=" + ",".join(
                 map(str, shape)), dtype=dt_name, ms_runs=times["kernel"],
+                kernel_graph_ms=device_ms,
                 plain_ms_runs=times["plain"], library_ms_runs=times["library"],
-                library="scaled_dot_product_attention(" + ("band mask" if name == "window"
+                library="scaled_dot_product_attention(" + ("band mask" if w < T
                                                            else "is_causal") + ", enable_gqa)",
                 library_vs_kernel_normwise=lib_err, bound_ms=bound, bound_by=bound_by,
                 share_of_bound=bound / ms, f32_cuda_core_floor_ms=f32_floor,
@@ -1357,6 +1413,7 @@ def gemma3_small(kswa, dev) -> None:
     h, _, _ = tf.fwd(model, tokens, mode="train")
     e_train = logit_err(tf.logits_fn(model, h), full, cfg.vocab)
     e_pre = e_dec = 0.0
+    tc0 = kswa.swa_attention_cuda.tc_launches
     for tp in (5, 8, 12):
         n0 = kswa.swa_attention_cuda.launches
         lk, ck = tf.prefill(model, tokens[:, :tp], cache_len=24)
@@ -1373,12 +1430,15 @@ def gemma3_small(kswa, dev) -> None:
             e_dec = max(e_dec, logit_err(sk, sr, cfg.vocab), logit_err(sk, full[:, t], cfg.vocab))
     ids_k = Engine(cfg, model).generate(tokens[:, :12], 8)
     ids_r = Engine(cfg, model, use_kernel="ref").generate(tokens[:, :12], 8)
+    if kswa.swa_attention_cuda.tc_launches != tc0:
+        fail("an f32 launch of K6 took the tensor-core kernel")
     if not (max(e_train, e_pre, e_dec) <= SERVE_TOL and torch.equal(ids_k, ids_r)):
         fail(f"gemma3 SMOKE on the card: K6 vs plain train {e_train}, prefill {e_pre}, decode "
              f"{e_dec}, ids equal {torch.equal(ids_k, ids_r)}")
     say("gemma3_small", cfg="SMOKE f32", prompts="2x5,2x8,2x12 (window 8)",
         k6_vs_plain_train_normwise=e_train, k6_vs_plain_prefill_normwise=e_pre,
-        decode_vs_plain_normwise=e_dec, tol=SERVE_TOL, greedy_ids_equal=True, status="ok")
+        decode_vs_plain_normwise=e_dec, tol=SERVE_TOL, greedy_ids_equal=True,
+        k6_kernel="'CUDA cores (f32)'", status="ok")
 
 
 def gemma3_full(kswa, dev) -> int:
@@ -1407,18 +1467,20 @@ def gemma3_full(kswa, dev) -> int:
                for name, b, t, _ in GEMMA_RUNS}
     engines = {name: Engine(cfg, model, cache_len=t + n) for name, _, t, n in GEMMA_RUNS}
     # the main path: two generate calls, counts zeroed just before, read just after
-    kswa.swa_attention_cuda.launches = 0
-    per_call = []
+    kswa.swa_attention_cuda.launches = kswa.swa_attention_cuda.tc_launches = 0
+    per_call, tc_per_call = [], []
     for name, b, t, n_new in GEMMA_RUNS:
-        before = kswa.swa_attention_cuda.launches
+        before = kswa.swa_attention_cuda.launches, kswa.swa_attention_cuda.tc_launches
         ids = engines[name].generate(prompts[name], n_new)
         torch.cuda.synchronize()
-        per_call.append(kswa.swa_attention_cuda.launches - before)
+        per_call.append(kswa.swa_attention_cuda.launches - before[0])
+        tc_per_call.append(kswa.swa_attention_cuda.tc_launches - before[1])
         if ids.shape != (b, n_new) or int(ids.max()) >= cfg.vocab or int(ids.min()) < 0:
             fail(f"{name}: ids {tuple(ids.shape)}, range {int(ids.min())}..{int(ids.max())}")
     launches = kswa.swa_attention_cuda.launches
-    if per_call != [cfg.n_layers, cfg.n_layers]:
-        fail(f"K6 launches per generate call {per_call}, expected {cfg.n_layers} each")
+    if per_call != [cfg.n_layers, cfg.n_layers] or tc_per_call != per_call:
+        fail(f"K6 launches per generate call {per_call}, on the tensor cores {tc_per_call}; "
+             f"expected {cfg.n_layers} each, all bf16 on the tensor cores")
     # decode launches no K6; logits finite; the caches' shapes
     name, b, t, n_new = GEMMA_RUNS[0]
     p, S = prompts[name], t + n_new
@@ -1434,7 +1496,8 @@ def gemma3_full(kswa, dev) -> int:
                                               and torch.isfinite(step).all()):
         fail(f"decode launched K6 {dec_launches} times, cache shapes {shapes} (expected "
              f"{want}), or non-finite logits")
-    say("gemma3_full", k6_launches_per_generate=per_call, k6_launches_in_decode=dec_launches,
+    say("gemma3_full", k6_launches_per_generate=per_call,
+        k6_tensor_core_launches_per_generate=tc_per_call, k6_launches_in_decode=dec_launches,
         cache_shapes=repr(shapes).replace(" ", ""), logits_finite=True)
     del logits, caches, step
     # timed through Engine.generate: n_new=1 is prefill and the first id (the
@@ -1489,8 +1552,8 @@ def gemma3_phases(dev) -> list:
     gen = torch.Generator(device=dev).manual_seed(4)
     # ---- 21. K6 against its plain version, then timed -----------------------
     k6 = k6_phase(kswa, dev, gen)
-    # ---- 22-23. the attention serving path: the count zeroed just before ----
-    kswa.swa_attention_cuda.launches = 0
+    # ---- 22-23. the attention serving path: the counts zeroed just before ---
+    kswa.swa_attention_cuda.launches = kswa.swa_attention_cuda.tc_launches = 0
     gemma3_small(kswa, dev)
     launches = gemma3_full(kswa, dev)
     ms, plain_ms, library_ms, bound, bound_by = k6[("window", "bfloat16")]

@@ -10,11 +10,19 @@ D contiguous: the model passes transposed views of its ``(B, T, H, D)``
 projections.  The output is allocated ``(B, T, H, D)`` with
 ``torch.empty`` and returned as its ``(B, H, T, D)`` view.
 
+The dtype alone picks the kernel, inside the C entry point: bfloat16 runs
+on the tensor cores (``wgmma``), float32 on the CUDA cores (the first,
+exact form).  There is no other switch.  The tensor-core kernel loads q, k and v
+through TMA tensor maps, which need 16-byte aligned views with strides of
+16-byte multiples: a bfloat16 view without them is copied first into an
+aligned buffer (the model's views are never copied).
+
 It checks device, dtype (float32, bfloat16), shapes, strides and the
 kernel's limits (D a multiple of 4, at most 256), raises on anything
 else, launches on the current CUDA stream without synchronising, and
 raises if the launch was refused.  ``swa_attention_cuda.launches`` counts
-the launches.
+the launches, ``swa_attention_cuda.tc_launches`` those the C entry point
+reports as tensor-core launches.
 """
 
 from __future__ import annotations
@@ -35,9 +43,25 @@ _MAX_GRID_Y = 65535
 def _entry():
     fn = _build.load().repro_swa_attention
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-                   + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
+                   + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
+                      ctypes.POINTER(ctypes.c_int)])
     fn.restype = ctypes.c_int
     return fn
+
+
+def _tma_ready(t) -> bool:
+    """A bf16 view the tensor-core kernel's TMA loads can read: 16-byte
+    aligned, its batch, head and time strides positive multiples of 16 bytes."""
+    return t.data_ptr() % 16 == 0 and all(s > 0 and s % 8 == 0 for s in t.stride()[:3])
+
+
+def _aligned_copy(t):
+    """The values of a (B, H, T, D) view in a fresh (B, T, H, D8) buffer, D8
+    the next multiple of 8, seen through the same (B, H, T, D) view."""
+    B, H, T, D = t.shape
+    buf = t.new_zeros(B, T, H, -(-D // 8) * 8)
+    buf[..., :D] = t.transpose(1, 2)
+    return buf[..., :D].transpose(1, 2)
 
 
 def swa_attention_cuda(q, k, v, *, window: int, scale: float | None = None):
@@ -70,19 +94,25 @@ def swa_attention_cuda(q, k, v, *, window: int, scale: float | None = None):
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError(f"{where}: the last axis of q, k and v must be contiguous")
     scale = D ** -0.5 if scale is None else float(scale)
+    if q.dtype == torch.bfloat16:
+        q, k, v = (t if _tma_ready(t) else _aligned_copy(t) for t in (q, k, v))
     o = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
     if o.numel() == 0:
         return o
     strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                                        *o.stride()[:3])
+    kernel = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _entry()(DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                       o.data_ptr(), B, H, Hkv, T, S, D, min(window, S), scale, strides, stream)
+                       o.data_ptr(), B, H, Hkv, T, S, D, min(window, S), scale, strides, stream,
+                       ctypes.byref(kernel))
     if err != 0:
         raise RuntimeError(f"{where}: launch failed with CUDA error {err}")
     swa_attention_cuda.launches += 1
+    swa_attention_cuda.tc_launches += int(kernel.value == 1)
     return o
 
 
 swa_attention_cuda.launches = 0
+swa_attention_cuda.tc_launches = 0

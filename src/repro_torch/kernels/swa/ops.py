@@ -4,7 +4,9 @@ version on a CPU tensor.
 ``use_kernel``: ``"auto" | "cuda" | "ref"`` through
 :mod:`repro_torch.kernels.dispatch`.  :func:`swa_attention` is K6's one
 dispatch point; the model's attention calls it for every causal
-self-attention in train and prefill, at any T.
+self-attention in train and prefill, at any T.  On a CUDA tensor the
+dtype alone then picks K6's kernel: bfloat16 runs on the tensor cores,
+float32 on the CUDA cores.
 :func:`sliding_window_attention` is the JAX package's op: the same
 function under the reference op's contract, which raises where its
 Pallas kernel's tiles do not divide T and S.

@@ -11,9 +11,25 @@ package's sliding-window attention.
   reference tests' own: 2e-5 in f32, 5e-2 in bf16 (rtol = atol).
 * The op raises where ``swa_pallas`` raises (tiles that do not divide T or
   S); on a CPU tensor ``auto`` is the plain version and ``cuda`` raises.
+* The bf16 tolerance of the tensor-core kernel.  A float64 NumPy model
+  rounds where that kernel rounds (bf16 inputs, float32 logits scaled into
+  log2 units, the online softmax over aligned tiles of 64 keys with float32
+  m and l, P rounded to bf16 per tile, float32 accumulation, the output
+  rounded once).  At the bf16 shapes of ``chip_smoke.K6_SHAPES`` that a CPU
+  runs in seconds, the reference's ``swa_pallas(interpret=True)`` and
+  ``swa_ref`` in bf16 and the port's ``swa_ref`` lie within 1e-2 of the
+  model (half the card's 2e-2; the plain versions round the scaled q, the
+  logits and the normalised P to bf16), and the model within 5e-3 of exact
+  float64 attention; in relative Frobenius norm, which a few large outputs
+  cannot dominate, the plain versions lie within 7.5e-3 of the model.  The
+  pad widths (D 16 and 32 in a tile of 64 columns) change nothing: the zero
+  columns add exact zeros.
 * The ``cuda``-marked tests hold K6 against ``swa_ref`` on the card: the
   head widths of the tests (16-64) and of gemma3-4b (256), ragged T,
-  queries offset into a longer kv sequence, window = S, f32 and bf16.
+  queries offset into a longer kv sequence, window = S, the edges of the
+  tensor-core kernel's tile rule, f32 and bf16, each dtype on its own kernel
+  (bf16 on the tensor cores, f32 on the CUDA cores; bf16 also within 1e-2
+  relative Frobenius).
 """
 
 from __future__ import annotations
@@ -102,6 +118,45 @@ out["raised"] = np.asarray(raised)
 np.savez(TMP + "/swa.npz", **out)
 print("OK")
 """
+
+
+# the bf16 shapes of chip_smoke.K6_SHAPES that a CPU runs in seconds
+# (B, H, Hkv, T, S, D, window)
+BF16_CASES = [(2, 4, 2, 64, 64, 32, w) for w in (4, 16, 64, 10_000)] + [
+    (1, 8, 2, 32, 32, 16, 16), (1, 4, 4, 16, 128, 32, 8), (1, 4, 4, 16, 128, 32, 48),
+    (1, 4, 4, 16, 128, 32, 128), (1, 2, 1, 64, 64, 64, 32), (1, 8, 4, 1, 1, 256, 1024),
+    (1, 8, 4, 5, 5, 256, 1024), (1, 8, 4, 50, 50, 256, 1024), (1, 8, 4, 333, 1000, 256, 200),
+    (1, 2, 1, 5, 77, 64, 3)]
+TC_TOL = 1e-2         # normwise, the plain versions against the kernel's model
+TC_FRO_TOL = 7.5e-3   # relative Frobenius, the same (at most 5.0e-3 at these cases)
+TC_EXACT_TOL = 5e-3   # normwise, the kernel's model against exact attention
+
+BF16_REFERENCE = ALIAS + """
+from repro.kernels.swa import swa_ref
+from repro.kernels.swa.kernel import swa_pallas
+
+def tile(n):   # the largest tile of at most 128 that divides n
+    return max(b for b in range(1, min(n, 128) + 1) if n % b == 0)
+
+out = {{}}
+for i, (B, H, Hkv, T, S, D, w) in enumerate({cases}):
+    rng = np.random.RandomState(100 + i)
+    q, k, v = (jnp.asarray(rng.randn(*s), jnp.bfloat16)
+               for s in ((B, H, T, D), (B, Hkv, S, D), (B, Hkv, S, D)))
+    res = dict(q=q, k=k, v=v, ref=swa_ref(q, k, v, window=w),
+               pallas=swa_pallas(q, k, v, window=w, bq=tile(T), bk=tile(S), interpret=True))
+    for n, a in res.items():
+        out[f"c{{i}}/{{n}}"] = np.asarray(a.astype(jnp.float32))
+np.savez({tmp!r} + "/swa_bf16.npz", **out)
+print("OK")
+"""
+
+
+@pytest.fixture(scope="module")
+def bf16_reference(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("torch_swa_bf16")
+    run(BF16_REFERENCE.format(tmp=str(tmp), cases=BF16_CASES), ndev=1)
+    return dict(np.load(tmp / "swa_bf16.npz"))
 
 
 @pytest.fixture(scope="module")
@@ -206,6 +261,101 @@ def test_window_of_s_is_causal_attention():
 
 
 # ---------------------------------------------------------------------------
+# the bf16 tolerance: a float64 model of the tensor-core kernel's rounding
+# ---------------------------------------------------------------------------
+
+LOG2E = 1.4426950408889634
+KV_TILE = 64   # keys per kv tile of the tensor-core kernel
+
+
+def _bf16(x):
+    """float32 rounded to the nearest bf16 (ties to even), kept in float32."""
+    b = np.ascontiguousarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    return ((b + 0x7FFF + ((b >> 16) & 1)) & 0xFFFF0000).astype(np.uint32).view(np.float32)
+
+
+def _tc_model(q, k, v, window, dp=None):
+    """float64 model of the tensor-core kernel: logits rounded to float32
+    and scaled into log2 units in float32, masked to -1e30 before the row
+    maximum; per aligned tile of 64 keys the float32 online softmax (m, l,
+    alpha by exp2), P rounded to bf16, O += P V in float32; O / l rounded
+    once to bf16.  ``dp`` zero-pads the head width as the kernel's tiles do."""
+    B, H, T, D = q.shape
+    _, Hkv, S, _ = k.shape
+    if dp is not None:
+        q, k, v = (np.pad(a, ((0, 0), (0, 0), (0, 0), (0, dp - D))) for a in (q, k, v))
+    c = np.float32(np.float32(D ** -0.5) * np.float32(LOG2E))
+    kr, vr = (np.repeat(a, H // Hkv, axis=1).astype(np.float64) for a in (k, v))
+    q = q.astype(np.float64)
+    w = min(window, S)
+    qpos = np.arange(T)[:, None] + (S - T)
+    m = np.full((B, H, T), -1e30, np.float32)
+    l = np.zeros((B, H, T), np.float32)
+    acc = np.zeros((B, H, T, q.shape[-1]), np.float32)
+    for j0 in range(0, S, KV_TILE):
+        kt, vt = kr[:, :, j0:j0 + KV_TILE], vr[:, :, j0:j0 + KV_TILE]
+        kpos = np.arange(j0, j0 + kt.shape[2])[None, :]
+        ok = (kpos <= qpos) & (kpos > qpos - w)
+        s = np.where(ok, (q @ kt.swapaxes(-1, -2)).astype(np.float32) * c, np.float32(-1e30))
+        mx = np.maximum(m, s.max(-1))
+        alpha = np.exp2((m - mx).astype(np.float64)).astype(np.float32)
+        p = np.where(ok, np.exp2((s - mx[..., None]).astype(np.float64)), 0.0).astype(np.float32)
+        l = alpha * l + p.sum(-1, dtype=np.float32)
+        acc = acc * alpha[..., None] + (_bf16(p).astype(np.float64) @ vt).astype(np.float32)
+        m = mx
+    inv = np.float32(1) / np.where(l == 0, np.float32(1), l)
+    return _bf16(acc * inv[..., None])[..., :D]
+
+
+def _exact(q, k, v, window):
+    """Causal sliding-window attention in float64, no rounding."""
+    B, H, T, D = q.shape
+    _, Hkv, S, _ = k.shape
+    kr, vr = (np.repeat(a, H // Hkv, axis=1).astype(np.float64) for a in (k, v))
+    s = q.astype(np.float64) @ kr.swapaxes(-1, -2) * D ** -0.5
+    qpos, kpos = np.arange(T)[:, None] + (S - T), np.arange(S)[None, :]
+    s = np.where((kpos <= qpos) & (kpos > qpos - window), s, -np.inf)
+    p = np.exp(s - s.max(-1, keepdims=True))
+    return (p / p.sum(-1, keepdims=True)) @ vr
+
+
+def _normwise(got, want):
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def _frobenius(got, want):
+    return float(np.linalg.norm((got - want).ravel()) / max(np.linalg.norm(want.ravel()), 1e-30))
+
+
+@pytest.mark.parametrize("i", range(len(BF16_CASES)),
+                         ids=["x".join(map(str, c)) for c in BF16_CASES])
+def test_bf16_tolerance_against_a_model_of_the_tensor_core_kernel(bf16_reference, i):
+    B, H, Hkv, T, S, D, w = BF16_CASES[i]
+    q, k, v = (bf16_reference[f"c{i}/{n}"] for n in ("q", "k", "v"))
+    model = _tc_model(q, k, v, w)
+    assert model.shape == (B, H, T, D) and np.isfinite(model).all()
+    port = swa.swa_ref(*(torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)), window=w)
+    for who, got in (("swa_pallas", bf16_reference[f"c{i}/pallas"]),
+                     ("reference swa_ref", bf16_reference[f"c{i}/ref"]),
+                     ("port swa_ref", port.float().numpy())):
+        assert _normwise(got, model) <= TC_TOL, who
+        assert _frobenius(got, model) <= TC_FRO_TOL, who
+    assert _normwise(model, _exact(q, k, v, w)) <= TC_EXACT_TOL
+
+
+@pytest.mark.parametrize("D", [16, 32])
+def test_bf16_pad_widths_add_nothing(bf16_reference, D):
+    """D 16 and 32 run in the kernel's 64-column tiles: the model with the
+    inputs zero-padded to 64 equals the unpadded one bitwise."""
+    i = next(j for j, c in enumerate(BF16_CASES) if c[5] == D)
+    q, k, v = (bf16_reference[f"c{i}/{n}"] for n in ("q", "k", "v"))
+    w = BF16_CASES[i][-1]
+    padded = _tc_model(q, k, v, w, dp=64)
+    assert padded.shape == q.shape and np.array_equal(padded, _tc_model(q, k, v, w))
+    assert _normwise(padded, bf16_reference[f"c{i}/pallas"]) <= TC_TOL
+
+
+# ---------------------------------------------------------------------------
 # on the card: K6 against its plain version
 # ---------------------------------------------------------------------------
 
@@ -221,7 +371,11 @@ CARD_CASES = [  # B, H, Hkv, T, S, D, window
     (1, 4, 4, 16, 128, 32, 48), (1, 2, 1, 1, 1, 64, 8), (2, 2, 1, 5, 5, 64, 3),
     (1, 8, 4, 50, 50, 256, 16), (1, 8, 4, 1000, 1000, 256, 1024), (1, 8, 4, 333, 1000, 256, 200),
     (2, 8, 4, 200, 200, 256, 200),
+    # the edges of the tensor-core kernel's tile rule, in q tiles of 64 rows and (the
+    # grid filling the card's SMs) of 128
+    (6, 8, 4, 333, 1000, 256, 200), (1, 2, 1, 5, 77, 64, 3), (17, 8, 4, 5, 77, 64, 3),
 ]
+CARD_FRO_TOL = 1e-2   # bf16, relative Frobenius: TC_FRO_TOL and the kernel's own rounding
 
 
 @pytest.mark.cuda
@@ -235,18 +389,46 @@ def test_k6_vs_plain_on_card(cuda_device, case, dt):
     q = torch.randn(B, T, H, D, generator=g, device=cuda_device).to(dtype).transpose(1, 2)
     k = torch.randn(B, S, Hkv, D, generator=g, device=cuda_device).to(dtype).transpose(1, 2)
     v = torch.randn(B, S, Hkv, D, generator=g, device=cuda_device).to(dtype).transpose(1, 2)
-    n0 = swa.swa_attention_cuda.launches
+    n0, tc0 = swa.swa_attention_cuda.launches, swa.swa_attention_cuda.tc_launches
     got = swa.swa_attention_cuda(q, k, v, window=w)
     torch.cuda.synchronize()
     assert swa.swa_attention_cuda.launches == n0 + 1
+    # the dtype alone picks the kernel: bf16 on the tensor cores, f32 on the CUDA cores
+    assert swa.swa_attention_cuda.tc_launches == tc0 + (dt == "bfloat16")
     assert got.shape == q.shape and got.dtype == dtype and got.transpose(1, 2).is_contiguous()
     want = swa.swa_ref(q, k, v, window=w)
     tol = 1e-5 if dt == "float32" else 2e-2
     err = (got.float() - want.float()).abs().max() / want.float().abs().max()
     assert err <= tol, float(err)
+    if dt == "bfloat16":
+        fro = torch.linalg.vector_norm(got.float() - want.float()) / torch.linalg.vector_norm(
+            want.float())
+        assert fro <= CARD_FRO_TOL, float(fro)
     # contiguous (B, H, T, D) inputs, through the dispatch point
     got2 = swa.swa_attention(q.contiguous(), k.contiguous(), v.contiguous(), window=w)
     assert torch.equal(got2, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 4, 8])
+def test_k6_bf16_views_at_any_alignment(cuda_device, offset):
+    """bf16 views that start 2, 8 or 16 bytes past an aligned address (the
+    wrapper copies the first two into an aligned buffer for the tensor
+    maps; the third is read in place) give the output of contiguous inputs,
+    bitwise."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    B, H, Hkv, T, S, D, w = 1, 4, 2, 40, 70, 32, 24
+
+    def view(heads, n):
+        buf = torch.randn(B * n * heads * D + offset, generator=g, device=cuda_device)
+        return buf.to(torch.bfloat16)[offset:].view(B, n, heads, D).transpose(1, 2)
+
+    q, k, v = view(H, T), view(Hkv, S), view(Hkv, S)
+    assert q.data_ptr() % 16 == 2 * offset % 16
+    got = swa.swa_attention_cuda(q, k, v, window=w)
+    want = swa.swa_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(), window=w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
