@@ -3,10 +3,10 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels (K1 heat step, K2-K5 solver operators on
-cell centers and on faces, K6 sliding-window attention, K7 SSD intra-chunk
-block) from the sources in this checkout and holds each against its plain
-PyTorch version on the card.  Then it drives five paths through the
-kernels:
+cell centers, with and without a Helmholtz shift, and on faces, K6
+sliding-window attention, K7 SSD intra-chunk block) from the sources in
+this checkout and holds each against its plain PyTorch version on the
+card.  Then it drives six paths through the kernels:
 
 * the paper's Fig.-1 heat solver (``repro_torch.apps.Heat3D``) at 512^3
   cells on one rank and at 8 x 256^3 on eight virtual ranks, with and
@@ -39,7 +39,19 @@ kernels:
   weights: two ``generate`` calls (4 x 2048 prompt tokens + 32 new,
   1 x 1000 + 16, cache_len = prompt + new), 34 K6 launches each, all on the
   tensor cores, and none in decode, timed, with device-time breakdowns of one prefill and one decode
-  step, and four layers of the full width in f32 against the plain path.
+  step, and four layers of the full width in f32 against the plain path;
+* the two-phase flagship (``repro_torch.apps.TwoPhase3D``), last: the
+  shifted K2-K5 against their plain versions at every level of its
+  hierarchies in f32 and f64, then timed; every method and variant at
+  16x12x12 on 8 ranks against the reference's per-step iterations (every
+  K2-K4 launch shifted), periodic 1 against 8 ranks, the explicit
+  integrator against its oracle with and without hide, the overlap
+  operator against the plain one; then the main path, 514^3 f64 on 1 and
+  8 ranks, its kernel counts taken around it alone: explicit with and
+  without hide, cg and mgcg at the default dt, mgcg with overlap; after
+  it, one mgcg step's device time by kind, the overlap operator
+  against the in-place one, and a cg solve with the shifted Chebyshev
+  cycle (K5's launches are those of this solve).
 
 Times come from CUDA events or from host clocks around synchronised work.
 Every phase prints one line; any failure raises and exits non-zero.  The
@@ -65,6 +77,7 @@ F32_FLOP_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 HEAT_FLOP_PER_CELL = 16        # interior cell of heat_step.cu, see its header
 TOL = {torch.float32: 1e-6, torch.bfloat16: 2e-2, torch.float64: 1e-12}
 COEFS = (1.3, 0.01, 0.7, 0.9, 1.1)   # lam, dt, dx, dy, dz of the kernel checks
+T_START = time.perf_counter()
 
 
 def say(phase: str, **kw) -> None:
@@ -190,28 +203,33 @@ def solver_bound(op: str, n_cells: int, n_interior: int, itemsize: int = 8):
 
 
 def solver_calls(sk, inputs, h2, spacing):
-    """{name: (kernel call, plain call, ring value)} for K2-K5 on ``inputs``;
-    K5 both on its first step (no d) and on a later one."""
-    u, c, f, dia, d = inputs
+    """{name: (kernel call, plain call, ring value)} for K2-K5 on ``inputs``
+    ``(u, c, f, dia, d)``, or ``(u, c, f, dia, d, shift)`` for the shifted
+    kernels (``dia`` then holds the shift); K5 both on its first step (no d)
+    and on a later one."""
+    u, c, f, dia, d, *rest = inputs
+    s = rest[0] if rest else None
     return {
-        "apply": (lambda: sk.apply_cuda(u, c, h2=h2),
-                  lambda: sk.apply_op_ref(u, c, spacing), (0,)),
-        "residual": (lambda: sk.residual_cuda(u, c, f, h2=h2),
-                     lambda: sk.residual_op_ref(u, c, f, spacing), (0,)),
-        "jacobi": (lambda: sk.jacobi_cuda(u, c, f, dia, omega=OMEGA, h2=h2),
-                   lambda: sk.jacobi_sweep_ref(u, c, f, dia, omega=OMEGA, spacing=spacing), (u,)),
-        "cheb_first": (lambda: sk.cheb_cuda(u, c, f, dia, None, a=None, b=1.25, h2=h2),
+        "apply": (lambda: sk.apply_cuda(u, c, h2=h2, shift=s),
+                  lambda: sk.apply_op_ref(u, c, spacing, shift=s), (0,)),
+        "residual": (lambda: sk.residual_cuda(u, c, f, h2=h2, shift=s),
+                     lambda: sk.residual_op_ref(u, c, f, spacing, shift=s), (0,)),
+        "jacobi": (lambda: sk.jacobi_cuda(u, c, f, dia, omega=OMEGA, h2=h2, shift=s),
+                   lambda: sk.jacobi_sweep_ref(u, c, f, dia, omega=OMEGA, spacing=spacing,
+                                               shift=s), (u,)),
+        "cheb_first": (lambda: sk.cheb_cuda(u, c, f, dia, None, a=None, b=1.25, h2=h2, shift=s),
                        lambda: sk.cheb_sweep_ref(u, c, f, dia, d, a=None, b=1.25,
-                                                 spacing=spacing), (u, 0)),
-        "cheb": (lambda: sk.cheb_cuda(u, c, f, dia, d, a=0.3, b=0.9, h2=h2),
-                 lambda: sk.cheb_sweep_ref(u, c, f, dia, d, a=0.3, b=0.9, spacing=spacing),
-                 (u, 0)),
+                                                 spacing=spacing, shift=s), (u, 0)),
+        "cheb": (lambda: sk.cheb_cuda(u, c, f, dia, d, a=0.3, b=0.9, h2=h2, shift=s),
+                 lambda: sk.cheb_sweep_ref(u, c, f, dia, d, a=0.3, b=0.9, spacing=spacing,
+                                           shift=s), (u, 0)),
     }
 
 
 def check_solver_kernels(sk, inputs, spacing, tol: float, where: str) -> dict:
-    """Each of K2-K5 against its plain version on the same inputs: normwise
-    within ``tol``, the ring bitwise.  Returns max |err| per kernel."""
+    """Each of K2-K5 (shifted if ``inputs`` carry a shift) against its plain
+    version on the same inputs: normwise within ``tol``, the ring bitwise.
+    Returns max |err| per kernel."""
     h2 = tuple(s * s for s in spacing)
     u = inputs[0]
     ring = torch.ones(u.shape[-3:], dtype=torch.bool, device=u.device)
@@ -242,9 +260,16 @@ def check_solver_kernels(sk, inputs, spacing, tol: float, where: str) -> dict:
     return errs
 
 
-def solver_inputs(sk, shape, dtype, rand, spacing):
+def solver_inputs(sk, shape, dtype, rand, spacing, shifted: bool = False):
+    """Seeded ``(u, c, f, dia, d)``; with ``shifted``, also a positive shift
+    of the order of the operator's diagonal, held by ``dia`` as well."""
     u, c, f, d = rand(shape, dtype), rand(shape, dtype) + 0.5, rand(shape, dtype), rand(shape, dtype)
-    return u, c, f, sk.full_diag(c, spacing), d
+    dia = sk.full_diag(c, spacing)
+    if not shifted:
+        return u, c, f, dia, d
+    s = (rand(shape, dtype) + 0.5) * (6.0 / min(spacing) ** 2)
+    dia[..., 1:-1, 1:-1, 1:-1] += s[..., 1:-1, 1:-1, 1:-1]
+    return u, c, f, dia, d, s
 
 
 def launch_counts(sk) -> dict:
@@ -1564,6 +1589,399 @@ def gemma3_phases(dev) -> list:
              "library_ms": library_ms}]
 
 
+# ---------------------------------------------------------------------------
+# the two-phase slice: K2-K5 center with a Helmholtz shift, TwoPhase3D
+# ---------------------------------------------------------------------------
+
+CALL_LIMIT_S = 1200.0          # the card call's limit on the whole script, build included
+SHIFT_OPS = ("apply", "residual", "jacobi", "cheb")
+# a shifted launch reads the shift once more (K2 4 words, K3 5, K4 6, K5 8 /
+# 7) and multiplies it by u0 (one operation more)
+SHIFT_WORDS = {op: w + 1 for op, w in SOLVER_WORDS.items()}
+SHIFT_FLOP_PER_CELL = {op: n + 1 for op, n in SOLVER_FLOP_PER_CELL.items()}
+# the reference's per-step pressure iterations at TwoPhase3D(nx=16, ny=12,
+# nz=12, dims=(2, 2, 2), tol=1e-8), 5 steps (tests/test_convergence_regression.py
+# pins the classic ones; the pipelined ones from the reference on the CPU)
+TWOPHASE_ITERATIONS = {("cg", "classic"): [9] * 5, ("mgcg", "classic"): [5, 5, 5, 4, 4],
+                       ("cg", "pipelined"): [10] * 5, ("mgcg", "pipelined"): [6, 6, 6, 5, 5]}
+TWOPHASE_FULL = (("1x514^3", 514, (1, 1, 1)), ("8x258^3", 258, (2, 2, 2)))   # 135.8M cells
+TWOPHASE_KINDS = (("K2", ("apply_kernel<",)), ("K3", ("residual_kernel<",)),
+                  ("K4", ("jacobi_kernel<",)), ("K5", ("cheb_kernel<",))) + SOLVER_KINDS[2:]
+
+
+def shift_bound(op: str, n_cells: int, n_interior: int, itemsize: int = 8):
+    """Least time (ms) of one shifted launch: bytes or f64 operations."""
+    t_bytes = SHIFT_WORDS[op] * n_cells * itemsize / HBM_BYTES_PER_S * 1e3
+    t_ops = SHIFT_FLOP_PER_CELL[op] * n_interior / F64_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def shift_counts(sk) -> dict:
+    """(launches, shifted launches) of K2-K5 center."""
+    return {k: (getattr(sk, f"{k}_cuda").launches, getattr(sk, f"{k}_cuda").shifted_launches)
+            for k in SHIFT_OPS}
+
+
+def shift_diff(a: dict, b: dict) -> dict:
+    return {k: (a[k][0] - b[k][0], a[k][1] - b[k][1]) for k in a}
+
+
+def remaining_s() -> float:
+    return CALL_LIMIT_S - (time.perf_counter() - T_START)
+
+
+def shift_kernel_phase(sk, rand, full=TWOPHASE_FULL, n_time: int = 514) -> dict:
+    """Phase 24: shifted K2-K5 against their plain versions in f32 and f64 at
+    small shapes, strided views and every level of the two-phase
+    hierarchies the full-size runs build; then each alone at the finest
+    level, in turns.  Returns max |err| per kernel and the times."""
+    from repro_torch.apps import TwoPhase3D
+    from repro_torch.solvers import level_spacings
+
+    errs, level_errs, main_errs = {}, {}, {}
+    n0 = shift_counts(sk)
+    for dtype in (torch.float32, torch.float64):
+        sp = (0.5, 0.7, 1.1)
+        for shape in ((1, 10, 10, 10), (8, 34, 18, 66)):
+            inputs = solver_inputs(sk, shape, dtype, rand, sp, shifted=True)
+            e = check_solver_kernels(sk, inputs, sp, SOLVER_TOL[dtype], f"shift {dtype} {shape}")
+            errs[f"{str(dtype)[6:]}:{shape}".replace(" ", "")] = max(e.values())
+        inputs = tuple(t[..., 3:15, :, 5:30] for t in solver_inputs(
+            sk, (2, 2, 2, 18, 10, 34), dtype, rand, sp, shifted=True))
+        e = check_solver_kernels(sk, inputs, sp, SOLVER_TOL[dtype], f"shift {dtype} strided")
+        errs[f"{str(dtype)[6:]}:strided"] = max(e.values())
+        # the main path's own shapes: every level of both two-phase hierarchies
+        for name, n, dims in full:
+            app = TwoPhase3D(nx=n, ny=n, nz=n, dims=dims, method="mgcg", dtype=dtype)
+            grids = app.grid.hierarchy()
+            for g, hs in zip(grids, level_spacings(app.grid, grids, app.spacing)):
+                level = f"{str(dtype)[6:]}:{math.prod(g.dims)}x{g.local_shape[0]}^3"
+                inputs = solver_inputs(sk, g.shape, dtype, rand, hs, shifted=True)
+                e = check_solver_kernels(sk, inputs, hs, SOLVER_TOL[dtype], f"shift {level}")
+                level_errs[level] = max(e.values())
+                if dtype == torch.float64:
+                    main_errs = {k: max(v, main_errs.get(k, 0.0)) for k, v in e.items()}
+                del inputs
+            del app
+            torch.cuda.empty_cache()
+    launched = shift_diff(shift_counts(sk), n0)
+    if any(n != ns or n == 0 for n, ns in launched.values()):
+        fail(f"shifted checks: launches (all, shifted) {launched}")
+    say("shift_kernel", small=json.dumps(errs).replace(" ", ""),
+        main_path_levels=json.dumps(level_errs).replace(" ", ""),
+        main_path_max=json.dumps(main_errs).replace(" ", ""),
+        shifted_launches=json.dumps({k: v[1] for k, v in launched.items()}).replace(" ", ""),
+        status="ok")
+
+    # each shifted kernel alone at the finest level (1 x 514^3 f64), in turns
+    h = 10.0 / (n_time - 1)
+    sp = (h, h, h)
+    inputs = solver_inputs(sk, (1, n_time, n_time, n_time), torch.float64, rand, sp,
+                           shifted=True)
+    n = inputs[0].numel()
+    n_in = interior_cells(inputs[0].shape)
+    calls = solver_calls(sk, inputs, tuple(x * x for x in sp), sp)
+    ops = ("apply", "residual", "jacobi", "cheb_first", "cheb")
+    t = {op: [] for op in ops}
+    for _ in range(2):
+        for op in ops:
+            t[op].append(cuda_time_ms(calls[op][0], reps=20))
+    times = {}
+    for op in ops:
+        plain = cuda_time_ms(calls[op][1], reps=3, warm=1)
+        ms = min(t[op])
+        bound, bound_by = shift_bound(op, n, n_in)
+        say("shift_kernel", op=op, shape=f"1x{n_time}^3", dtype="float64", ms_runs=t[op],
+            plain_ms=plain, bound_ms=bound, bound_by=bound_by, share_of_bound=bound / ms,
+            achieved_GBps=SHIFT_WORDS[op] * n * 8 / ms / 1e6)
+        times[op] = (ms, plain, bound, bound_by)
+    del inputs, calls
+    torch.cuda.empty_cache()
+    return {"errs": main_errs, "times": times}
+
+
+def path_launches(method: str, variant: str, its, levels: int) -> dict:
+    """K2-K5 launches of an implicit TwoPhase3D run with per-step counts
+    ``its`` (every one of them shifted): the solver code's counts per solve
+    (``expected_launches``); one K2 per operator application, with or
+    without overlap."""
+    name = ("pipe" if variant == "pipelined" else "") + method
+    out = {k: 0 for k in SHIFT_OPS}
+    for k in its:
+        for op, v in expected_launches(name, k, levels).items():
+            out[op] += v
+    return out
+
+
+def twophase_small(sk) -> None:
+    """Phase 25: the two-phase path at the reference's test sizes: per-step
+    iterations equal to the reference's with every K2-K4 launch shifted,
+    periodic 1 against 8 ranks, the explicit integrator against its oracle
+    with and without hide, the overlap operator (``hide_apply``) against the plain one."""
+    from repro_torch import fields
+    from repro_torch.apps import TwoPhase3D
+    from repro_torch.apps.twophase_ops import pressure_apply
+
+    kw = dict(nx=16, ny=12, nz=12, dims=(2, 2, 2), tol=1e-8)
+    for (method, variant), want in TWOPHASE_ITERATIONS.items():
+        app = TwoPhase3D(**kw, method=method, variant=variant)
+        levels = len(app.grid.hierarchy())
+        n0 = shift_counts(sk)
+        S, infos = app.run(5)
+        got = shift_diff(shift_counts(sk), n0)
+        its = [i.iterations for i in infos]
+        if its != want or not all(i.converged for i in infos):
+            fail(f"twophase {method} {variant}: iterations {its}, the reference takes {want}")
+        exp = path_launches(method, variant, its, levels)
+        if {k: v[0] for k, v in got.items()} != exp or any(n != ns for n, ns in got.values()):
+            fail(f"twophase {method} {variant}: launches (all, shifted) {got}, the solver's "
+                 f"code makes {exp}, all shifted")
+        Pe_o, phi_o = app.oracle(5)
+        Pe, phi = fields.gather(S.Pe), fields.gather(S.phi)
+        err_pe = float(np.abs(Pe - Pe_o).max() / np.abs(Pe_o).max())
+        err_phi = float(np.abs(phi - phi_o).max())
+        # tol=1e-8 per solve against the oracle's 1e-12
+        if not (np.isfinite(Pe).all() and err_pe < 1e-6 and err_phi < 1e-10):
+            fail(f"twophase {method} {variant}: oracle errors Pe {err_pe}, phi {err_phi}")
+        say("twophase_small", method=method, variant=variant, iterations=its,
+            launches=json.dumps({k: v[0] for k, v in got.items()}).replace(" ", ""),
+            all_shifted=True, oracle_rel_err_Pe=err_pe, oracle_err_phi=err_phi)
+
+    # periodic (T, T, F) mgcg: 1 rank at 18^3 against 8 ranks at 10^3
+    per = (True, True, False)
+    S8, i8 = TwoPhase3D(nx=10, ny=10, nz=10, dims=(2, 2, 2), method="mgcg", tol=1e-10,
+                        periodic=per).run(3)
+    S1, i1 = TwoPhase3D(nx=18, ny=18, nz=18, dims=(1, 1, 1), method="mgcg", tol=1e-10,
+                        periodic=per).run(3)
+    its8, its1 = [i.iterations for i in i8], [i.iterations for i in i1]
+    d_pe = float(np.abs(fields.gather(S8.Pe) - fields.gather(S1.Pe)).max())
+    d_phi = float(np.abs(fields.gather(S8.phi) - fields.gather(S1.phi)).max())
+    if its8 != [5, 5, 5] or its1 != [5, 5, 5] or not (d_pe < 1e-12 and d_phi < 1e-12):
+        fail(f"periodic mgcg: 8 ranks {its8}, 1 rank {its1}, max |dPe| {d_pe}, |dphi| {d_phi}")
+    say("twophase_small", periodic="TTF", method="mgcg", iterations_8=its8, iterations_1=its1,
+        max_abs_dPe=d_pe, max_abs_dphi=d_phi)
+
+    # the explicit integrator against its oracle, with and without hide
+    out = {}
+    for hide in ((2, 2, 2), None):
+        app = TwoPhase3D(nx=16, ny=12, nz=12, dims=(2, 2, 2), hide=hide)
+        S, _ = app.run(5)
+        Pe_o, phi_o = app.oracle(5)
+        e_pe = float(np.abs(fields.gather(S.Pe) - Pe_o).max())
+        e_phi = float(np.abs(fields.gather(S.phi) - phi_o).max())
+        moved = float(np.abs(fields.gather(S.phi) - fields.gather(app.init_fields().phi)).max())
+        if not (e_pe < 1e-11 and e_phi < 1e-11 and moved > 1e-8):
+            fail(f"explicit hide={hide}: oracle errors {e_pe} / {e_phi}, phi moved {moved}")
+        out[hide] = S
+        say("twophase_small", method="explicit", hide=hide, oracle_max_abs_err_Pe=e_pe,
+            oracle_max_abs_err_phi=e_phi)
+    if not all(torch.equal(out[(2, 2, 2)][k].data, out[None][k].data) for k in ("Pe", "phi")):
+        fail("explicit: hide_step differs from update_halo(step) bitwise")
+
+    # the overlap operator (``hide_apply``) against the plain one, then cg with overlap=True
+    app = TwoPhase3D(nx=10, ny=10, nz=10, dims=(2, 2, 2), method="cg", overlap=True)
+    g = app.grid
+    S = app.init_fields()
+    k, diag, _ = app._assemble(S.Pe, S.phi)
+    u = g.from_global_fn(lambda ix, iy, iz: torch.sin(
+        0.3 * ix.double() + 0.2 * iy.double() + 0.1 * iz.double()))
+    u0 = u.clone()
+    n0 = shift_counts(sk)
+    hidden = pressure_apply(g, u, k, diag, app.spacing, hide=True)
+    plain = pressure_apply(g, u.clone(), k, diag, app.spacing)
+    got = shift_diff(shift_counts(sk), n0)
+    if not (torch.equal(hidden, plain) and torch.equal(u, u0)) or got["apply"] != (2, 2):
+        fail(f"overlap pressure operator: equal {torch.equal(hidden, plain)}, u untouched "
+             f"{torch.equal(u, u0)}, K2 launches (all, shifted) {got['apply']} (want 1 + 1)")
+    n0 = shift_counts(sk)
+    S, infos = app.run(2)
+    got = shift_diff(shift_counts(sk), n0)
+    its = [i.iterations for i in infos]
+    exp = path_launches("cg", "classic", its, 1)
+    if its != [7, 8] or got["apply"] != (exp["apply"], exp["apply"]):
+        fail(f"cg overlap: iterations {its} (want [7, 8]), K2 launches {got['apply']} "
+             f"(want {exp['apply']}, all shifted)")
+    say("twophase_small", method="cg", overlap=True, iterations=its, k2_launches=got["apply"][0],
+        overlap_vs_plain="bitwise")
+
+
+def twophase_full(sk, full=TWOPHASE_FULL, steps: int = 20, warm: int = 3,
+                  implicit_steps: int = 3) -> dict:
+    """Phase 26, the main path: the flagship at a size that fills the card,
+    f64 on 1 and 8 ranks (the same 514^3 global grid): the explicit
+    integrator with and without hide, then cg and mgcg at the default dt
+    (10x the explicit limit), mgcg with overlap on 8 ranks.  Every count is
+    zeroed just before these runs and read just after them; returns the
+    counts (launches, shifted launches) of K2-K5 center and the face ones."""
+    from repro_torch.apps import TwoPhase3D
+
+    # the depth this phase can afford: cut when the call's limit comes close
+    # (its full depth takes about 150 s on the card)
+    if remaining_s() < 420:
+        steps, warm, implicit_steps = 5, 1, 1
+        say("twophase_full", cut=f"steps={steps} warm={warm} implicit_steps={implicit_steps}",
+            remaining_s=remaining_s())
+    shape = None
+    torch.cuda.synchronize()
+    for w in sk.WRAPPERS:
+        w.launches = 0
+    for w in sk.WRAPPERS[:4]:
+        w.shifted_launches = 0
+    for name, n, dims in full:
+        for hide in ((8, 2, 2), None):
+            torch.cuda.empty_cache()
+            app = TwoPhase3D(nx=n, ny=n, nz=n, dims=dims, hide=hide)
+            shape = shape or app.grid.global_shape
+            if app.grid.global_shape != shape:
+                fail(f"{name}: global shape {app.grid.global_shape}, not {shape}")
+            S, _ = app.run(warm)
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            S, _ = app.run(steps, S)
+            e1.record()
+            torch.cuda.synchronize()
+            ms = e0.elapsed_time(e1) / steps
+            if not (torch.isfinite(S.Pe.data).all() and torch.isfinite(S.phi.data).all()):
+                fail(f"{name} explicit hide={hide}: non-finite fields")
+            say("twophase_full", config=name, method="explicit", hide=hide,
+                widths=app._hide_widths, steps=steps, ms_per_step=ms,
+                t_eff_GBps=app.t_eff(ms / 1e3))
+            del app, S
+        for method, kw in (("cg", {}), ("mgcg", {}), ("mgcg", dict(overlap=True))):
+            if kw and dims == (1, 1, 1):
+                continue      # overlap only where there is an exchange
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            app = TwoPhase3D(nx=n, ny=n, nz=n, dims=dims, method=method, **kw)
+            S = app.init_fields()
+            nsteps = implicit_steps if not kw else min(2, implicit_steps)
+            its, step_s, solve_s, per_it = [], [], [], []
+            for _ in range(nsteps):
+                torch.cuda.synchronize()
+                n0 = shift_counts(sk)
+                t0 = time.perf_counter()
+                S, info = app.step(S)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                got = shift_diff(shift_counts(sk), n0)
+                if not info.converged or any(n != ns for n, ns in got.values()):
+                    fail(f"{name} {method} {kw}: {info}, launches (all, shifted) {got}")
+                its.append(info.iterations)
+                solve_s.append(info.wall_s)
+                per_it.append({k: v[0] / info.iterations for k, v in got.items()})
+            Pe, phi = S.Pe.data, S.phi.data
+            if not (torch.isfinite(Pe).all() and phi.min() >= 1e-4 and phi.max() <= 0.25):
+                fail(f"{name} {method} {kw}: fields out of range")
+            say("twophase_full", config=name, method=method, overlap=bool(kw), iterations=its,
+                step_s=step_s, solve_s=solve_s,
+                ms_per_iteration=[1e3 * s / k for s, k in zip(solve_s, its)],
+                launches_per_iteration=json.dumps(per_it[-1]).replace(" ", ""),
+                all_shifted=True, t_eff_GBps=app.t_eff(sum(step_s) / len(step_s)),
+                peak_GB=torch.cuda.max_memory_allocated() / 1e9)
+            del app, S, Pe, phi
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return {"center": shift_counts(sk), "face": face_counts(sk)}
+
+
+def twophase_measure(sk, full=TWOPHASE_FULL) -> int:
+    """Phase 27, after the main path's counts were read: one mgcg step's
+    device time by kind; on 8 ranks the overlap operator (``hide_apply``)
+    against the in-place one, then one cg solve with the shifted Chebyshev cycle as the
+    preconditioner, K5's only launches on this slice.  Returns K5's
+    launches in that solve, counted around it alone."""
+    from repro_torch import solvers
+    from repro_torch.apps import TwoPhase3D
+    from repro_torch.apps.twophase_ops import pressure_apply
+
+    cheb = 0
+    for name, n, dims in full:
+        torch.cuda.empty_cache()
+        app = TwoPhase3D(nx=n, ny=n, nz=n, dims=dims, method="mgcg")
+        S, _ = app.step(app.init_fields())       # warm
+        say("breakdown", config=f"{name} twophase mgcg step",
+            **categories(lambda: app.step(S), 1, kinds=TWOPHASE_KINDS))
+        if dims == (1, 1, 1):
+            del app, S
+            continue
+        # hide_apply (K2 on a halo-updated clone of u, u untouched) against
+        # the in-place application and the clone alone; in turns
+        k, diag, rhs = app._assemble(S.Pe, S.phi)
+        u = S.Pe.data.clone()
+        forms = {"hide_apply": lambda: pressure_apply(app.grid, u, k, diag, app.spacing,
+                                                      hide=True),
+                 "in_place": lambda: pressure_apply(app.grid, u, k, diag, app.spacing),
+                 "clone_of_u": lambda: u.clone()}
+        t = {f: [] for f in forms}
+        for _ in range(2):
+            for f, fn in forms.items():
+                t[f].append(cuda_time_ms(fn, reps=20))
+        ms = {f: min(v) for f, v in t.items()}
+        say("twophase_full", config=name, operator="pressure_apply",
+            ms_runs=json.dumps(t).replace(" ", ""),
+            hide_over_in_place=ms["hide_apply"] / ms["in_place"])
+        del u
+        # the shifted Chebyshev cycle (K5) as the pressure preconditioner
+        M = solvers.CyclePreconditioner(app.grid, app.spacing, helmholtz_shift=True,
+                                        smoother="chebyshev")
+        torch.cuda.synchronize()
+        n0 = shift_counts(sk)
+        x, info = solvers.cg(app.grid, app.apply_A, rhs, x0=S.Pe, tol=app.tol, apply_M=M,
+                             args=(k, diag))
+        torch.cuda.synchronize()
+        got = shift_diff(shift_counts(sk), n0)
+        if not info.converged or got["cheb"][1] == 0 or any(n != ns for n, ns in got.values()):
+            fail(f"{name} chebyshev-cycle solve: {info}, launches {got}")
+        cheb += got["cheb"][1]
+        say("twophase_full", config=name, solve="cg + shifted chebyshev cycle",
+            iterations=info.iterations, seconds=info.wall_s,
+            launches=json.dumps({k_: v[0] for k_, v in got.items()}).replace(" ", ""))
+        del x, k, diag, rhs, M, app, S
+    torch.cuda.empty_cache()
+    return cheb
+
+
+def twophase_phases(rand) -> list:
+    from repro_torch.kernels import solver3d as sk
+
+    # ---- 24. shifted K2-K5 against their plain versions, then timed ---------
+    res = shift_kernel_phase(sk, rand)
+    # ---- 25. the two-phase path at the reference's test sizes ---------------
+    twophase_small(sk)
+    # ---- 26. the main path at full size: counts zeroed just before, read after
+    path = twophase_full(sk)
+    center = path["center"]
+    for k in ("apply", "residual", "jacobi"):
+        n, ns = center[k]
+        if ns == 0 or n != ns:
+            fail(f"the two-phase path: {k} launched {n} times, {ns} shifted")
+    if center["cheb"] != (0, 0) or any(path["face"].values()):
+        fail(f"the two-phase path launched K5 {center['cheb']} or face kernels {path['face']}")
+    say("twophase_path", shifted_launches=json.dumps({k: v[1] for k, v in center.items()}
+                                                     ).replace(" ", ""),
+        face_launches=json.dumps(path["face"]).replace(" ", ""))
+    # ---- 27. breakdown, hide_apply's cost, K5's own solve ------
+    cheb = twophase_measure(sk)
+    entries = []
+    for op in SHIFT_OPS:
+        ms, plain, bound, bound_by = res["times"][op]
+        err = res["errs"][op] if op != "cheb" else max(res["errs"]["cheb"],
+                                                       res["errs"]["cheb_first"])
+        entry = {
+            "name": f"{op}_shift", "route": "cuda",
+            "source": "src/repro_torch/kernels/solver3d/csrc/solver3d.cu",
+            "replaces": SOLVER_REPLACES[op], "launches": center[op][1], "max_abs_err": err,
+            "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": None}
+        if op == "cheb":
+            # not on TwoPhase3D's path (its cycle smooths with Jacobi): the
+            # launches of the 8-rank cg solve with the shifted Chebyshev cycle
+            entry["launches"] = cheb
+            entry["launches_in"] = "cg + shifted chebyshev cycle, 8x258^3 (phase 27)"
+        entries.append(entry)
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible; nothing was run", file=sys.stderr)
@@ -1719,9 +2137,11 @@ def main() -> int:
     face_entries = stokes_phases(rand)
     ssd_entries = serving_phases(dev)
     swa_entries = gemma3_phases(dev)
+    torch.cuda.empty_cache()
+    shift_entries = twophase_phases(rand)
 
     print(json.dumps({"kernels": [k1] + solver_entries + face_entries + ssd_entries
-                      + swa_entries}))
+                      + swa_entries + shift_entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -3,5 +3,7 @@
 from .heat3d import Heat3D
 from .poisson import Poisson3D
 from .stokes import StokesInfo, Stokes3D, StressCyclePreconditioner
+from .twophase import TwoPhase3D
 
-__all__ = ["Heat3D", "Poisson3D", "Stokes3D", "StokesInfo", "StressCyclePreconditioner"]
+__all__ = ["Heat3D", "Poisson3D", "Stokes3D", "StokesInfo", "StressCyclePreconditioner",
+           "TwoPhase3D"]

@@ -97,6 +97,12 @@ class Poisson3D:
         place first."""
         return poisson_apply(self.grid, u, c, self.spacing, use_kernel=self.use_kernel)
 
+    def apply_A_overlap(self, u, c):
+        """The same operator through ``hide_apply``: the same values, ``u``
+        untouched (its halo update goes into a copy)."""
+        return poisson_apply(self.grid, u, c, self.spacing, hide=True,
+                             use_kernel=self.use_kernel)
+
     def spectral_bounds(self) -> tuple[float, float]:
         """(lam_min, lam_max) estimates for the pseudo-transient solver:
         Gershgorin upper bound; lowest-Fourier-mode lower bound over the
@@ -131,27 +137,24 @@ class Poisson3D:
               overlap: bool = False, **kw):
         """Solve with ``method`` in {"cg", "pipecg", "mgcg", "pipemgcg",
         "pt", "mg"}; ``**kw`` go to the solver.  ``pipecg``/``pipemgcg`` are
-        the pipelined schedules of cg/mgcg.  ``overlap=True`` (the
-        communication-hiding operator) raises until ``hide_apply`` is
-        ported.  Returns ``(u, info)``.
+        the pipelined schedules of cg/mgcg.  ``overlap=True`` (cg family and
+        pt) switches the operator to ``hide_apply``.
+        Returns ``(u, info)``.
         """
-        if overlap:
-            raise NotImplementedError(
-                "Poisson3D.solve(overlap=True) needs core/hide.py::hide_apply, "
-                "which is not ported yet")
+        apply_A = self.apply_A_overlap if overlap else self.apply_A
         project = "constant" if self.singular else None
         if method in ("pipecg", "pipemgcg"):
             kw.setdefault("variant", "pipelined")
             method = "cg" if method == "pipecg" else "mgcg"
         if method == "cg":
-            return solvers.cg(self.grid, self.apply_A, self.b, tol=tol,
+            return solvers.cg(self.grid, apply_A, self.b, tol=tol,
                               maxiter=maxiter or 2000, args=(self.c,),
                               project_nullspace=project, **kw)
         if method == "mgcg":
             if not hasattr(self, "_mg_precond"):
                 self._mg_precond = solvers.CyclePreconditioner(
                     self.grid, self.spacing, use_kernel=self.use_kernel)
-            return solvers.cg(self.grid, self.apply_A, self.b, tol=tol,
+            return solvers.cg(self.grid, apply_A, self.b, tol=tol,
                               maxiter=maxiter or 2000, args=(self.c,),
                               apply_M=self._mg_precond, project_nullspace=project, **kw)
         if method == "pt":
@@ -160,10 +163,13 @@ class Poisson3D:
                     "method='pt' needs lam_min > 0, but the all-periodic Poisson operator "
                     "is singular — use 'cg'/'mgcg' (nullspace-projected) or 'mg'")
             lam_min, lam_max = self.spectral_bounds()
-            return solvers.pseudo_transient(self.grid, self.apply_A, self.b, tol=tol,
+            return solvers.pseudo_transient(self.grid, apply_A, self.b, tol=tol,
                                             maxiter=maxiter or 20000, args=(self.c,),
                                             lam_min=lam_min, lam_max=lam_max, **kw)
         if method == "mg":
+            if overlap:
+                raise ValueError("overlap=True is not supported for 'mg' (the V-cycle "
+                                 "manages its own halo updates)")
             kw.setdefault("use_kernel", self.use_kernel)
             return solvers.multigrid_solve(self.grid, self.c, self.b, self.spacing, tol=tol,
                                            maxiter=maxiter or 100, **kw)

@@ -111,9 +111,6 @@ _REGISTRY: dict[str, ModelCfg] = {}
 # the reference's other configs, and the item of ROADMAP.md's Queue A
 # (item 6, the rest of the LM scaffolding) that brings their layers
 LATER = {
-    "starcoder2-15b": "attention and dense FFN layers",
-    "gemma-2b": "attention and dense FFN layers",
-    "llama3.2-1b": "attention and dense FFN layers",
     "kimi-k2-1t-a32b": "attention and MoE layers",
     "granite-moe-3b-a800m": "attention and MoE layers",
     "jamba-v0.1-52b": "attention and MoE layers beside its Mamba layers",
@@ -144,4 +141,5 @@ def names() -> list[str]:
 
 
 def _load_all() -> None:
-    from . import gemma3_4b, mamba2_1p3b  # noqa: F401  (register their configs)
+    from . import (  # noqa: F401  (register their configs)
+        gemma3_4b, gemma_2b, llama3_2_1b, mamba2_1p3b, starcoder2_15b)

@@ -16,6 +16,10 @@ to ``update_halo(topo, step_fn(*inputs))``.  Conventions:
 * the output's outer ring passes through the matching input: output ``k``
   keeps the ring of ``inputs[k]``;
 * ``step_fn`` is shape-polymorphic (it also runs on slabs).
+
+``hide_apply(topo, op_fn, u, *extra, halo)`` is the dual for a solver's
+operator, which needs fresh halos of its *input*: it equals
+``op_fn(update_halo(topo, u), *extra)`` and leaves ``u`` as it was.
 """
 
 from __future__ import annotations
@@ -112,3 +116,24 @@ def hide_communication(
         update_halo(topo, *outs, width=h)
         interior()
     return outs[0] if len(outs) == 1 else tuple(outs)
+
+
+def hide_apply(topo: CartesianTopology, op_fn: Callable, u: torch.Tensor, *extra: torch.Tensor,
+               halo: int = 1) -> torch.Tensor:
+    """Operator application with fresh halos of its input (fields
+    ``(*dims, *local)``): ``op_fn(update_halo(topo, u, width=halo), *extra)``,
+    but ``u`` itself is not written, as the reference's functional form.
+
+    The exchange goes into a copy of ``u`` and the operator runs once on it.
+    On one card the exchange is a copy between blocks of the same tensor,
+    so there is nothing to hide it behind: the overlapped form (the bulk on
+    stale halos on the current stream; the exchange into a copy and the
+    shells ``[h, 2h)`` / ``[n-2h, n-h)`` recomputed on a side stream) was
+    slower than this one on an H100 (``PERF.md``, the two-phase findings).
+    It returns with an exchange between cards (``ROADMAP.md``).
+    """
+    nd = topo.ndims
+    if u.ndim != 2 * nd:
+        raise ValueError(
+            f"hide_apply expects fields (*dims, *local) of rank {2 * nd}, got rank {u.ndim}")
+    return op_fn(update_halo(topo, u.clone(), width=int(halo)), *extra)

@@ -14,7 +14,7 @@ See :mod:`repro_torch.apps.stokes` for the staggered flagship.
 
 from . import ops
 from .field import (
-    LOCATIONS, Field, FieldSet, face_location, from_global_fn, gather, interior_mask,
+    LOCATIONS, Field, FieldSet, face_location, from_global_fn, gather, hide_step, interior_mask,
     interior_mask_tree, map_fields, owned_mask, scatter, solve_mask, solve_mask_tree,
     stagger_dim, update_halo, valid_count, valid_global_shape, valid_mask, zeros,
 )
@@ -23,6 +23,6 @@ __all__ = [
     "LOCATIONS", "Field", "FieldSet",
     "face_location", "stagger_dim", "valid_count", "valid_global_shape",
     "valid_mask", "owned_mask", "interior_mask", "solve_mask",
-    "solve_mask_tree", "interior_mask_tree", "map_fields", "update_halo",
+    "solve_mask_tree", "interior_mask_tree", "map_fields", "update_halo", "hide_step",
     "zeros", "from_global_fn", "gather", "scatter", "ops",
 ]

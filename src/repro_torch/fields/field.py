@@ -22,8 +22,8 @@ valid array.  Boundary conditions are in :mod:`repro_torch.core.boundary`.
 
 A :class:`FieldSet` is an ordered, named collection of Fields that the
 solvers take as one unknown vector (through the duck-typed tree helpers of
-:mod:`repro_torch.core.locations`).  ``hide_step`` (``grid.hide`` over a
-FieldSet) is not ported yet.
+:mod:`repro_torch.core.locations`); :func:`hide_step` is ``grid.hide`` over
+a FieldSet.
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..core import halo as _halo
+from ..core import hide as _hide
 from ..core import locations as _loc
 from ..core.locations import LOCATIONS, face_location, stagger_dim  # noqa: F401
 from ..core.locations import node_map as map_fields  # Fields as the leaves
@@ -243,6 +244,38 @@ def update_halo(grid, tree, width: int | None = None):
         return _halo.update_halo(grid.topo, node, width=w)
 
     return map_fields(one, tree)
+
+
+def _structure(fset: FieldSet) -> tuple:
+    return tuple((name, f.loc) for name, f in fset.items())
+
+
+def hide_step(grid, step_fn, fset: FieldSet, width=(16, 2, 2)) -> FieldSet:
+    """``grid.hide`` for FieldSet steps: bitwise equal to
+    ``update_halo(grid, step_fn(fset))``.
+
+    ``step_fn(fset) -> fset`` maps a FieldSet to one of the same structure
+    (names and locations; anything else raises); the boundary-shell /
+    interior split and the overlapped halo exchange of
+    :func:`repro_torch.core.hide.hide_communication` run on the Fields'
+    tensors.  Periodic dims work for every location, as in
+    :func:`update_halo`.
+    """
+    structure = _structure(fset)
+
+    def raw_step(*tensors):
+        out = step_fn(FieldSet(**{name: Field(grid, t, loc)
+                                  for (name, loc), t in zip(structure, tensors)}))
+        if not isinstance(out, FieldSet) or _structure(out) != structure:
+            raise ValueError(f"hide_step: step_fn must preserve the FieldSet structure "
+                             f"{structure}, got {out!r}")
+        return tuple(f.data for f in out)
+
+    outs = _hide.hide_communication(grid.topo, raw_step, [f.data for f in fset],
+                                    width=tuple(width)[:grid.ndims], halo=grid.halo)
+    if not isinstance(outs, tuple):
+        outs = (outs,)
+    return FieldSet(**{name: Field(grid, t, loc) for (name, loc), t in zip(structure, outs)})
 
 
 # ---------------------------------------------------------------------------

@@ -15,6 +15,12 @@
 // Center (SD = -1):
 //   A u = -sum_d [cf+ (u+ - u0) - cf- (u0 - u-)] / h_d^2 inside,
 //   cf+- = 0.5 * (c0 + c+-); the ring gets 0 (K2, K3), u (K4), u and 0 (K5).
+//   With a Helmholtz shift field s (the implicit two-phase pressure's
+//   1/dt + 1/eta), A u = s0 * u0 - acc instead of -acc, in the order of the
+//   reference's poisson_stencil(shift=) (ref.py:74).  The shift is a
+//   template flag picked once per launch, so the unshifted kernels are the
+//   same code as without it.  The smoothers' dia already holds the shift
+//   (the caller adds it), so K4/K5 do not add it again.
 //   Every value written depends only on the cell and its six neighbours,
 //   which lie inside the block, so no read wraps.
 // Face (SD = 0, 1, 2: the field is staggered along SD), the MAC stripped
@@ -41,10 +47,11 @@
 //
 // Bound.  Each kernel reads each input once and writes each output once.
 // Center: K2 3 words per cell (u, c; out), K3 4, K4 5, K5 7 (6 on the first
-// step, which reads no d).  Face, with the mask: K2 3, K3 5, K4 6, K5 8
-// (7 on the first step).  About 40 (center) to 60 (face) operations per cell
-// in f64 against ~10 bytes per operation moved: far below the H100's f64
-// ridge, so the floor is the bytes over 3.35 TB/s.
+// step, which reads no d); one more with a shift (K2 4, K3 5, K4 6, K5 8).
+// Face, with the mask: K2 3, K3 5, K4 6, K5 8 (7 on the first step).  About
+// 40 (center) to 60 (face) operations per cell in f64 against ~10 bytes per
+// operation moved: far below the H100's f64 ridge, so the floor is the bytes
+// over 3.35 TB/s.
 //
 // Design.  One thread per cell, as K1: neighbouring threads run along z,
 // the contiguous axis, so a warp's loads coalesce; a block tiles
@@ -53,7 +60,8 @@
 // comes with four strides (batch, x, y, z), so views launch without
 // copies; outputs are contiguous and every cell of them is written.  The
 // face stagger dim is a template parameter, so each (op, SD) pair is its
-// own kernel with the edge-average pattern unrolled.
+// own kernel with the edge-average pattern unrolled; the center kernels take
+// the shift flag the same way.
 #include <cuda_runtime.h>
 
 namespace {
@@ -73,10 +81,11 @@ struct Params {
   const T* dia;
   const T* d;
   const T* m;  // face ops: the location's interior mask
+  const T* s;  // center ops: the Helmholtz shift (null: none)
   T* out;
   T* dout;
   int nx, ny, nz;
-  Strides su, sc, sf, sdia, sd, sm;
+  Strides su, sc, sf, sdia, sd, sm, ss;
   T rh2[3];  // 1 / h_d^2
   T omega, a, b;
   int first;  // K5: the first step (no a): d = z / b, the input d is not read
@@ -102,8 +111,9 @@ __device__ __forceinline__ bool ring(int nx, int ny, int nz, int i, int j, int k
 }
 
 // A u at an interior cell, in the reference's order: acc accumulates
-// (cf+ (u+ - u0) - cf- (u0 - u-)) / h_d^2 over d = x, y, z; A u = -acc.
-template <typename T>
+// (cf+ (u+ - u0) - cf- (u0 - u-)) / h_d^2 over d = x, y, z; A u = -acc, or
+// s0 * u0 - acc with a shift.
+template <typename T, bool kShift>
 __device__ __forceinline__ T center_au(const Params<T>& p, int b, int i, int j, int k) {
   const T* u = p.u + at(p.su, b, i, j, k);
   const T* c = p.c + at(p.sc, b, i, j, k);
@@ -119,18 +129,19 @@ __device__ __forceinline__ T center_au(const Params<T>& p, int b, int i, int j, 
     const T t = cfp * (u[us[d]] - u0) - cfm * (u0 - u[-us[d]]);
     acc = acc + t * p.rh2[d];
   }
+  if (kShift) return p.s[at(p.ss, b, i, j, k)] * u0 - acc;
   return -acc;
 }
 
-template <typename T>
+template <typename T, bool kShift>
 __global__ void __launch_bounds__(kTz * kTy * kTx) apply_kernel(Params<T> p) {
   int b, i, j, k;
   if (!cell(p.nx, p.ny, p.nz, b, i, j, k)) return;
   const long long o = ((static_cast<long long>(b) * p.nx + i) * p.ny + j) * p.nz + k;
-  p.out[o] = ring(p.nx, p.ny, p.nz, i, j, k) ? T(0) : center_au<T>(p, b, i, j, k);
+  p.out[o] = ring(p.nx, p.ny, p.nz, i, j, k) ? T(0) : center_au<T, kShift>(p, b, i, j, k);
 }
 
-template <typename T>
+template <typename T, bool kShift>
 __global__ void __launch_bounds__(kTz * kTy * kTx) residual_kernel(Params<T> p) {
   int b, i, j, k;
   if (!cell(p.nx, p.ny, p.nz, b, i, j, k)) return;
@@ -139,10 +150,10 @@ __global__ void __launch_bounds__(kTz * kTy * kTx) residual_kernel(Params<T> p) 
     p.out[o] = T(0);
     return;
   }
-  p.out[o] = p.f[at(p.sf, b, i, j, k)] - center_au<T>(p, b, i, j, k);
+  p.out[o] = p.f[at(p.sf, b, i, j, k)] - center_au<T, kShift>(p, b, i, j, k);
 }
 
-template <typename T>
+template <typename T, bool kShift>
 __global__ void __launch_bounds__(kTz * kTy * kTx) jacobi_kernel(Params<T> p) {
   int b, i, j, k;
   if (!cell(p.nx, p.ny, p.nz, b, i, j, k)) return;
@@ -152,11 +163,11 @@ __global__ void __launch_bounds__(kTz * kTy * kTx) jacobi_kernel(Params<T> p) {
     p.out[o] = u0;  // the ring passes through bit for bit
     return;
   }
-  const T r = p.f[at(p.sf, b, i, j, k)] - center_au<T>(p, b, i, j, k);
+  const T r = p.f[at(p.sf, b, i, j, k)] - center_au<T, kShift>(p, b, i, j, k);
   p.out[o] = u0 + (p.omega * r) / p.dia[at(p.sdia, b, i, j, k)];
 }
 
-template <typename T>
+template <typename T, bool kShift>
 __global__ void __launch_bounds__(kTz * kTy * kTx) cheb_kernel(Params<T> p) {
   int b, i, j, k;
   if (!cell(p.nx, p.ny, p.nz, b, i, j, k)) return;
@@ -167,7 +178,7 @@ __global__ void __launch_bounds__(kTz * kTy * kTx) cheb_kernel(Params<T> p) {
     p.dout[o] = T(0);
     return;
   }
-  const T r = p.f[at(p.sf, b, i, j, k)] - center_au<T>(p, b, i, j, k);
+  const T r = p.f[at(p.sf, b, i, j, k)] - center_au<T, kShift>(p, b, i, j, k);
   const T z = r / p.dia[at(p.sdia, b, i, j, k)];
   const T dn = p.first ? z / p.b : p.a * p.d[at(p.sd, b, i, j, k)] + p.b * z;
   p.out[o] = u0 + dn;
@@ -303,12 +314,31 @@ void launch_face(int op, const Params<T>& p, dim3 grid, dim3 block, cudaStream_t
   }
 }
 
+template <typename T, bool kShift>
+void launch_center(int op, const Params<T>& p, dim3 grid, dim3 block, cudaStream_t stream) {
+  switch (op) {
+    case kApply:
+      apply_kernel<T, kShift><<<grid, block, 0, stream>>>(p);
+      break;
+    case kResidual:
+      residual_kernel<T, kShift><<<grid, block, 0, stream>>>(p);
+      break;
+    case kJacobi:
+      jacobi_kernel<T, kShift><<<grid, block, 0, stream>>>(p);
+      break;
+    case kCheb:
+      cheb_kernel<T, kShift><<<grid, block, 0, stream>>>(p);
+      break;
+  }
+}
+
 template <typename T>
 cudaError_t launch(int op, int sd, const Params<T>& p, int nb, cudaStream_t stream) {
   const dim3 block(kTz, kTy, kTx);
   const dim3 grid((p.nz + kTz - 1) / kTz, (p.ny + kTy - 1) / kTy,
                   ((p.nx + kTx - 1) / kTx) * nb);
   if (op < kApply || op > kCheb || sd < -1 || sd > 2) return cudaErrorInvalidValue;
+  if (sd != -1 && p.s != nullptr) return cudaErrorInvalidValue;  // shifts are center only
   switch (sd) {
     case 0:
       launch_face<T, 0>(op, p, grid, block, stream);
@@ -322,28 +352,18 @@ cudaError_t launch(int op, int sd, const Params<T>& p, int nb, cudaStream_t stre
     default:
       break;
   }
-  switch (op) {
-    case kApply:
-      apply_kernel<T><<<grid, block, 0, stream>>>(p);
-      break;
-    case kResidual:
-      residual_kernel<T><<<grid, block, 0, stream>>>(p);
-      break;
-    case kJacobi:
-      jacobi_kernel<T><<<grid, block, 0, stream>>>(p);
-      break;
-    case kCheb:
-      cheb_kernel<T><<<grid, block, 0, stream>>>(p);
-      break;
-    default:
-      return cudaErrorInvalidValue;
+  if (p.s != nullptr) {
+    launch_center<T, true>(op, p, grid, block, stream);
+  } else {
+    launch_center<T, false>(op, p, grid, block, stream);
   }
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t run(int op, int sd, const void* u, const void* c, const void* f,
-                const void* dia, const void* d, const void* m, void* out, void* dout, int nb,
+                const void* dia, const void* d, const void* m, const void* s, void* out,
+                void* dout, int nb,
                 int nx, int ny, int nz, const long long* st, const double* h2, double omega,
                 double a, double b, int first, cudaStream_t stream) {
   Params<T> p;
@@ -353,13 +373,16 @@ cudaError_t run(int op, int sd, const void* u, const void* c, const void* f,
   p.dia = static_cast<const T*>(dia);
   p.d = static_cast<const T*>(d);
   p.m = static_cast<const T*>(m);
+  p.s = static_cast<const T*>(s);
   p.out = static_cast<T*>(out);
   p.dout = static_cast<T*>(dout);
   p.nx = nx;
   p.ny = ny;
   p.nz = nz;
-  Strides* s[6] = {&p.su, &p.sc, &p.sf, &p.sdia, &p.sd, &p.sm};
-  for (int q = 0; q < 6; ++q) *s[q] = Strides{st[4 * q], st[4 * q + 1], st[4 * q + 2], st[4 * q + 3]};
+  Strides* strides[7] = {&p.su, &p.sc, &p.sf, &p.sdia, &p.sd, &p.sm, &p.ss};
+  for (int q = 0; q < 7; ++q) {
+    *strides[q] = Strides{st[4 * q], st[4 * q + 1], st[4 * q + 2], st[4 * q + 3]};
+  }
   for (int q = 0; q < 3; ++q) p.rh2[q] = T(1) / T(h2[q]);
   p.omega = T(omega);
   p.a = T(a);
@@ -373,24 +396,25 @@ cudaError_t run(int op, int sd, const void* u, const void* c, const void* f,
 // op: 0 = apply (K2), 1 = residual (K3), 2 = jacobi (K4), 3 = cheb (K5).
 // dtype: 0 = float32, 2 = float64 (the codes of heat_step.cu).  sd: -1 for
 // cell centers, else the stagger dim of the face location (0, 1, 2).  Inputs
-// an op does not read may be null; m is the face ops' interior mask.
-// strides: 24 element strides, (batch, x, y, z) for u, c, f, dia, d and m in
-// turn.  h2: h_x^2, h_y^2, h_z^2.  first: K5's first step (a is not used and
+// an op does not read may be null; m is the face ops' interior mask; s is
+// the center ops' Helmholtz shift (null: no shift; a face op refuses one).
+// strides: 28 element strides, (batch, x, y, z) for u, c, f, dia, d, m and s
+// in turn.  h2: h_x^2, h_y^2, h_z^2.  first: K5's first step (a is not used and
 // d is not read).  Returns cudaGetLastError() after the launch (0 on
 // success).
 extern "C" int repro_solver3d(int op, int dtype, int sd, const void* u, const void* c,
                               const void* f, const void* dia, const void* d, const void* m,
-                              void* out, void* dout, int nb, int nx, int ny, int nz,
+                              const void* s, void* out, void* dout, int nb, int nx, int ny, int nz,
                               const long long* strides, const double* h2, double omega, double a,
                               double b, int first, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaStream_t cs = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return run<float>(op, sd, u, c, f, dia, d, m, out, dout, nb, nx, ny, nz, strides, h2,
-                        omega, a, b, first, s);
+      return run<float>(op, sd, u, c, f, dia, d, m, s, out, dout, nb, nx, ny, nz, strides, h2,
+                        omega, a, b, first, cs);
     case 2:
-      return run<double>(op, sd, u, c, f, dia, d, m, out, dout, nb, nx, ny, nz, strides, h2,
-                         omega, a, b, first, s);
+      return run<double>(op, sd, u, c, f, dia, d, m, s, out, dout, nb, nx, ny, nz, strides, h2,
+                         omega, a, b, first, cs);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -9,6 +9,11 @@ cell, ring included), launches on the current CUDA stream without
 synchronising, and raises if the launch was refused.
 ``<wrapper>.launches`` counts the launches.  The kernels multiply by a
 host-computed ``1/h²`` where the plain version divides by ``h²``.
+
+The center wrappers take an optional Helmholtz ``shift`` field (``A u =
+shift * u - div(c grad u)``, the two-phase pressure operator); the
+smoothers' ``dia`` must already hold it.  ``<wrapper>.shifted_launches``
+counts the launches that carried one.
 """
 
 from __future__ import annotations
@@ -29,21 +34,23 @@ _MAX_GRID_YZ = 65535
 @functools.lru_cache(maxsize=None)
 def _entry():
     fn = _build.load().repro_solver3d
-    fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+    fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
                    + [ctypes.c_void_p] * 2 + [ctypes.c_double] * 3 + [ctypes.c_int]
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(op: str, u, c, f=None, dia=None, d=None, m=None, *, sd=None, h2, omega=0.0,
-            a=0.0, b=0.0, first=False):
+def _launch(op: str, u, c, f=None, dia=None, d=None, m=None, s=None, *, sd=None, h2,
+            omega=0.0, a=0.0, b=0.0, first=False):
     where = f"solver3d.{op}{'' if sd is None else '_face'}_cuda"
     if sd not in (None, 0, 1, 2):
         raise ValueError(f"{where}: stagger dim {sd!r} is not 0, 1 or 2")
     if sd is not None and op != "apply" and m is None:
         raise ValueError(f"{where}: a face location needs its interior mask")
-    inputs = {"u": u, "c": c, "f": f, "dia": dia, "d": d, "m": m}
+    if sd is not None and s is not None:
+        raise ValueError(f"{where}: Helmholtz shifts are center only")
+    inputs = {"u": u, "c": c, "f": f, "dia": dia, "d": d, "m": m, "s": s}
     given = {k: v for k, v in inputs.items() if v is not None}
     if u.device.type != "cuda" or any(v.device != u.device for v in given.values()):
         raise ValueError(f"{where}: inputs must lie on one CUDA device, got "
@@ -64,7 +71,7 @@ def _launch(op: str, u, c, f=None, dia=None, d=None, m=None, *, sd=None, h2, ome
         return out if dout is None else (out, dout)
     if -(-ny // _TILE[1]) > _MAX_GRID_YZ or -(-nx // _TILE[0]) * nb > _MAX_GRID_YZ:
         raise ValueError(f"{where}: shape {(nb, nx, ny, nz)} exceeds the launch grid")
-    strides = (ctypes.c_longlong * 24)(*[s for k in inputs for s in (
+    strides = (ctypes.c_longlong * 28)(*[st for k in inputs for st in (
         views[k].stride() if k in views else (0, 0, 0, 0))])
     h2s = (ctypes.c_double * 3)(*(float(h) for h in h2))
 
@@ -74,7 +81,8 @@ def _launch(op: str, u, c, f=None, dia=None, d=None, m=None, *, sd=None, h2, ome
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
         err = _entry()(OPS[op], DTYPE_CODES[u.dtype], -1 if sd is None else sd, ptr("u"),
-                       ptr("c"), ptr("f"), ptr("dia"), ptr("d"), ptr("m"), out.data_ptr(),
+                       ptr("c"), ptr("f"), ptr("dia"), ptr("d"), ptr("m"), ptr("s"),
+                       out.data_ptr(),
                        None if dout is None else dout.data_ptr(), nb, nx, ny, nz, strides, h2s,
                        float(omega), float(a), float(b), int(bool(first)), stream)
     if err != 0:
@@ -82,36 +90,41 @@ def _launch(op: str, u, c, f=None, dia=None, d=None, m=None, *, sd=None, h2, ome
     return out if dout is None else (out, dout)
 
 
-def apply_cuda(u, c, *, h2):
+def _count(wrapper, shift) -> None:
+    wrapper.launches += 1
+    wrapper.shifted_launches += shift is not None
+
+
+def apply_cuda(u, c, *, h2, shift=None):
     """K2: ``A u`` on the interior, zero ring; same contract as
     ``ref.apply_op_ref``."""
-    out = _launch("apply", u, c, h2=h2)
-    apply_cuda.launches += 1
+    out = _launch("apply", u, c, s=shift, h2=h2)
+    _count(apply_cuda, shift)
     return out
 
 
-def residual_cuda(u, c, f, *, h2):
+def residual_cuda(u, c, f, *, h2, shift=None):
     """K3: ``f - A u`` on the interior, zero ring."""
-    out = _launch("residual", u, c, f, h2=h2)
-    residual_cuda.launches += 1
+    out = _launch("residual", u, c, f, s=shift, h2=h2)
+    _count(residual_cuda, shift)
     return out
 
 
-def jacobi_cuda(u, c, f, dia, *, omega, h2):
+def jacobi_cuda(u, c, f, dia, *, omega, h2, shift=None):
     """K4: one damped-Jacobi sweep ``u + (omega * (f - A u)) / dia``, the
     ring of ``u`` passed through."""
-    out = _launch("jacobi", u, c, f, dia, h2=h2, omega=omega)
-    jacobi_cuda.launches += 1
+    out = _launch("jacobi", u, c, f, dia, s=shift, h2=h2, omega=omega)
+    _count(jacobi_cuda, shift)
     return out
 
 
-def cheb_cuda(u, c, f, dia, d, *, a, b, h2):
+def cheb_cuda(u, c, f, dia, d, *, a, b, h2, shift=None):
     """K5: one Chebyshev step -> ``(u, d)``; ``a=None`` is the first step,
     which does not read ``d`` (pass None or any tensor of u's shape)."""
     first = a is None
-    out = _launch("cheb", u, c, f, dia, None if first else d, h2=h2,
+    out = _launch("cheb", u, c, f, dia, None if first else d, s=shift, h2=h2,
                   a=0.0 if first else a, b=b, first=first)
-    cheb_cuda.launches += 1
+    _count(cheb_cuda, shift)
     return out
 
 
@@ -152,3 +165,5 @@ WRAPPERS = (apply_cuda, residual_cuda, jacobi_cuda, cheb_cuda,
             apply_face_cuda, residual_face_cuda, jacobi_face_cuda, cheb_face_cuda)
 for _fn in WRAPPERS:
     _fn.launches = 0
+for _fn in WRAPPERS[:4]:
+    _fn.shifted_launches = 0

@@ -12,10 +12,10 @@ between the two.  Conventions (those of ``repro_torch.solvers.multigrid``):
   the face variant (``*_face_cuda``) and needs the location's ``imask``
   for the residual and the sweeps;
 * diagonals are full-shape and safe to divide (``ref.full_diag``; with a
-  shift, the shift is part of the diagonal);
-* ``shift`` (an optional Helmholtz field, center only) runs on the plain
-  version only: where the kernel would run it raises
-  ``NotImplementedError``.
+  shift, the shift is part of the diagonal: the kernels do not add it);
+* ``shift`` (an optional Helmholtz field, ``A u = shift * u - div(c grad
+  u)``) is center only: the center kernels take it, a face location with a
+  shift raises under every ``use_kernel``.
 """
 
 from __future__ import annotations
@@ -34,16 +34,12 @@ def _h2(spacing) -> tuple:
 def resolve(use_kernel, x, spacing, *, loc: str = "center", shift=None, imask=None,
             needs_mask: bool = False, where: str = "solver3d") -> str:
     """``"cuda"`` or ``"ref"`` for a solver op on tensor ``x``; raises for a
-    face ``loc`` without its ``imask`` (where ``needs_mask``), and for what
-    the kernels do not take (a ``shift`` or a grid that is not 3-D) where
-    the kernel would run."""
+    face ``loc`` without its ``imask`` (where ``needs_mask``) or with a
+    ``shift``, and for a grid that is not 3-D where the kernel would
+    run."""
     ref.face_loc(loc, imask, shift, where, needs_mask=needs_mask)
     if dispatch.resolve(use_kernel, x, where=where) == "ref":
         return "ref"
-    if shift is not None:
-        raise NotImplementedError(
-            f"{where}: the CUDA kernels take no Helmholtz shift yet (it comes with the "
-            "two-phase slice); pass use_kernel='ref' for the plain version")
     if len(spacing) != 3:
         raise ValueError(f"{where}: the CUDA kernels are 3-D, got a {len(spacing)}-D grid")
     return "cuda"
@@ -57,7 +53,7 @@ def apply_op(u, c, *, spacing, loc: str = "center", shift=None, use_kernel: str 
     sd = stagger_dim(loc)
     if sd is not None:
         return apply_face_cuda(u, c, sd=sd, h2=_h2(spacing))
-    return apply_cuda(u, c, h2=_h2(spacing))
+    return apply_cuda(u, c, h2=_h2(spacing), shift=shift)
 
 
 def residual_op(u, c, f, *, spacing, loc: str = "center", shift=None, imask=None,
@@ -70,7 +66,7 @@ def residual_op(u, c, f, *, spacing, loc: str = "center", shift=None, imask=None
     sd = stagger_dim(loc)
     if sd is not None:
         return residual_face_cuda(u, c, f, imask, sd=sd, h2=_h2(spacing))
-    return residual_cuda(u, c, f, h2=_h2(spacing))
+    return residual_cuda(u, c, f, h2=_h2(spacing), shift=shift)
 
 
 def jacobi_sweep(u, c, f, dia, *, omega, spacing, loc: str = "center", shift=None, imask=None,
@@ -85,7 +81,7 @@ def jacobi_sweep(u, c, f, dia, *, omega, spacing, loc: str = "center", shift=Non
     sd = stagger_dim(loc)
     if sd is not None:
         return jacobi_face_cuda(u, c, f, dia, imask, sd=sd, omega=omega, h2=_h2(spacing))
-    return jacobi_cuda(u, c, f, dia, omega=omega, h2=_h2(spacing))
+    return jacobi_cuda(u, c, f, dia, omega=omega, h2=_h2(spacing), shift=shift)
 
 
 def cheb_sweep(u, c, f, dia, d, *, a, b, spacing, loc: str = "center", shift=None, imask=None,
@@ -102,4 +98,4 @@ def cheb_sweep(u, c, f, dia, d, *, a, b, spacing, loc: str = "center", shift=Non
     sd = stagger_dim(loc)
     if sd is not None:
         return cheb_face_cuda(u, c, f, dia, imask, d, sd=sd, a=a, b=b, h2=_h2(spacing))
-    return cheb_cuda(u, c, f, dia, d, a=a, b=b, h2=_h2(spacing))
+    return cheb_cuda(u, c, f, dia, d, a=a, b=b, h2=_h2(spacing), shift=shift)

@@ -19,8 +19,8 @@ reference's ``kernels/solver3d/ref.py``:
   through by the sweeps.  Face: ``A u`` raw and unmasked, the residual
   ``(f - A u) * imask``, the sweeps over the whole block (masked cells
   stay put because their residual is 0).  The center forms also take the
-  optional Helmholtz ``shift`` field of :func:`poisson_stencil`, which the
-  kernels do not take yet.
+  optional Helmholtz ``shift`` field of :func:`poisson_stencil` (the
+  smoothers' ``dia`` must already hold it).
 
 Fields are ``(..., *local)``: the trailing ``len(spacing)`` axes are the
 local block (halo included), the leading axes a batch of blocks.

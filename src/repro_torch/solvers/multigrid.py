@@ -29,12 +29,10 @@ onto mean-zero before the coarse sweeps.
 The operator, residual and smoother sweeps of :func:`make_v_cycle` go
 through :mod:`repro_torch.kernels.solver3d.ops`, which decides between the
 CUDA kernels K2-K5, center or face (a CUDA tensor), and their plain
-versions (a CPU tensor, or ``use_kernel="ref"``) at every level; the tree
-cycle applies the caller's operator (plain PyTorch, as the reference
-computes it outside any kernel).  The kernels take neither
-``hide=True`` nor a Helmholtz ``shift``: on a CUDA tensor those raise
-unless ``use_kernel="ref"`` asks for the plain version (``hide=True``
-raises everywhere until ``hide_apply`` is ported).
+versions (a CPU tensor, or ``use_kernel="ref"``) at every level, a
+Helmholtz shift included (center only); the tree cycle applies the
+caller's operator (plain PyTorch, as the reference computes it outside any
+kernel).
 
 The V-cycle is exposed two ways: :func:`multigrid_solve` iterates cycles to
 tolerance, and :func:`make_v_cycle` builds the cycle as a reusable closure
@@ -52,6 +50,7 @@ import torch
 
 from .._device import synchronize
 from ..core import locations as _loc
+from ..core.hide import hide_apply
 from ..kernels.solver3d import ops
 from ..kernels.solver3d.ref import face_diag, face_stencil, full_diag  # noqa: F401
 from . import reductions as red
@@ -76,15 +75,25 @@ def poisson_apply(grid, u, c, spacing, update_halo=True, hide=False, shift=None,
     ``c`` is the cell-centered coefficient (halo-consistent); face
     coefficients are arithmetic averages of the two adjacent cells.
     ``shift`` (optional halo-consistent cell-centered field) makes the
-    operator Helmholtz-like: ``shift * u - div(c grad u)`` (plain version
-    only).  ``update_halo=True`` refreshes the halo cells of ``u`` in place
-    first.  ``hide=True`` (the overlapped apply) raises until
-    ``core/hide.py::hide_apply`` is ported.
+    operator Helmholtz-like: ``shift * u - div(c grad u)``, e.g. an implicit
+    time step's ``1/dt + 1/eta`` (:mod:`repro_torch.apps.twophase_ops`).
+    ``update_halo=True`` refreshes the halo cells of ``u`` in place first.
+
+    ``hide=True`` goes through :func:`repro_torch.core.hide.hide_apply`:
+    the same values on every cell, and ``u`` is left as it was (the halo
+    update goes into a copy).
     """
-    if hide:
-        raise NotImplementedError(
-            "poisson_apply(hide=True) needs core/hide.py::hide_apply, which is not ported yet")
     mode = ops.resolve(use_kernel, u, spacing, shift=shift, where="multigrid.poisson_apply")
+    if hide:
+        if not update_halo:
+            raise ValueError("hide=True already includes the halo update")
+        if grid.halo != 1:
+            raise ValueError("hide=True requires halo width 1 (3-point stencil)")
+        if shift is None:
+            return hide_apply(grid.topo, lambda uu, cc: ops.apply_op(
+                uu, cc, spacing=spacing, use_kernel=mode), u, c, halo=1)
+        return hide_apply(grid.topo, lambda uu, cc, ss: ops.apply_op(
+            uu, cc, spacing=spacing, shift=ss, use_kernel=mode), u, c, shift, halo=1)
     if update_halo:
         grid.update_halo(u)
     return ops.apply_op(u, c, spacing=spacing, shift=shift, use_kernel=mode)
@@ -165,13 +174,13 @@ def make_v_cycle(grid, grids, hs, cs, *, loc: str = "center", shifts=None, nu_pr
     transfers are the per-location pairs of :mod:`.transfers`.
 
     ``shifts`` (optional per-level halo-consistent fields ``s >= 0``, center
-    only) make the operator Helmholtz-like and join the smoother diagonal
-    (plain version only).  ``smoother`` selects damped Jacobi or Chebyshev
-    for the pre/post sweeps (``nu_pre``/``nu_post`` = sweeps resp.
-    polynomial degree); the coarsest level always uses ``coarse_sweeps``
-    Jacobi sweeps.  On a CUDA tensor every level's residual and sweeps are
-    the kernels K3-K5 of ``loc``; the choice is made once, here, for every
-    level.
+    only) make the operator Helmholtz-like and join the smoother diagonal;
+    the kernels take them as they are, the diagonal already shifted.
+    ``smoother`` selects damped Jacobi or Chebyshev for the pre/post sweeps
+    (``nu_pre``/``nu_post`` = sweeps resp. polynomial degree); the coarsest
+    level always uses ``coarse_sweeps`` Jacobi sweeps.  On a CUDA tensor
+    every level's residual and sweeps are the kernels K3-K5 of ``loc``; the
+    choice is made once, here, for every level.
     """
     if smoother not in SMOOTHERS:
         raise ValueError(f"unknown smoother {smoother!r}; pick from {SMOOTHERS}")

@@ -41,8 +41,10 @@ class CyclePreconditioner:
     location met, all sharing the one coefficient hierarchy.  Periodic dims
     are inherited from the grid at every level; for the singular
     all-periodic operator pair it with ``cg(..., project_nullspace=
-    "constant")``.  ``helmholtz_shift=True`` (the shifted cycle of the
-    two-phase app) comes with the two-phase slice and raises.
+    "constant")``.  ``helmholtz_shift=True`` binds the SECOND operand as a
+    cell-centered Helmholtz shift (``args=(c, shift)``, the two-phase
+    pressure's ``1/dt + 1/eta``): the cycle then smooths ``shift * z -
+    div(c grad z)``, with the shift coarsened like the coefficient.
     ``use_kernel`` selects the CUDA kernels or their plain versions for
     every level.
     """
@@ -59,15 +61,13 @@ class CyclePreconditioner:
                              f"(got {nu_pre} != {nu_post})")
         if smoother not in SMOOTHERS:
             raise ValueError(f"unknown smoother {smoother!r}; pick from {SMOOTHERS}")
-        if helmholtz_shift:
-            raise NotImplementedError("CyclePreconditioner(helmholtz_shift=True) comes with the "
-                                      "two-phase slice of the port")
         self.grid = grid
         self.grids = grid.hierarchy(max_levels=max_levels)
         if len(self.grids) < 2:
             raise ValueError(f"grid {grid.local_shape} cannot coarsen; multigrid needs >= 2 levels")
         self.hs = level_spacings(grid, self.grids, spacing)
         self.ncycles = int(ncycles)
+        self.helmholtz_shift = bool(helmholtz_shift)
         self.per_location = bool(per_location)
         self.kw = dict(nu_pre=nu_pre, nu_post=nu_post, omega=omega,
                        coarse_sweeps=coarse_sweeps, smoother=smoother, use_kernel=use_kernel)
@@ -75,12 +75,18 @@ class CyclePreconditioner:
     def setup(self, c, *rest):
         """Build ``M`` from the operator's operands (once per solve)."""
         cs = build_coefficients(self.grid, self.grids, _loc.data_of(c))
+        shifts = None
+        if self.helmholtz_shift:
+            if not rest:
+                raise ValueError("helmholtz_shift=True needs the shift field as the second "
+                                 "operator arg (args=(c, shift, ...))")
+            shifts = build_coefficients(self.grid, self.grids, _loc.data_of(rest[0]))
         cycles: dict = {}
 
         def cycle_for(loc):
             if loc not in cycles:
                 cycles[loc] = make_v_cycle(self.grid, self.grids, self.hs, cs, loc=loc,
-                                           **self.kw)[0]
+                                           shifts=shifts, **self.kw)[0]
             return cycles[loc]
 
         def one(node):

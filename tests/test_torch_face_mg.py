@@ -151,8 +151,11 @@ def test_face_cycle_rejects_what_the_reference_rejects():
     cs = solvers.build_coefficients(g, grids, g.ones())
     with pytest.raises(ValueError, match="center cycle"):
         solvers.make_v_cycle(g, grids, hs, cs, loc="xface", shifts=cs)
-    with pytest.raises(NotImplementedError, match="two-phase"):
-        solvers.CyclePreconditioner(g, SP, helmholtz_shift=True)
+    shifted = solvers.CyclePreconditioner(g, SP, helmholtz_shift=True)
+    with pytest.raises(ValueError, match="second operator arg"):
+        shifted.setup(g.ones())
+    with pytest.raises(ValueError, match="center cycle"):   # a face leaf of a shifted cycle
+        shifted.setup(g.ones(), g.ones())(fields.Field(g, g.ones(), "xface"))
     M = solvers.CyclePreconditioner(g, SP, per_location=False).setup(g.ones())
     face = M(fields.Field(g, g.ones(), "yface"))    # the center cycle on a face leaf
     assert face.loc == "yface" and face.shape == g.shape

@@ -237,7 +237,8 @@ def test_generate_sampling_uses_the_generator(reference):
 
 def test_param_count_from_specs():
     assert CFG.param_count() == 1_344_576_512
-    assert cb.get("mamba2-1.3b") is CFG and cb.names() == ["gemma3-4b", "mamba2-1.3b"]
+    assert cb.get("mamba2-1.3b") is CFG and cb.names() == [
+        "gemma-2b", "gemma3-4b", "llama3.2-1b", "mamba2-1.3b", "starcoder2-15b"]
     shapes = tf.parameter_shapes(CFG)   # the module skeleton, on the meta device
     assert sum(int(np.prod(s)) for s in shapes.values()) == CFG.param_count()
     assert len(shapes) == 2 + 48 * 9 and CFG.padded_vocab == 50688

@@ -234,8 +234,10 @@ def test_build_coefficients_and_one_v_cycle(reference, name):
 def test_what_the_kernels_do_not_take_raises(monkeypatch):
     g = init_global_grid(10, 10, 10, dims=(2, 2, 2), dtype=torch.float64, device="cpu")
     u = g.ones()
-    with pytest.raises(NotImplementedError, match="hide_apply"):
-        mg.poisson_apply(g, u, u, SPACING, hide=True, use_kernel="ref")
+    # the overlapped apply runs (hide_apply), but includes the halo update
+    assert mg.poisson_apply(g, u, u, SPACING, hide=True, use_kernel="ref").shape == u.shape
+    with pytest.raises(ValueError, match="already includes"):
+        mg.poisson_apply(g, u, u, SPACING, hide=True, update_halo=False)
     # face locations are ported; a Helmholtz shift stays center only
     grids = g.hierarchy()
     hs, cs = mg.level_spacings(g, grids, SPACING), mg.build_coefficients(g, grids, u)
@@ -246,15 +248,19 @@ def test_what_the_kernels_do_not_take_raises(monkeypatch):
         mg.multigrid_solve(g, u, u, SPACING, smoother="sor")
     with pytest.raises(ValueError, match="CUDA tensor"):
         mg.poisson_apply(g, u, u, SPACING, use_kernel="cuda")
-    # where the kernels would run, a Helmholtz shift raises instead of
-    # falling back to the plain version; use_kernel="ref" runs it
+    # where the kernels would run, a Helmholtz shift goes to the kernel (which
+    # raises here, the tensor being on the CPU) instead of falling back to
+    # the plain version; a 2-D grid raises; use_kernel="ref" runs both
     monkeypatch.setattr(dispatch, "resolve",
                         lambda use_kernel, x, where="": "ref" if use_kernel == "ref" else "cuda")
     n0 = sk.apply_cuda.launches
-    with pytest.raises(NotImplementedError, match="shift"):
+    with pytest.raises(ValueError, match="CUDA device"):
         mg.poisson_apply(g, u, u, SPACING, shift=u)
-    with pytest.raises(NotImplementedError, match="shift"):
-        mg.make_v_cycle(g, g.hierarchy(), [SPACING] * 3, [u] * 3, shifts=[u] * 3)
+    with pytest.raises(ValueError, match="CUDA device"):
+        mg.poisson_apply(g, u, u, SPACING, shift=u, hide=True)
+    g2 = init_global_grid(10, 10, None, dims=(2, 2), dtype=torch.float64, device="cpu")
+    with pytest.raises(ValueError, match="3-D"):
+        mg.poisson_apply(g2, g2.ones(), g2.ones(), SPACING[:2], shift=g2.ones())
     assert sk.apply_cuda.launches == n0
     assert mg.poisson_apply(g, u, u, SPACING, shift=u, use_kernel="ref").shape == u.shape
 

@@ -16,7 +16,9 @@ dims=(2, 2, 2))`` in f64 (18^3 global cells on 8 virtual ranks).
 * a cg solve from a seeded start iterate carried in with ``convert``
   (73 iterations: its solution is held to 1e-9 of the reference's, as the
   rounding differences of the last iterations have more room to grow);
-* ``overlap=True`` raises until ``hide_apply`` is ported.
+* ``overlap=True`` runs the overlapped operator (held against the
+  reference in ``tests/test_torch_hide_apply.py``); ``mg`` refuses it, as
+  the reference does.
 
 The reference runs once, in a module-scoped child process with 8 fake CPU
 devices; arrays travel as ``.npy`` files.
@@ -110,8 +112,8 @@ def test_solve_from_a_start_iterate(reference, app):
 
 
 def test_overlap_and_unknown_methods_raise(app):
-    with pytest.raises(NotImplementedError, match="hide_apply"):
-        app.solve("cg", overlap=True)
+    with pytest.raises(ValueError, match="overlap"):
+        app.solve("mg", overlap=True)
     with pytest.raises(ValueError, match="unknown method"):
         app.solve("sor")
     with pytest.raises(ValueError, match="variant"):
