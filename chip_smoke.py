@@ -23,12 +23,14 @@ card.  Then it drives six paths through the kernels:
   8 x 194^3, and one Schur-CG solve at 386^3;
 * the Mamba-2 serving path (``repro_torch.serve.Engine``): the SSD
   intra-chunk kernel K7 against its plain version at the prefill shapes
-  of mamba2-1.3b, the SMOKE width in f32 (K7 against the plain scan, the
-  prefill/decode relation, the same greedy ids), then mamba2-1.3b at full
-  width and depth in bf16 with random weights: two ``generate`` calls
+  of mamba2-1.3b, bf16 on its tensor-core kernel and f32 on its CUDA-core
+  kernel, then timed; the SMOKE width in f32 (K7 against the plain scan,
+  the prefill/decode relation, the same greedy ids), then mamba2-1.3b at
+  full width and depth in bf16 with random weights: two ``generate`` calls
   (4 x 2048 prompt tokens + 32 new, 1 x 1000 + 16), 48 K7 launches each,
-  timed, with a device-time breakdown of one prefill, and four layers of
-  the full width in f32 against the plain scan;
+  all on the tensor cores, timed, with a device-time breakdown of one
+  prefill, and four layers of the full width in f32 and in bf16 against
+  the plain path;
 * the gemma3 serving path (global and sliding-window attention, GeGLU
   FFN): K6 against its plain version at the reference tests' cases, ragged
   prompts and gemma3-4b's prefill shapes, bf16 on its tensor-core kernel and
@@ -968,6 +970,13 @@ K7_MAIN = (4, 2048, 64, 64, 128, 1, 64)
 K7_SHAPES = (K7_MAIN, (1, 1000, 64, 64, 128, 1, 50), (2, 7, 64, 64, 128, 1, 1),
              (2, 64, 8, 16, 16, 2, 8), (2, 20, 8, 16, 16, 1, 5))
 SERVE_TOL = 1e-4   # f32 logits, normwise: K7 against the chunked plain scan, summation order
+# bf16 logits of the 4-layer full-width model, normwise, K7 against the plain
+# path: the two round the SSD's output at different places (K7's y_diag is
+# bf16 before Y_off is added; the plain scan rounds C B^T to bf16), and bf16
+# keeps 8 significant bits.  A CPU model of K7's plan (tests/test_torch_ssd_tc.py)
+# put the two paths 7.8e-3 apart at 1 x 1000 tokens, half of the 1.6e-2 between
+# the plain path in bf16 and in f32 on the same weights; 2e-2 is 2.5 times that
+K7_BF16_LOGIT_TOL = 2e-2
 
 
 def k7_inputs(shape, dtype, gen, dev):
@@ -1003,16 +1012,24 @@ def k7_bound(shape, itemsize: int, per_head: bool = False) -> tuple[float, str, 
 
 def k7_phase(kssd, dev, gen) -> dict:
     """Phase 18: K7 against its plain version at every listed shape, f32 and
-    bf16; then the two timed in turns at the main path's shape.  Returns the
-    max |err| of y_diag at the main path's shapes and the times."""
+    bf16, each launch checked to have taken the kernel the rule picks (bf16
+    on the tensor cores at every listed shape); then the kernel and the plain
+    version timed in turns at the main path's shape (bf16 on the tensor
+    cores, f32 on the CUDA cores).  Returns the max |err| of y_diag at the
+    main path's shapes and the times."""
     from repro_torch.kernels.ssd import ssd_intra_chunk_ref
 
     main_err = 0.0
     for shape in K7_SHAPES:
         for dt_name in ("bfloat16", "float32"):
             ins = k7_inputs(shape, getattr(torch, dt_name), gen, dev)
+            tc0 = kssd.ssd_intra_chunk_cuda.tc_launches
             got = kssd.ssd_intra_chunk_cuda(*ins, chunk=shape[-1])
             torch.cuda.synchronize()
+            ran = kssd.KERNELS[kssd.ssd_intra_chunk_cuda.tc_launches - tc0]
+            rule = kssd.kernel_for(getattr(torch, dt_name), shape[4], shape[3])
+            if ran != rule or (dt_name == "bfloat16") != (ran == "tensor cores"):
+                fail(f"K7 {shape} {dt_name}: ran on the {ran}, the rule says the {rule}")
             want = ssd_intra_chunk_ref(*ins, chunk=shape[-1])
             errs = {}
             for name, a, b in zip(("y_diag", "states", "s"), got, want):
@@ -1029,7 +1046,7 @@ def k7_phase(kssd, dev, gen) -> dict:
             if shape[-1] in (64, 50) and dt_name == "bfloat16":
                 main_err = max(main_err, errs["y_diag"][1])
             say("ssd_kernel", shape="Ba,T,H,P,N,G,L=" + ",".join(map(str, shape)), dtype=dt_name,
-                **{f"{k}_normwise": v[0] for k, v in errs.items()},
+                kernel=repr(ran), **{f"{k}_normwise": v[0] for k, v in errs.items()},
                 **{f"{k}_max_abs": v[1] for k, v in errs.items()},
                 tol=json.dumps(K7_TOL[dt_name]).replace(" ", ""))
             del ins, got, want
@@ -1048,11 +1065,14 @@ def k7_phase(kssd, dev, gen) -> dict:
         item = 2 if dt_name == "bfloat16" else 4
         bound, bound_by, f32_floor = k7_bound(K7_MAIN, item)
         per_head, _, _ = k7_bound(K7_MAIN, item, per_head=True)
+        device_ms = graph_ms(lambda: kssd.ssd_intra_chunk_cuda(*ins, chunk=64))
         say("ssd_kernel_time", shape="Ba,T,H,P,N,G,L=" + ",".join(map(str, K7_MAIN)),
-            dtype=dt_name, bc_form="grouped (G=1), read once per head", ms_runs=k_ms,
+            dtype=dt_name, kernel=repr(kssd.kernel_for(ins[0].dtype, K7_MAIN[4], K7_MAIN[3])),
+            bc_form="grouped (G=1), C B^T once per group" if dt_name == "bfloat16" else
+            "grouped (G=1), read once per head", ms_runs=k_ms, kernel_graph_ms=device_ms,
             plain_ms_runs=p_ms, bound_ms=bound, bound_by=bound_by,
             bound_ms_per_head_bc=per_head, share_of_bound=bound / min(k_ms),
-            f32_cuda_core_floor_ms=f32_floor)
+            share_of_bound_graph=bound / device_ms, f32_cuda_core_floor_ms=f32_floor)
         out[dt_name] = (min(k_ms), min(p_ms), bound, bound_by)
         del ins
     torch.cuda.empty_cache()
@@ -1080,10 +1100,12 @@ def mamba_small(kssd, dev) -> None:
     gen = torch.Generator(device=dev).manual_seed(1)
     model = Model(cfg, generator=gen, device=dev)
     tokens = torch.randint(0, cfg.vocab, (2, 21), generator=gen, device=dev)
-    n0 = kssd.ssd_intra_chunk_cuda.launches
+    n0, tc0 = kssd.ssd_intra_chunk_cuda.launches, kssd.ssd_intra_chunk_cuda.tc_launches
     lk, _ = tf.prefill(model, tokens[:, :20])
     if kssd.ssd_intra_chunk_cuda.launches - n0 != cfg.n_layers:
         fail(f"SMOKE prefill launched K7 {kssd.ssd_intra_chunk_cuda.launches - n0} times")
+    if kssd.ssd_intra_chunk_cuda.tc_launches != tc0:
+        fail("an f32 launch of K7 took the tensor-core kernel")
     lr, _ = tf.prefill(model, tokens[:, :20], use_kernel="ref")
     e_ref = logit_err(lk, lr, cfg.vocab)
     full, _ = tf.prefill(model, tokens)
@@ -1119,9 +1141,10 @@ def generate_metrics(eng, p, n_new: int) -> dict:
             "peak_GB": torch.cuda.max_memory_allocated() / 1e9}
 
 
-def mamba_full(kssd, dev) -> int:
+def mamba_full(kssd, dev) -> tuple[int, int]:
     """Phase 20: mamba2-1.3b at full width and depth, bf16, through
-    Engine.generate; returns K7's launches on this (main) path."""
+    Engine.generate; returns K7's launches on this (main) path and those of
+    them on the tensor cores."""
     import dataclasses
 
     from repro_torch.configs import get
@@ -1142,18 +1165,21 @@ def mamba_full(kssd, dev) -> int:
     prompts = {"4x2048": torch.randint(0, cfg.vocab, (4, 2048), generator=gen, device=dev),
                "1x1000": torch.randint(0, cfg.vocab, (1, 1000), generator=gen, device=dev)}
     # the main path: two generate calls, counts zeroed just before, read just after
-    kssd.ssd_intra_chunk_cuda.launches = 0
-    per_call = []
+    kssd.ssd_intra_chunk_cuda.launches = kssd.ssd_intra_chunk_cuda.tc_launches = 0
+    per_call, tc_per_call = [], []
     for name, n_new in (("4x2048", 32), ("1x1000", 16)):
-        before = kssd.ssd_intra_chunk_cuda.launches
+        before = kssd.ssd_intra_chunk_cuda.launches, kssd.ssd_intra_chunk_cuda.tc_launches
         ids = eng.generate(prompts[name], n_new)
         torch.cuda.synchronize()
-        per_call.append(kssd.ssd_intra_chunk_cuda.launches - before)
+        per_call.append(kssd.ssd_intra_chunk_cuda.launches - before[0])
+        tc_per_call.append(kssd.ssd_intra_chunk_cuda.tc_launches - before[1])
         if ids.shape != (prompts[name].shape[0], n_new) or int(ids.max()) >= cfg.vocab:
             fail(f"{name}: ids {tuple(ids.shape)}, max {int(ids.max())}")
     launches = kssd.ssd_intra_chunk_cuda.launches
-    if per_call != [cfg.n_layers, cfg.n_layers]:
-        fail(f"K7 launches per generate call {per_call}, expected {cfg.n_layers} each")
+    tc_launches = kssd.ssd_intra_chunk_cuda.tc_launches
+    if per_call != [cfg.n_layers, cfg.n_layers] or tc_per_call != per_call:
+        fail(f"K7 launches per generate call {per_call}, on the tensor cores {tc_per_call}; "
+             f"expected {cfg.n_layers} each, all bf16 on the tensor cores")
     # decode launches no K7; logits finite
     with torch.inference_mode():
         logits, caches = tf.prefill(model, prompts["4x2048"])
@@ -1163,7 +1189,8 @@ def mamba_full(kssd, dev) -> int:
     if dec_launches or not (torch.isfinite(logits[:, :cfg.vocab]).all()
                             and torch.isfinite(step[:, :cfg.vocab]).all()):
         fail(f"decode launched K7 {dec_launches} times, or non-finite logits")
-    say("mamba2_full", k7_launches_per_generate=per_call, k7_launches_in_decode=dec_launches,
+    say("mamba2_full", k7_launches_per_generate=per_call,
+        k7_tensor_core_launches_per_generate=tc_per_call, k7_launches_in_decode=dec_launches,
         logits_finite=True)
     del logits, caches, step
     # timed through Engine.generate: n_new=1 is prefill and the first id (the
@@ -1172,7 +1199,7 @@ def mamba_full(kssd, dev) -> int:
         say("mamba2_full", prompt=name, new_tokens=n_new,
             **generate_metrics(eng, prompts[name], n_new))
     # where one prefill's device time goes
-    kinds = (("k7", ("ssd_chunk_kernel",)),
+    kinds = (("k7", ("ssd_chunk_kernel", "ssd_chunk_kernel_tc")),
              ("matmul", ("gemm", "Gemm", "gemv", "nvjet", "xmma", "cutlass")),
              ("reduce", ("reduce",)), ("copy", ("copy", "Copy", "Memcpy", "cat")),
              ("elementwise", ("elementwise", "Elementwise")))
@@ -1212,9 +1239,26 @@ def mamba_full(kssd, dev) -> int:
         fail(f"4 layers f32: K7 vs plain {e_ref}, prefill/decode {e_dec} > {SERVE_TOL}")
     say("mamba2_full", check="4 layers full width f32, prompt 2x1000", k7_vs_plain_normwise=e_ref,
         prefill_vs_decode_normwise=e_dec, tol=SERVE_TOL, status="ok")
+    del m4, caches, step, longer
+    # the same four layers in bf16 (the f32 weights rounded): prefill logits
+    # through K7 on the tensor cores against the plain path
+    m4 = Model(dataclasses.replace(cfg4, dtype="bfloat16"),
+               generator=torch.Generator(device=dev).manual_seed(2))
+    with torch.inference_mode():
+        tc0 = kssd.ssd_intra_chunk_cuda.tc_launches
+        lk16, _ = tf.prefill(m4, tok[:, :1000])
+        tc_n = kssd.ssd_intra_chunk_cuda.tc_launches - tc0
+        lr16, _ = tf.prefill(m4, tok[:, :1000], use_kernel="ref")
+    e16, e_round = logit_err(lk16, lr16, cfg.vocab), logit_err(lr16, lr, cfg.vocab)
+    if tc_n != 4 or not e16 <= K7_BF16_LOGIT_TOL:
+        fail(f"4 layers bf16: K7 vs plain {e16} (tol {K7_BF16_LOGIT_TOL}), "
+             f"{tc_n} tensor-core launches of 4")
+    say("mamba2_full", check="4 layers full width bf16, prompt 2x1000",
+        k7_vs_plain_normwise=e16, plain_bf16_vs_plain_f32_normwise=e_round,
+        tol=K7_BF16_LOGIT_TOL, tensor_core_launches=tc_n, status="ok")
     del m4
     torch.cuda.empty_cache()
-    return launches
+    return launches, tc_launches
 
 
 def serving_phases(dev) -> list:
@@ -1227,12 +1271,13 @@ def serving_phases(dev) -> list:
     # ---- 19-20. the serving path: the count zeroed just before, read after --
     kssd.ssd_intra_chunk_cuda.launches = 0
     mamba_small(kssd, dev)
-    launches = mamba_full(kssd, dev)
+    launches, tc_launches = mamba_full(kssd, dev)
     ms, plain_ms, bound, bound_by = k7["bfloat16"]
     return [{"name": "ssd_intra_chunk", "route": "cuda",
              "source": "src/repro_torch/kernels/ssd/csrc/ssd.cu", "replaces": K7_REPLACES,
-             "launches": launches, "max_abs_err": k7["main_err"], "ms": ms,
-             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by, "library_ms": None}]
+             "launches": launches, "tc_launches": tc_launches, "max_abs_err": k7["main_err"],
+             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+             "library_ms": None}]
 
 
 # ---------------------------------------------------------------------------

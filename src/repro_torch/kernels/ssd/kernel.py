@@ -4,11 +4,21 @@ of the Mamba-2 SSD scan, and the full SSD around it.
 :func:`ssd_intra_chunk_cuda` replaces the TPU kernel
 ``ssd_intra_chunk_pallas``: same arguments and results as
 :func:`~repro_torch.kernels.ssd.ref.ssd_intra_chunk_ref`.  It checks
-device, dtypes, shapes, strides and the kernel's limits (L <= 64,
-N <= 128, P <= 64, N and P multiples of 4), raises on anything else,
-allocates its outputs with ``torch.empty``, launches on the current CUDA
-stream without synchronising, and raises if the launch was refused.
-``ssd_intra_chunk_cuda.launches`` counts the launches.
+device, dtypes, shapes, strides and the kernels' limits (:func:`check_args`:
+L <= 64, N <= 128, P <= 64, N and P multiples of 4), raises on anything
+else, allocates its outputs with ``torch.empty``, launches on the current
+CUDA stream without synchronising, and raises if the launch was refused.
+
+Which kernel runs is one explicit rule (:func:`kernel_for`), applied by the
+C entry point, which reports its pick: bfloat16 with N and P multiples of 8
+runs on the tensor cores (``wgmma``, TMA); float32, and bfloat16 with N or P
+not a multiple of 8, on the CUDA cores (the first, float32 form).  There is
+no other switch and no fallback.  The tensor-core kernel loads x, B and C
+through TMA tensor maps, which need 16-byte aligned views with strides of
+16-byte multiples: a view without them is copied first into a contiguous
+buffer (the Mamba layer's views are never copied).
+``ssd_intra_chunk_cuda.launches`` counts the launches,
+``ssd_intra_chunk_cuda.tc_launches`` those on the tensor cores.
 
 :func:`ssd_kernel` is the counterpart of the reference's ``ssd_pallas``:
 K7, then the inter-chunk recurrence and ``Y_off`` in PyTorch, which the
@@ -22,11 +32,12 @@ import functools
 
 import torch
 
-from .. import _build
+from .. import _build, tma_ready
 from .ref import chunk_logdecay
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_L, MAX_N, MAX_P = 64, 128, 64
+KERNELS = ("CUDA cores", "tensor cores")   # the C entry point's codes 0 and 1
 _MAX_GRID_YZ = 65535
 
 
@@ -34,18 +45,26 @@ _MAX_GRID_YZ = 65535
 def _entry():
     fn = _build.load().repro_ssd_intra_chunk
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-                   + [ctypes.c_void_p] * 2)
+                   + [ctypes.c_void_p] * 2 + [ctypes.POINTER(ctypes.c_int)])
     fn.restype = ctypes.c_int
     return fn
 
 
-def ssd_intra_chunk_cuda(x, dt, A, B, C, *, chunk: int = 64):
-    """K7 on the card; contract of ``ssd_intra_chunk_ref``."""
+def kernel_for(dtype: torch.dtype, N: int, P: int) -> str:
+    """The kernel K7 runs on for x of ``dtype`` and widths N, P (the C entry
+    point's rule): the tensor cores for bfloat16 with N and P multiples of
+    8, the CUDA cores otherwise."""
+    if dtype == torch.bfloat16 and N % 8 == 0 and P % 8 == 0:
+        return KERNELS[1]
+    return KERNELS[0]
+
+
+def check_args(x, dt, A, B, C, chunk: int) -> None:
+    """Raise ``ValueError`` on what neither kernel takes: dtypes, shapes, a
+    chunk that is not a divisor of T in 1..64, widths past the kernels'
+    limits, the launch grid, a last axis that is not contiguous."""
     where = "ssd_intra_chunk_cuda"
     ins = {"x": x, "dt": dt, "A": A, "B": B, "C": C}
-    if x.device.type != "cuda" or any(v.device != x.device for v in ins.values()):
-        raise ValueError(f"{where}: inputs must lie on one CUDA device, got "
-                         + ", ".join(f"{k} on {v.device}" for k, v in ins.items()))
     if x.dtype not in DTYPE_CODES or B.dtype != x.dtype or C.dtype != x.dtype:
         raise ValueError(f"{where} takes x, B, C of one dtype in {tuple(DTYPE_CODES)}, got "
                          f"{x.dtype}, {B.dtype}, {C.dtype}")
@@ -54,7 +73,7 @@ def ssd_intra_chunk_cuda(x, dt, A, B, C, *, chunk: int = 64):
                          + ", ".join(f"{k} {tuple(v.shape)}" for k, v in ins.items()))
     Ba, T, H, P = x.shape
     G, N = B.shape[2], B.shape[3]
-    if B.shape[:2] != (Ba, T) or dt.shape != (Ba, T, H) or A.shape != (H,) or H % G:
+    if B.shape[:2] != (Ba, T) or dt.shape != (Ba, T, H) or A.shape != (H,) or G == 0 or H % G:
         raise ValueError(f"{where}: shapes disagree: "
                          + ", ".join(f"{k} {tuple(v.shape)}" for k, v in ins.items()))
     L = chunk
@@ -67,6 +86,23 @@ def ssd_intra_chunk_cuda(x, dt, A, B, C, *, chunk: int = 64):
         raise ValueError(f"{where}: H={H} or Ba={Ba} exceeds the launch grid")
     if x.stride(3) != 1 or B.stride(3) != 1 or C.stride(3) != 1:
         raise ValueError(f"{where}: the last axis of x, B and C must be contiguous")
+
+
+def ssd_intra_chunk_cuda(x, dt, A, B, C, *, chunk: int = 64):
+    """K7 on the card; contract of ``ssd_intra_chunk_ref``."""
+    where = "ssd_intra_chunk_cuda"
+    ins = {"x": x, "dt": dt, "A": A, "B": B, "C": C}
+    if x.device.type != "cuda" or any(v.device != x.device for v in ins.values()):
+        raise ValueError(f"{where}: inputs must lie on one CUDA device, got "
+                         + ", ".join(f"{k} on {v.device}" for k, v in ins.items()))
+    check_args(x, dt, A, B, C, chunk)
+    Ba, T, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    L = chunk
+    want = kernel_for(x.dtype, N, P)
+    if want == KERNELS[1]:
+        x, B, C = (t if tma_ready(t) else t.clone(memory_format=torch.contiguous_format)
+                   for t in (x, B, C))
     s = chunk_logdecay(dt, A, L)  # (Ba, nc, L, H) float32
     dtf = dt.float().contiguous()
     y = torch.empty((Ba, T, H, P), dtype=x.dtype, device=x.device)
@@ -74,18 +110,24 @@ def ssd_intra_chunk_cuda(x, dt, A, B, C, *, chunk: int = 64):
     if y.numel() == 0:
         return y, states, s
     strides = (ctypes.c_longlong * 9)(*x.stride()[:3], *B.stride()[:3], *C.stride()[:3])
+    kernel = ctypes.c_int(-1)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _entry()(DTYPE_CODES[x.dtype], x.data_ptr(), B.data_ptr(), C.data_ptr(),
                        dtf.data_ptr(), s.data_ptr(), y.data_ptr(), states.data_ptr(),
-                       Ba, T, H, G, N, P, L, strides, stream)
+                       Ba, T, H, G, N, P, L, strides, stream, ctypes.byref(kernel))
     if err != 0:
         raise RuntimeError(f"{where}: launch failed with CUDA error {err}")
+    if KERNELS[kernel.value] != want:
+        raise RuntimeError(f"{where}: the C entry point ran the {KERNELS[kernel.value]} kernel, "
+                           f"the rule says the {want} one")
     ssd_intra_chunk_cuda.launches += 1
+    ssd_intra_chunk_cuda.tc_launches += int(kernel.value == 1)
     return y, states, s
 
 
 ssd_intra_chunk_cuda.launches = 0
+ssd_intra_chunk_cuda.tc_launches = 0
 
 
 def ssd_kernel(x, dt, A, B, C, *, chunk: int = 64, h0=None):

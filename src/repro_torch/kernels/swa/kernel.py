@@ -32,7 +32,7 @@ import functools
 
 import torch
 
-from .. import _build
+from .. import _build, tma_ready
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_D = 256
@@ -47,12 +47,6 @@ def _entry():
                       ctypes.POINTER(ctypes.c_int)])
     fn.restype = ctypes.c_int
     return fn
-
-
-def _tma_ready(t) -> bool:
-    """A bf16 view the tensor-core kernel's TMA loads can read: 16-byte
-    aligned, its batch, head and time strides positive multiples of 16 bytes."""
-    return t.data_ptr() % 16 == 0 and all(s > 0 and s % 8 == 0 for s in t.stride()[:3])
 
 
 def _aligned_copy(t):
@@ -95,7 +89,7 @@ def swa_attention_cuda(q, k, v, *, window: int, scale: float | None = None):
         raise ValueError(f"{where}: the last axis of q, k and v must be contiguous")
     scale = D ** -0.5 if scale is None else float(scale)
     if q.dtype == torch.bfloat16:
-        q, k, v = (t if _tma_ready(t) else _aligned_copy(t) for t in (q, k, v))
+        q, k, v = (t if tma_ready(t) else _aligned_copy(t) for t in (q, k, v))
     o = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
     if o.numel() == 0:
         return o

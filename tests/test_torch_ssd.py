@@ -13,7 +13,12 @@ the decode step and ``ssd_scan``'s dispatch) against the JAX package's
   ``ssd_scan(use_kernel="ref" | "naive")``, with and without ``h0``, f32,
   to 2e-5 (the reference's own chunked-vs-naive check allows 2e-4).
 * On a CPU tensor ``auto`` runs the plain version and ``cuda`` raises; the
-  ``cuda``-marked tests hold K7 against its plain version on the card.
+  ``cuda``-marked tests hold K7 against its plain version on the card, each
+  launch on the kernel the rule picks (bf16 with N and P multiples of 8 on
+  the tensor cores, ``tc_launches``), from views that TMA reads as they are
+  and from odd-width ones the wrapper copies; f32 runs the CUDA-core kernel,
+  whose bf16 form (where the rule refuses the tensor cores) gives bitwise
+  the f32 result of the same values, rounded.
 
 The reference runs once in a module-scoped child process; arrays travel as
 ``.npy`` files made from a numpy seed.
@@ -197,27 +202,43 @@ def cuda_device():
 CARD_CASES = [  # Ba, T, H, G, N, P, L
     (2, 32, 4, 1, 16, 8, 8), (2, 40, 4, 2, 16, 8, 5), (1, 64, 8, 2, 128, 64, 64),
     (2, 1000, 4, 1, 128, 64, 50), (1, 7, 2, 1, 8, 4, 1), (1, 24, 4, 4, 32, 16, 3),
+    (2, 7, 4, 1, 16, 8, 1), (2, 256, 64, 1, 128, 64, 64), (1, 200, 8, 2, 128, 64, 50),
+    (1, 64, 4, 1, 120, 56, 16), (1, 40, 2, 1, 12, 8, 8),
 ]
 
 
+def _card_inputs(case, dtype, width, dev):
+    """x, dt, A, B, C with x, B, C strided slices of one projection, as the
+    Mamba layer passes them; its row is a multiple of 8 elements ("aligned",
+    the layer's case) or 3 more ("odd")."""
+    Ba, T, H_, G, N_, P_, L = case
+    g = torch.Generator(device=dev).manual_seed(1)
+    w = H_ * P_ + 2 * G * N_
+    zx = torch.randn(Ba, T, (w + 7) // 8 * 8 if width == "aligned" else w + 3, generator=g,
+                     device=dev).to(dtype)
+    x = zx[..., :H_ * P_].view(Ba, T, H_, P_)
+    B = zx[..., H_ * P_:H_ * P_ + G * N_].view(Ba, T, G, N_)
+    C = zx[..., H_ * P_ + G * N_:w].view(Ba, T, G, N_)
+    dtv = torch.rand(Ba, T, H_, generator=g, device=dev) * 0.2 + 0.01
+    A = -torch.rand(H_, generator=g, device=dev) - 0.1
+    return x, dtv, A, B, C
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("width", ["aligned", "odd"])
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", CARD_CASES, ids=lambda c: "x".join(map(str, c)))
-def test_k7_vs_plain_on_card(cuda_device, case, dt):
+def test_k7_vs_plain_on_card(cuda_device, case, dt, width):
     Ba, T, H_, G, N_, P_, L = case
     dtype = getattr(torch, dt)
-    g = torch.Generator(device=cuda_device).manual_seed(1)
-    # x, B, C as strided slices of one projection, as the Mamba layer passes them
-    zx = torch.randn(Ba, T, H_ * P_ + 2 * G * N_ + 3, generator=g, device=cuda_device).to(dtype)
-    x = zx[..., :H_ * P_].view(Ba, T, H_, P_)
-    B = (0.4 * zx[..., H_ * P_:H_ * P_ + G * N_]).reshape(Ba, T, G, N_)
-    C = zx[..., H_ * P_ + G * N_:H_ * P_ + 2 * G * N_].view(Ba, T, G, N_)
-    dtv = torch.rand(Ba, T, H_, generator=g, device=cuda_device) * 0.2 + 0.01
-    A = -torch.rand(H_, generator=g, device=cuda_device) - 0.1
-    n0 = ssd.ssd_intra_chunk_cuda.launches
+    x, dtv, A, B, C = _card_inputs(case, dtype, width, cuda_device)
+    n0, tc0 = ssd.ssd_intra_chunk_cuda.launches, ssd.ssd_intra_chunk_cuda.tc_launches
     got = ssd.ssd_intra_chunk_cuda(x, dtv, A, B, C, chunk=L)
     torch.cuda.synchronize()
     assert ssd.ssd_intra_chunk_cuda.launches == n0 + 1
+    on_tc = ssd_kernel_mod.kernel_for(dtype, N_, P_) == "tensor cores"
+    assert on_tc == (dtype == torch.bfloat16 and N_ % 8 == 0 and P_ % 8 == 0)
+    assert ssd.ssd_intra_chunk_cuda.tc_launches == tc0 + int(on_tc)
     want = ssd.ssd_intra_chunk_ref(x, dtv, A, B, C, chunk=L)
     for name, a, b in zip(("y_diag", "states", "s"), got, want):
         assert a.dtype == b.dtype and a.shape == b.shape, name
@@ -231,6 +252,26 @@ def test_k7_vs_plain_on_card(cuda_device, case, dt):
     tol = 2e-2 if dt == "bfloat16" else 1e-5
     for a, b in ((y, y0), (h, h0)):
         assert ((a.float() - b.float()).abs().max() / b.float().abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [c for c in CARD_CASES if c[5] % 8 or c[4] % 8],
+                         ids=lambda c: "x".join(map(str, c)))
+def test_k7_cuda_core_kernel_is_one_arithmetic(cuda_device, case):
+    """f32 runs on the CUDA cores, deterministically; where the rule keeps
+    bf16 off the tensor cores, its CUDA-core launch gives bitwise the f32
+    launch's states on the same (upcast) values, and its y_diag rounded."""
+    L = case[-1]
+    x, dtv, A, B, C = _card_inputs(case, torch.bfloat16, "aligned", cuda_device)
+    tc0 = ssd.ssd_intra_chunk_cuda.tc_launches
+    y16, st16, _ = ssd.ssd_intra_chunk_cuda(x, dtv, A, B, C, chunk=L)
+    up = [t.float() for t in (x, B, C)]
+    y32, st32, _ = ssd.ssd_intra_chunk_cuda(up[0], dtv, A, up[1], up[2], chunk=L)
+    y32b, st32b, _ = ssd.ssd_intra_chunk_cuda(up[0], dtv, A, up[1], up[2], chunk=L)
+    torch.cuda.synchronize()
+    assert ssd.ssd_intra_chunk_cuda.tc_launches == tc0
+    assert torch.equal(y32, y32b) and torch.equal(st32, st32b)
+    assert torch.equal(st16, st32) and torch.equal(y16, y32.bfloat16())
 
 
 @pytest.mark.cuda
