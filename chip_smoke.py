@@ -53,7 +53,21 @@ card.  Then it drives six paths through the kernels:
   without hide, cg and mgcg at the default dt, mgcg with overlap; after
   it, one mgcg step's device time by kind, the overlap operator
   against the in-place one, and a cg solve with the shifted Chebyshev
-  cycle (K5's launches are those of this solve).
+  cycle (K5's launches are those of this solve);
+* then the Gross-Pitaevskii app, 2-D and 1-D grids, checkpoints and the
+  solver telemetry: GrossPitaevskii3D at 514^3 complex64 on 8 blocks and
+  on one (against each other and the single-block oracle; a small case
+  against the CPU), 2-D diffusion on 8 x 4096^2 f64 (hide against
+  update_halo bitwise; a small case against NumPy) and a 1-D periodic
+  ring; a Poisson mgcg state at 8 x 258^3 checkpointed (save, async_save,
+  restore timed) and resumed on 8 x 258^3 and on 1 x 514^3; the comm
+  counts of cg, pipecg and mgcg (live against CommStats.totals); one mgcg
+  solve with a session and watch() on and off (bitwise iterate, equal
+  launch and profiler counts); the 8-rank NaN story (flight records, diag,
+  resume from the checkpoint); Heat3D with hide under a session; and
+  mamba2-1.3b through Engine(flight_dir=).  The launches of K1 and K2-K4
+  center on these paths join their entries of the kernels line
+  (``launches_slice9``).
 
 Times come from CUDA events or from host clocks around synchronised work.
 Every phase prints one line; any failure raises and exits non-zero.  The
@@ -2027,6 +2041,466 @@ def twophase_phases(rand) -> list:
     return entries
 
 
+# ---------------------------------------------------------------------------
+# Gross-Pitaevskii, 2-D/1-D grids, checkpoints and the solver telemetry
+# ---------------------------------------------------------------------------
+
+GP_FULL = (("8x258^3", 258, (2, 2, 2)), ("1x514^3", 514, (1, 1, 1)))   # 514^3 complex64
+# The app's RK4 step dt = 2 / (3/dx^2 + V_max + g) takes the kinetic term as
+# 3/dx^2, half its largest eigenvalue 6/dx^2: |lambda dt| reaches 4 > 2.83
+# where 3/dx^2 outweighs the trap, and the default domain (lx 12) blows up
+# at 514^3 (ROADMAP F12).  lx 60 makes the trap term (V_max 675) large
+# enough that |lambda dt| <= 2.49 at 514^3.
+GP_LX = 60.0
+POISSON_FULL = {"8x258^3": (258, (2, 2, 2)), "1x514^3": (514, (1, 1, 1))}   # 514^3 f64
+GRID2D_LOCAL = 4096          # dims (4, 2): 16378 x 8190 global cells, f64
+
+
+def gp_phase(full=GP_FULL, steps: int = 20, warm: int = 2, small: int = 10) -> None:
+    """Phase 28: GrossPitaevskii3D, complex64 through update_halo: a small
+    case on the card against the same case on the CPU, then 514^3 on 8
+    blocks and on one, against each other and the port's own oracle."""
+    from repro_torch.apps import GrossPitaevskii3D
+
+    kw = dict(nx=small, ny=small, nz=small, dims=(2, 2, 2))
+    card = GrossPitaevskii3D(**kw)
+    host = GrossPitaevskii3D(**kw, device="cpu")
+    err = float(np.abs(card.grid.gather(card.run(10)) - host.grid.gather(host.run(10))).max())
+    if not err <= 1e-5:
+        fail(f"GP 8x{small}^3: card against CPU max |err| {err}")
+    say("gp", config=f"8x{small}^3", steps=10, card_vs_cpu_max_abs_err=err)
+    fields, apps = {}, {}
+    for name, n, dims in full:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        app = GrossPitaevskii3D(nx=n, ny=n, nz=n, dims=dims, lx=GP_LX)
+        psi = app.init_fields()
+        n0 = app.norm(psi)
+        psi = app.run(warm, psi)
+        box = [psi]
+        ms = cuda_time_ms(lambda: box.__setitem__(0, app.run(steps, box[0])), 1, 0) / steps
+        G = app.grid.gather(box[0])
+        n1 = float(np.sum(np.abs(G) ** 2) * app.dx ** 3)
+        drift = abs(n1 - n0) / n0
+        if G.dtype != np.complex64 or not np.isfinite(G).all() or not drift < 0.05:
+            fail(f"GP {name}: dtype {G.dtype}, finite {np.isfinite(G).all()}, drift {drift}")
+        fields[name], apps[name] = G, app
+        say("gp", config=name, global_shape=app.grid.global_shape, dtype="complex64", lx=app.lx,
+            dt=app.dt, steps=steps, ms_per_step=ms, norm_drift=drift,
+            peak_GB=torch.cuda.max_memory_allocated() / 1e9)
+        del box, psi
+    (a, A), (b, B) = fields.items()
+    err = float(np.abs(A - B).max())
+    if not err <= 1e-5:
+        fail(f"GP {a} against {b}: max |err| {err}")
+    apps.pop(a)
+    oracle = apps[b].oracle(warm + steps)
+    oerr = max(float(np.abs(G - oracle).max()) for G in fields.values())
+    if not oerr <= 1e-5:
+        fail(f"GP against the single-block oracle: max |err| {oerr}")
+    say("gp", blocks_vs_one_max_abs_err=err, bitwise=bool(np.array_equal(A, B)),
+        vs_oracle_max_abs_err=oerr)
+    del apps, fields, oracle
+    torch.cuda.empty_cache()
+
+
+def grid2d_phase(local: int = GRID2D_LOCAL, steps: int = 6) -> None:
+    """Phase 29: 2-D diffusion on dims (4, 2) in f64, hide (width (2, 2))
+    against update_halo bitwise; the NumPy oracle at a small size; a 1-D
+    periodic ring's halos."""
+    from repro_torch.core import init_global_grid
+    from repro_torch.stencil import fd2d
+
+    def step(T):
+        out = T.clone()
+        out[..., 1:-1, 1:-1] = fd2d.inn(T) + 0.1 * (fd2d.d2_xi(T) + fd2d.d2_yi(T))
+        return out
+
+    def evolve(grid, T, n, hide):
+        for _ in range(n):
+            T = grid.hide(step, (T,), width=(2, 2)) if hide else grid.update_halo(step(T))
+        return T
+
+    # small: against the NumPy oracle
+    grid = init_global_grid(10, 8, None, dims=(4, 2), dtype=torch.float64)
+    G = np.random.RandomState(0).rand(*grid.global_shape)
+    T0 = grid.scatter(G)
+    Tp, Th = evolve(grid, T0.clone(), steps, False), evolve(grid, T0.clone(), steps, True)
+    for _ in range(steps):
+        Gn = G.copy()
+        i = G[1:-1, 1:-1]
+        Gn[1:-1, 1:-1] = i + 0.1 * (G[2:, 1:-1] - 2 * i + G[:-2, 1:-1]
+                                    + G[1:-1, 2:] - 2 * i + G[1:-1, :-2])
+        G = Gn
+    err = float(np.abs(grid.gather(Tp) - G).max())
+    if not (torch.equal(Tp, Th) and err < 1e-12):
+        fail(f"2-D 4x2 blocks of 10x8: hide bitwise {torch.equal(Tp, Th)}, oracle err {err}")
+    # full: 8 blocks of local^2
+    grid = init_global_grid(local, local, None, dims=(4, 2), dtype=torch.float64)
+
+    def fn(ix, iy):
+        x, y = ix.double(), iy.double()
+        return torch.sin(1e-3 * x) * torch.cos(7e-4 * y) + 1e-2 * ((7 * ix + 13 * iy) % 17)
+
+    T0 = grid.from_global_fn(fn)
+    box = {}
+    ms = {}
+    for hide in (False, True, True, False):
+        box[hide] = T0.clone()
+        t = cuda_time_ms(lambda: box.__setitem__(hide, evolve(grid, box[hide], steps, hide)),
+                         1, 0) / steps
+        ms.setdefault(hide, []).append(t)
+    if not torch.equal(box[False], box[True]):
+        fail(f"2-D {grid.shape}: hide differs from update_halo(step) bitwise")
+    if not (torch.isfinite(box[True]).all() and not torch.equal(box[True], T0)):
+        fail("2-D: non-finite or unchanged field")
+    # 1-D periodic ring: every halo plane is its neighbour's send plane
+    ring = init_global_grid(10, None, None, dims=(8,), periodic=(True,), dtype=torch.float64)
+    b = ring.update_halo(ring.scatter(np.random.RandomState(1).rand(*ring.global_shape))).cpu()
+    n, D = ring.local_shape[0], ring.dims[0]
+    ok = all(bool(b[i][0] == b[(i - 1) % D][n - 2]) and bool(b[i][-1] == b[(i + 1) % D][1])
+             for i in range(D))
+    if not ok:
+        fail("1-D periodic ring: halo planes differ from the neighbours' send planes")
+    cells = math.prod(grid.global_shape)
+    say("grid2d", config=f"8x{local}^2", global_shape=grid.global_shape, dtype="float64",
+        steps=steps, hide_vs_plain="bitwise", ms_per_step_plain=ms[False],
+        ms_per_step_hide=ms[True], small_oracle_max_abs_err=err, ring_1d="exact",
+        t_eff_GBps=[2 * cells * 8 / (m * 1e6) for m in ms[False]])   # T read and written
+    del box, T0, grid
+    torch.cuda.empty_cache()
+
+
+def ckpt_phase(full=POISSON_FULL, loose: float = 1e-3, tight: float = 1e-8) -> dict:
+    """Phase 30: Poisson3D mgcg on 8 x 258^3 stopped at 1e-3, a checkpoint
+    of {u, G = gather(u), iteration} (save, async_save, restore timed), then
+    warm solves to 1e-8 from scatter(G) on the same layout and on 1 x 514^3
+    (another block layout) against cold ones.  Returns the Poisson apps."""
+    import shutil
+    import tempfile
+
+    from repro_torch import ckpt
+    from repro_torch.apps import Poisson3D
+
+    apps = {name: Poisson3D(nx=n, ny=n, nz=n, dims=dims) for name, (n, dims) in full.items()}
+    (first, app), (second, other) = apps.items()
+    u, half = app.solve("mgcg", tol=loose)
+    state = {"u": u, "G": app.grid.gather(u), "iteration": half.iterations}
+    nbytes = u.numel() * u.element_size() + state["G"].nbytes
+    d = tempfile.mkdtemp(prefix="ckpt_")
+    try:
+        free = shutil.disk_usage(d).free
+        if free < 3 * nbytes:
+            fail(f"checkpoint: {free / 1e9:.2f} GB free under {d}, the state needs 3 x "
+                 f"{nbytes / 1e9:.2f} GB")
+        t0 = time.perf_counter()
+        ckpt.save(state, 1, d)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fut = ckpt.async_save(state, 2, d)
+        block_s = time.perf_counter() - t0
+        fut.result(timeout=600)
+        async_s = time.perf_counter() - t0
+        if ckpt.latest_step(d) != 2:
+            fail(f"checkpoint: latest step {ckpt.latest_step(d)}")
+        t0 = time.perf_counter()
+        back = ckpt.restore({"u": app.grid.zeros(), "G": np.zeros(app.grid.global_shape),
+                             "iteration": 0}, 2, d)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    G = back["G"].numpy()
+    if not (torch.equal(back["u"], u) and np.array_equal(G, state["G"])
+            and int(back["iteration"]) == half.iterations):
+        fail("checkpoint: the restored state differs from the saved one")
+    say("ckpt", config=first, state_GB=nbytes / 1e9, loose_iterations=half.iterations,
+        save_s=save_s, save_GBps=nbytes / save_s / 1e9, async_blocking_s=block_s,
+        async_total_s=async_s, async_GBps=nbytes / async_s / 1e9, restore_s=restore_s,
+        restore_GBps=nbytes / restore_s / 1e9)
+    for name, a in apps.items():
+        u_cold, cold = a.solve("mgcg", tol=tight)
+        u_warm, warm = a.solve("mgcg", tol=tight, x0=a.grid.scatter(G))
+        gc, gw = a.grid.gather(u_cold), a.grid.gather(u_warm)
+        rel = float(np.abs(gw - gc).max() / np.abs(gc).max())
+        if not (warm.converged and warm.iterations < cold.iterations and rel <= 1e-6):
+            fail(f"checkpoint restart on {name}: warm {warm.iterations} (converged "
+                 f"{warm.converged}), cold {cold.iterations}, rel diff {rel}")
+        say("ckpt", restart_on=name, cold_iterations=cold.iterations,
+            warm_iterations=warm.iterations, warm_vs_cold_rel=rel)
+        del u_cold, u_warm
+    del u, state, back, G, other
+    torch.cuda.empty_cache()
+    return apps
+
+
+def kernel_count(run) -> dict:
+    """What the profiler sees of run(): the CUDA runtime's kernel-launch
+    calls and the aten operators issued (both exact and repeatable), and
+    the device operations recorded (kernels, copies, fills; the tracer
+    drops a few of some 45k from one profile to the next, so this one is
+    printed, not compared)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    out = {"launch_calls": 0, "aten_ops": 0, "device_ops": 0}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            out["device_ops"] += 1
+        elif e.name in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                        "cuLaunchKernelEx"):
+            out["launch_calls"] += 1
+        elif e.name.startswith("aten::"):
+            out["aten_ops"] += 1
+    return out
+
+
+def counters_phase(app, maxiter: int = 20) -> None:
+    """Phase 31: comm counts of 8 x 258^3 f64 solves under a session: cg and
+    pipecg at the analytic numbers, and for cg, pipecg and mgcg the live
+    count of the whole solve equal to comm.totals(k, replacements)."""
+    from repro_torch import telemetry as tele
+
+    g = app.grid
+    # 2 h prod(face) itemsize per dim (3 * 2 * 1 * 258^2 * 8 = 3,195,072 bytes at 8 x 258^3)
+    halo = sum(tele.halo_slab_bytes(g.local_shape, d, g.halo, 8) for d in range(3))
+    name = f"{math.prod(g.dims)}x{g.local_shape[0]}^3"
+    for method, kw in (("cg", dict(tol=0.0, maxiter=maxiter)),
+                       ("pipecg", dict(tol=0.0, maxiter=maxiter)),
+                       ("mgcg", dict(tol=1e-8))):
+        with tele.session():
+            _, info = app.solve(method, **kw)
+        with tele.counting() as col:       # no session: the solve counts into col
+            _, again = app.solve(method, **kw)
+        c = info.comm
+        live = col.total().as_dict()
+        want = c.totals(info.iterations, info.replacements).as_dict()
+        per = c.per_iteration
+        if live != want or again.iterations != info.iterations:
+            fail(f"{method}: live count {live} != comm.totals {want}")
+        if method != "mgcg":
+            ar = 2 if method == "cg" else 1
+            sc = 2 if method == "cg" else 3
+            if (per.all_reduces, per.all_reduce_scalars, per.halo_exchanges,
+                    per.halo_bytes) != (ar, sc, 3, halo):
+                fail(f"{method}: per iteration {per.as_dict()}")
+        say("counters", config=name, method=method, iterations=info.iterations,
+            replacements=info.replacements,
+            per_iteration=json.dumps(per.as_dict()).replace(" ", ""),
+            setup_halo_bytes=c.setup.halo_bytes, live_total_equals_totals=True,
+            total_halo_GB=want["halo_bytes"] / 1e9)
+
+
+def telemetry_phase(app, sk, nan_app=None, heat_steps: int = 100, heat_local: int = 256,
+                    heat_dims=(2, 2, 2), mamba: str = "mamba2-1.3b",
+                    prompt: tuple = (1, 1000), n_new: int = 16) -> int:
+    """Phase 32: telemetry on and off around one mgcg solve (bitwise equal
+    iterates, equal launch and profiler counts, both wall times),
+    heartbeats, the 8-rank NaN story (flight records, diag, resume from a
+    checkpoint), Heat3D with hide under a session, and Engine(flight_dir=).
+    Returns K1's launches here."""
+    import contextlib
+    import glob
+    import io
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch import ckpt
+    from repro_torch import telemetry as tele
+    from repro_torch.apps import Heat3D
+    from repro_torch.configs import get
+    from repro_torch.kernels.stencil3d import heat_step_cuda
+    from repro_torch.models import Model
+    from repro_torch.serve import Engine
+    from repro_torch.telemetry import diag
+
+    # -- overhead: the same solve off, on, on, off
+    t0 = time.perf_counter()
+    runs = {False: [], True: []}
+    for on in (False, True, True, False):
+        sink = tele.MemorySink()
+        with contextlib.ExitStack() as ctx:
+            if on:
+                ctx.enter_context(tele.session(sink=sink))
+                ctx.enter_context(tele.watch(heartbeat_every=5))
+            torch.cuda.synchronize()
+            n0 = launch_counts(sk)
+            u, info = app.solve("mgcg", tol=1e-8)
+            n1 = launch_counts(sk)
+        runs[on].append((u, info, diff(n1, n0), sink))
+    u_off, i_off, l_off, _ = runs[False][0]
+    u_on, i_on, l_on, sink = runs[True][0]
+    if not (torch.equal(u_off, u_on) and l_off == l_on and i_on.iterations == i_off.iterations):
+        fail(f"telemetry on/off: bitwise {torch.equal(u_off, u_on)}, launches {l_on} / {l_off}")
+    hb = [e["iteration"] for e in sink.events if e["type"] == "heartbeat"]
+    if hb != list(range(5, i_on.iterations + 1, 5)):
+        fail(f"heartbeats at {hb} for {i_on.iterations} iterations")
+    finals = sorted(e["rank"] for e in sink.events if e["type"] == "health")
+    if finals != list(range(8)) or i_on.status != tele.SolveStatus.CONVERGED:
+        fail(f"final-health events of ranks {finals}, status {i_on.status}")
+    wall = {on: [r[1].wall_s for r in runs[on]] for on in runs}
+    del runs, u_on, u_off
+    # the profiler's launch and operator counts over three mgcg iterations
+    # (some 9k launches; a whole solve profiles ten times longer)
+    ops = {False: [], True: []}
+    for on in (False, True):
+        with contextlib.ExitStack() as ctx:
+            if on:
+                ctx.enter_context(tele.session())
+                ctx.enter_context(tele.watch(heartbeat_every=1))
+            ops[on].append(kernel_count(lambda: app.solve("mgcg", tol=0.0, maxiter=3)))
+    exact = [{k: o[k] for k in ("launch_calls", "aten_ops")} for o in ops[True] + ops[False]]
+    if any(o != exact[0] for o in exact):
+        fail(f"profiler counts with telemetry {ops[True]}, without {ops[False]}")
+    say("telemetry", config=f"{math.prod(app.grid.dims)}x{app.grid.local_shape[0]}^3 mgcg",
+        iterations=i_on.iterations, iterate="bitwise", profiled_iterations=3,
+        launches=json.dumps(l_on).replace(" ", ""),
+        profiler=json.dumps(exact[0]).replace(" ", ""),
+        profiler_device_ops_on=[o["device_ops"] for o in ops[True]],
+        profiler_device_ops_off=[o["device_ops"] for o in ops[False]],
+        wall_s_off=wall[False], wall_s_on=wall[True],
+        on_over_off=min(wall[True]) / min(wall[False]), heartbeats=len(hb),
+        final_health_events=len(finals), seconds=time.perf_counter() - t0)
+
+    # -- the NaN story on 8 ranks: flight records, diag, resume
+    nan_app = nan_app or app
+    t0 = time.perf_counter()
+    out = tempfile.mkdtemp(prefix="flight_")
+    try:
+        fdir = os.path.join(out, "flight")
+        c_good = nan_app.c
+        with tele.session(), tele.observe(heartbeat=5, flight_dir=fdir):
+            x, good = nan_app.solve("mgcg", tol=1e-8)
+            ckpt.save({"x": x}, 1, out)
+            c = c_good.clone()
+            n = nan_app.grid.local_shape[0]
+            c[1, 0, 0, n // 2, n // 2, n // 2] = float("nan")    # an interior cell of block 1
+            nan_app.c = c
+            _, bad = nan_app.solve("mgcg", tol=1e-8)
+        nan_app.c = c_good
+        if good.status != tele.SolveStatus.CONVERGED or \
+                bad.status != tele.SolveStatus.DIVERGED_NONFINITE or bad.iterations > 1:
+            fail(f"NaN story: good {good.status}, bad {bad.status} at {bad.iterations}")
+        files = sorted(glob.glob(os.path.join(fdir, "flight-rank*.jsonl")))
+        nranks = math.prod(nan_app.grid.dims)
+        if [os.path.basename(p) for p in files] != [f"flight-rank{r:04d}.jsonl"
+                                                    for r in range(nranks)]:
+            fail(f"NaN story: flight files {files}")
+        for p in files:
+            with open(p) as f:
+                lines = [json.loads(ln) for ln in f]
+            h = lines[0]
+            if h["type"] != "flight_header" or h["reason"] != "status:DIVERGED_NONFINITE" \
+                    or h["n_events"] != len(lines) - 1 or "host_peak_rss_kb" not in h["memory"]:
+                fail(f"NaN story: header {h}")
+            if not any(e["type"] == "health" and e["status"] == "DIVERGED_NONFINITE"
+                       for e in lines[1:]):
+                fail(f"NaN story: no failing health event in {p}")
+        trace_path = os.path.join(out, "trace.json")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = diag.main([fdir, "--out", trace_path])
+        with open(trace_path) as f:
+            pids = {e["pid"] for e in json.load(f)["traceEvents"]}
+        if rc != 0 or "imbalance" not in buf.getvalue() or pids != set(range(nranks)):
+            fail(f"diag: rc {rc}, pids {pids}")
+        state = ckpt.restore({"x": x}, 1, out)
+        _, resumed = nan_app.solve("mgcg", tol=1e-8, x0=state["x"])
+        if resumed.status != tele.SolveStatus.CONVERGED or resumed.iterations > 5:
+            fail(f"resume: {resumed.status} after {resumed.iterations} iterations")
+        say("nan_story", config=f"{nranks}x{n}^3", good_iterations=good.iterations,
+            bad_status=bad.status.name, bad_iterations=bad.iterations, flight_files=len(files),
+            memory=json.dumps(h["memory"]).replace(" ", ""), diag_pids=sorted(pids),
+            resumed_iterations=resumed.iterations, seconds=time.perf_counter() - t0)
+        del x, state
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+    # -- Heat3D with hide under a session, against the same run without
+    t0 = time.perf_counter()
+    heat_step_cuda.launches = 0
+    ms = {}
+    for on in (False, True, True, False):
+        happ = Heat3D(nx=heat_local, ny=heat_local, nz=heat_local, dims=heat_dims,
+                      hide=(16, 2, 2))
+        T, Ci = happ.init_fields()
+        T, _ = happ.run(2, T, Ci)
+        sink = tele.MemorySink()
+        with contextlib.ExitStack() as ctx:
+            if on:
+                s = ctx.enter_context(tele.session(sink=sink))
+            t = cuda_time_ms(lambda: happ.run(heat_steps, T, Ci), 1, 0) / heat_steps
+            if on:
+                (span,) = [e for e in sink.events if e["name"] == "heat3d.run"]
+                s.metric("t_eff_gbs", happ.t_eff(span["dur"] / heat_steps))
+        if on and not [e for e in sink.events if e["type"] == "metric"]:
+            fail("Heat3D under a session: no t_eff metric")
+        ms.setdefault(on, []).append(t)
+        del happ, T, Ci
+    launches = heat_step_cuda.launches
+    if launches != 4 * (2 + heat_steps) * 7:
+        fail(f"Heat3D with hide under a session: {launches} K1 launches")
+    if not min(ms[True]) <= 1.2 * min(ms[False]):
+        fail(f"Heat3D: {ms[True]} ms a step under a session against {ms[False]}")
+    say("telemetry", config=f"Heat3D {math.prod(heat_dims)}x{heat_local}^3 hide",
+        ms_per_step_off=ms[False], ms_per_step_on=ms[True], span="heat3d.run",
+        t_eff_metric=True, k1_launches=launches, seconds=time.perf_counter() - t0)
+
+    # -- serving: Engine(flight_dir=) gives the same ids, its dump the spans
+    t0 = time.perf_counter()
+    cfg = get(mamba)
+    dev = app.c.device
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = Model(cfg, generator=gen)
+    tokens = torch.randint(0, cfg.vocab, prompt, generator=gen, device=dev)
+    plain = Engine(cfg, model, cache_len=prompt[1] + n_new).generate(tokens, n_new)
+    out = tempfile.mkdtemp(prefix="serve_flight_")
+    try:
+        eng = Engine(cfg, model, cache_len=prompt[1] + n_new, flight_dir=out)
+        ids = eng.generate(tokens, n_new)
+        (path,) = eng.recorder.dump(reason="manual")
+        with open(path) as f:
+            spans = {e.get("name"): e["dur"] for e in map(json.loads, f)
+                     if e.get("type") == "span"}
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    if not torch.equal(ids, plain) or set(spans) != {"serve.prefill", "serve.decode"}:
+        fail(f"Engine(flight_dir=): ids equal {torch.equal(ids, plain)}, spans {sorted(spans)}")
+    say("telemetry", config=f"{cfg.name} {prompt[0]}x{prompt[1]}+{n_new}", ids="equal",
+        span_s=json.dumps(spans).replace(" ", ""), seconds=time.perf_counter() - t0)
+    del model, eng, tokens
+    torch.cuda.empty_cache()
+    return launches
+
+
+def slice9_phases(sk, full=POISSON_FULL) -> tuple[dict, int]:
+    """Phases 28-32.  Returns the launches of K2-K5 center during the
+    checkpoint and telemetry phases (counts zeroed just before, read just
+    after) and K1's during the Heat3D session run."""
+    gp_phase()
+    grid2d_phase()
+    torch.cuda.synchronize()
+    zero_counts(sk)
+    apps = ckpt_phase(full)
+    app8 = apps["8x258^3"] if "8x258^3" in apps else next(iter(apps.values()))
+    counters_phase(app8)
+    k1 = telemetry_phase(app8, sk)
+    torch.cuda.synchronize()
+    center = launch_counts(sk)
+    del apps, app8
+    torch.cuda.empty_cache()
+    for k in ("apply", "residual", "jacobi"):
+        if center[k] == 0:
+            fail(f"the checkpoint and telemetry phases never launched the {k} kernel")
+    say("slice9", center_launches=json.dumps(center).replace(" ", ""), k1_launches=k1,
+        elapsed_s=time.perf_counter() - T_START)
+    return center, k1
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible; nothing was run", file=sys.stderr)
@@ -2184,6 +2658,16 @@ def main() -> int:
     swa_entries = gemma3_phases(dev)
     torch.cuda.empty_cache()
     shift_entries = twophase_phases(rand)
+    torch.cuda.empty_cache()
+    from repro_torch.kernels import solver3d as sk
+    center, heat = slice9_phases(sk)
+    # the launches of the checkpoint and telemetry phases' own paths join
+    # the center K2-K5 entries; those of the Heat3D session run join K1's
+    k1["launches"] += heat
+    k1["launches_slice9"] = heat
+    for e in solver_entries:
+        e["launches"] += center[e["name"]]
+        e["launches_slice9"] = center[e["name"]]
 
     print(json.dumps({"kernels": [k1] + solver_entries + face_entries + ssd_entries
                       + swa_entries + shift_entries}))

@@ -20,6 +20,7 @@ import torch
 
 from ..core import init_global_grid
 from ..kernels.stencil3d.ops import heat_step
+from .. import telemetry as tele
 from ..telemetry import a_eff, t_eff
 
 
@@ -36,6 +37,8 @@ class Heat3D:
     dims: tuple | None = None         # virtual ranks per dim (None: one)
     dtype: torch.dtype = torch.float32
     device: object = None             # None: the CUDA card
+    heartbeat: int = 0                # rank-0 heartbeat event every k solver iterations
+    flight_dir: str | None = None     # per-rank flight-record dump directory
 
     def __post_init__(self):
         self.grid = init_global_grid(self.nx, self.ny, self.nz, dims=self.dims,
@@ -74,11 +77,18 @@ class Heat3D:
     def run(self, nt: int, T=None, Ci=None):
         if T is None:
             T, Ci = self.init_fields()
-        for _ in range(nt):
-            T = self._step(T, Ci)
-        if T.device.type == "cuda":
-            torch.cuda.synchronize(T.device)
+        with self._observe(), tele.region("heat3d.run", nt=nt, sync=lambda: T):
+            for _ in range(nt):
+                T = self._step(T, Ci)
+            if T.device.type == "cuda":
+                torch.cuda.synchronize(T.device)
         return T, Ci
+
+    def _observe(self):
+        """Runtime observability per the app's ``heartbeat``/``flight_dir``
+        fields (reentrant no-op when both are off/outer-installed)."""
+        return tele.observe(heartbeat=self.heartbeat, flight_dir=self.flight_dir,
+                            meta={"app": "heat3d", "dims": self.grid.dims})
 
     def oracle(self, nt: int, T=None, Ci=None) -> np.ndarray:
         """Single-array f64 NumPy reference on the deduplicated global grid,

@@ -29,6 +29,7 @@ import torch
 from .. import solvers
 from ..core import init_global_grid
 from ..solvers.multigrid import poisson_apply
+from .. import telemetry as tele
 from ..telemetry import a_eff, t_eff
 
 
@@ -44,6 +45,8 @@ class Poisson3D:
     dtype: torch.dtype = torch.float64
     use_kernel: str = "auto"           # auto | cuda | ref
     device: object = None              # None: the CUDA card
+    heartbeat: int = 0                 # rank-0 heartbeat event every k solver iterations
+    flight_dir: str | None = None      # per-rank flight-record dump directory
 
     def __post_init__(self):
         self.grid = init_global_grid(self.nx, self.ny, self.nz, dims=self.dims,
@@ -141,6 +144,17 @@ class Poisson3D:
         pt) switches the operator to ``hide_apply``.
         Returns ``(u, info)``.
         """
+        with self._observe(), tele.region(f"poisson.solve.{method}", singular=self.singular,
+                                          overlap=overlap):
+            return self._solve(method, tol, maxiter, overlap, **kw)
+
+    def _observe(self):
+        """Runtime observability per the app's ``heartbeat``/``flight_dir``
+        fields (reentrant no-op when both are off/outer-installed)."""
+        return tele.observe(heartbeat=self.heartbeat, flight_dir=self.flight_dir,
+                            meta={"app": "poisson", "dims": self.grid.dims})
+
+    def _solve(self, method, tol, maxiter, overlap, **kw):
         apply_A = self.apply_A_overlap if overlap else self.apply_A
         project = "constant" if self.singular else None
         if method in ("pipecg", "pipemgcg"):

@@ -48,6 +48,7 @@ from ..fields import Field, FieldSet, ops
 from ..kernels.solver3d import ops as kops
 from ..solvers import reductions as red
 from ..solvers.multigrid import build_coefficients, level_spacings, make_tree_v_cycle
+from .. import telemetry as tele
 from ..telemetry import a_eff, t_eff
 from . import _stencil_np as stn
 
@@ -146,6 +147,8 @@ class Stokes3D:
     dtype: torch.dtype = torch.float64
     use_kernel: str = "auto"           # auto | cuda | ref
     device: object = None              # None: the CUDA card
+    heartbeat: int = 0                 # rank-0 heartbeat event every k solver iterations
+    flight_dir: str | None = None      # per-rank flight-record dump directory
 
     PRECONDS = (True, "stress", "face", "center", False, None)
 
@@ -276,8 +279,17 @@ class Stokes3D:
         ``variant="pipelined"`` runs the single-reduction schedule over all
         three components.  Returns ``(V, SolveInfo)``."""
         b = self._rhs(P) if P is not None else self.F
-        return solvers.cg(self.grid, self.apply_A, b, x0=x0, tol=tol, maxiter=maxiter,
-                          apply_M=self._precond(precond), args=(self.eta,), variant=variant)
+        with self._observe(), tele.region("stokes.velocity_solve", precond=str(precond)):
+            return solvers.cg(self.grid, self.apply_A, b, x0=x0, tol=tol, maxiter=maxiter,
+                              apply_M=self._precond(precond), args=(self.eta,),
+                              variant=variant)
+
+    def _observe(self):
+        """Runtime observability per the app's ``heartbeat``/``flight_dir``
+        fields (reentrant no-op when both are off/outer-installed)."""
+        return tele.observe(heartbeat=self.heartbeat, flight_dir=self.flight_dir,
+                            meta={"app": "stokes", "stress": self.stress,
+                                  "dims": self.grid.dims})
 
     # ------------------------------------------------------------------
     # pressure-space helpers
@@ -364,11 +376,14 @@ class Stokes3D:
         if method not in ("schur", "uzawa"):
             raise ValueError(f"unknown method {method!r}")
         inner_tol = max(tol * 1e-2, 1e-12) if inner_tol is None else inner_tol
-        if method == "uzawa":
-            return self._solve_uzawa(tol, outer_maxiter, inner_tol, precond, variant)
-        if compiled:
-            return self._solve_schur_compiled(tol, outer_maxiter, inner_tol, precond, variant)
-        return self._solve_schur(tol, outer_maxiter, inner_tol, precond, variant)
+        with self._observe(), tele.region(f"stokes.solve.{method}", precond=str(precond),
+                                          compiled=compiled and method == "schur"):
+            if method == "uzawa":
+                return self._solve_uzawa(tol, outer_maxiter, inner_tol, precond, variant)
+            if compiled:
+                return self._solve_schur_compiled(tol, outer_maxiter, inner_tol, precond,
+                                                  variant)
+            return self._solve_schur(tol, outer_maxiter, inner_tol, precond, variant)
 
     # ------------------------------------------------------------------
     # the paper's T_eff convention

@@ -46,6 +46,7 @@ from .._device import synchronize
 from ..core import init_global_grid
 from ..fields import Field, FieldSet
 from ..stencil import fd3d as fd
+from .. import telemetry as tele
 from ..telemetry import a_eff, t_eff
 from .twophase_ops import darcy_flux, pressure_apply, pressure_rhs
 
@@ -75,6 +76,8 @@ class TwoPhase3D:
     dtype: torch.dtype = torch.float64
     use_kernel: str = "auto"           # auto | cuda | ref (pressure operator, cycle)
     device: object = None              # None: the CUDA card
+    heartbeat: int = 0                 # rank-0 heartbeat event every k solver iterations
+    flight_dir: str | None = None      # per-rank flight-record dump directory
 
     def __post_init__(self):
         if self.method not in METHODS:
@@ -230,12 +233,20 @@ class TwoPhase3D:
         if S is None:
             S = self.init_fields()
         infos = []
-        for _ in range(nt):
-            S, info = self.step(S)
-            if info is not None:
-                infos.append(info)
-        synchronize(S.Pe.data)
+        with self._observe(), tele.region("twophase.run", nt=nt, method=self.method):
+            for _ in range(nt):
+                S, info = self.step(S)
+                if info is not None:
+                    infos.append(info)
+            synchronize(S.Pe.data)
         return S, infos
+
+    def _observe(self):
+        """Runtime observability per the app's ``heartbeat``/``flight_dir``
+        fields (reentrant no-op when both are off/outer-installed)."""
+        return tele.observe(heartbeat=self.heartbeat, flight_dir=self.flight_dir,
+                            meta={"app": "twophase", "method": self.method,
+                                  "dims": self.grid.dims})
 
     def fluxes(self, S: FieldSet) -> FieldSet:
         """Staggered Darcy fluxes of ``S`` as a halo-updated face FieldSet."""

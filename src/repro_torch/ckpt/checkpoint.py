@@ -1,0 +1,151 @@
+"""Checkpoint save/restore of trees of tensors (mid-solve restart).
+
+Layout, the reference's: ``<dir>/step_<N>/manifest.json`` plus one ``.npy``
+per leaf, named by the leaf's path — dict keys (sorted) and sequence
+indices joined by ``__`` (``root`` for a bare leaf); a
+``repro_torch.fields.Field`` adds ``0`` (its one child) and a ``FieldSet``
+the index of each component, as the reference's pytree paths do.  Files
+written by either package restore in the other.
+
+Saves are atomic (a ``.tmp`` directory, then a rename), and the newest
+complete checkpoint wins (:func:`latest_step`).  :func:`async_save` copies
+device to host before it returns and writes the files on a worker thread.
+
+A field restores onto another block layout through its deduplicated
+global array: save ``grid.gather(u)``, restore it, and ``grid2.scatter(G)``
+builds the field on any ``dims`` (the reference's own path).
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+import functools
+import json
+import os
+import re
+import shutil
+
+import numpy as np
+import torch
+
+from ..core import locations as _loc
+
+
+@functools.cache
+def _executor() -> concurrent.futures.ThreadPoolExecutor:
+    """The writers of :func:`async_save`: two threads, made at first use."""
+    return concurrent.futures.ThreadPoolExecutor(max_workers=2)
+
+
+def _flatten(tree, path=()):
+    """``[(path, leaf), ...]`` in the reference's pytree order."""
+    if isinstance(tree, dict):
+        return [kv for k in sorted(tree) for kv in _flatten(tree[k], path + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [kv for i, v in enumerate(tree) for kv in _flatten(v, path + (i,))]
+    if _loc.is_field_set(tree):
+        return [kv for i, (_, v) in enumerate(tree.items()) for kv in _flatten(v, path + (i,))]
+    if _loc.is_field_node(tree):
+        return [(path + (0,), tree.data)]
+    return [(path, tree)]
+
+
+def _unflatten(like, leaves):
+    """Rebuild the structure of ``like`` from an iterator of leaves."""
+    if isinstance(like, dict):
+        out = {k: _unflatten(like[k], leaves) for k in sorted(like)}
+        return {k: out[k] for k in like}
+    if isinstance(like, (list, tuple)):
+        return type(like)(_unflatten(v, leaves) for v in like)
+    if _loc.is_field_set(like):
+        return type(like)(**{k: _unflatten(v, leaves) for k, v in like.items()})
+    if _loc.is_field_node(like):
+        return like.with_data(next(leaves))
+    return next(leaves)
+
+
+def _leaf_name(path) -> str:
+    return "__".join(str(p) for p in path) or "root"
+
+
+def _to_host(x) -> np.ndarray:
+    """A host copy of a leaf that no later write to ``x`` can reach."""
+    if isinstance(x, torch.Tensor):
+        if x.dtype == torch.bfloat16:
+            raise TypeError("bfloat16 leaves have no NumPy dtype; cast them before saving")
+        return x.detach().to("cpu", copy=True).numpy()
+    return np.array(x, copy=True)
+
+
+def _host_leaves(state):
+    return [(_leaf_name(p), _to_host(x)) for p, x in _flatten(state)]
+
+
+def save(state, step: int, ckpt_dir: str) -> str:
+    """Synchronous save.  Returns the checkpoint path."""
+    return _write(_host_leaves(state), step, ckpt_dir)
+
+
+def async_save(state, step: int, ckpt_dir: str):
+    """Device-to-host copy now; file IO on a worker thread.  Returns a future."""
+    return _executor().submit(_write, _host_leaves(state), step, ckpt_dir)
+
+
+def _write(host_leaves, step: int, ckpt_dir: str) -> str:
+    final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    tmp = final + ".tmp"
+    os.makedirs(tmp, exist_ok=True)
+    names = []
+    for name, arr in host_leaves:
+        np.save(os.path.join(tmp, name + ".npy"), arr)
+        names.append({"name": name, "dtype": str(arr.dtype), "shape": list(arr.shape)})
+    with open(os.path.join(tmp, "manifest.json"), "w") as f:
+        json.dump({"step": step, "leaves": names,
+                   "treedef": [n["name"] for n in names]}, f)
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.rename(tmp, final)
+    return final
+
+
+def latest_step(ckpt_dir: str) -> int | None:
+    if not os.path.isdir(ckpt_dir):
+        return None
+    steps = [int(m.group(1)) for d in os.listdir(ckpt_dir)
+             if (m := re.fullmatch(r"step_(\d+)", d))]
+    return max(steps) if steps else None
+
+
+def _shape(like) -> tuple:
+    if isinstance(like, (torch.Tensor, np.ndarray)):
+        return tuple(like.shape)
+    return tuple(np.shape(like))
+
+
+def restore(state_like, step: int, ckpt_dir: str, shardings=None):
+    """Restore into the structure of ``state_like`` (shapes must match);
+    every leaf comes back as a tensor with the stored dtype.
+
+    ``shardings`` is the one-card counterpart of the reference's target
+    shardings: a tree of ``torch.device``s matching ``state_like``, or one
+    device for every leaf.  Without it a leaf lands on the device of its
+    ``state_like`` tensor, and on the CPU where ``state_like`` holds a
+    NumPy array or a Python number.
+    """
+    path = os.path.join(ckpt_dir, f"step_{step:08d}")
+    leaves = _flatten(state_like)
+    if shardings is None or isinstance(shardings, (str, torch.device)):
+        devices = [shardings] * len(leaves)
+    else:
+        devices = [d for _, d in _flatten(shardings)]
+        if len(devices) != len(leaves):
+            raise ValueError(f"shardings has {len(devices)} leaves, the state {len(leaves)}")
+    out = []
+    for (p, like), dev in zip(leaves, devices):
+        arr = np.load(os.path.join(path, _leaf_name(p) + ".npy"))
+        if tuple(arr.shape) != _shape(like):
+            raise ValueError(f"{_leaf_name(p)}: ckpt {arr.shape} != target {_shape(like)}")
+        if dev is None:
+            dev = like.device if isinstance(like, torch.Tensor) else "cpu"
+        out.append(torch.from_numpy(arr).to(dev))
+    return _unflatten(state_like, iter(out))

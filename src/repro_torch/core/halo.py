@@ -22,6 +22,7 @@ from typing import Sequence
 
 import torch
 
+from ..telemetry.counters import record_halo as _record_halo
 from .locations import STAGGER_DIM
 from .topology import CartesianTopology
 
@@ -94,5 +95,9 @@ def update_halo(
         for d in dims:
             if topo.dims[d] == 1 and not topo.periodic[d]:
                 continue  # nothing to exchange
+            # telemetry hook (one falsy check unless a collector is active):
+            # ONE block's slab, (*lead, *local), as a rank sends it
+            _record_halo(A.shape[:off] + A.shape[off + nd:], off + d, width,
+                         A.element_size())
             _update_one_dim(topo, A, d, off + d, off + nd + d, width)
     return arrays[0] if len(arrays) == 1 else arrays

@@ -11,8 +11,11 @@ ids: no host read per token.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
+from .. import telemetry as tele
 from .._device import resolve_device
 from ..models import transformer as tf
 
@@ -26,14 +29,16 @@ class Engine:
     ``"naive"``).  ``cache_len`` (default ``cfg.max_seq``) is the length
     of the global attention layers' KV caches: prompt plus new tokens must
     fit in it (past it the reference's decode overwrites the last slot).
-    The Mamba layers' caches do not depend on it."""
+    The Mamba layers' caches do not depend on it.  ``flight_dir`` installs a
+    flight recorder (:func:`repro_torch.telemetry.flight`) for the duration
+    of each ``generate`` call, which then records its ``serve.prefill`` and
+    ``serve.decode`` spans; ``recorder`` is the last call's recorder (dump
+    it with ``recorder.dump()``)."""
 
     def __init__(self, cfg, model, *, cache_len: int | None = None, device=None,
                  flight_dir: str | None = None, use_kernel: str = "auto"):
-        if flight_dir is not None:
-            raise NotImplementedError(
-                "flight_dir: the port's flight recorder comes with its telemetry "
-                "(ROADMAP.md, Queue A item 3)")
+        self.flight_dir = flight_dir
+        self.recorder = None
         self.device = resolve_device(device)
         if model.cfg != cfg:
             raise ValueError(f"the model is built for {model.cfg.name!r}, not {cfg.name!r}")
@@ -58,20 +63,30 @@ class Engine:
         if temperature > 0.0 and generator is None:
             raise ValueError("temperature sampling needs an explicit torch.Generator")
         tokens = torch.as_tensor(tokens, device=self.device)
-        T = tokens.shape[1]
+        B, T = tokens.shape
         out = []
-        with torch.inference_mode():
-            logits, caches = tf.prefill(self.model, tokens, cache_len=self.cache_len,
-                                        use_kernel=self.use_kernel)
+        with self._observe() as rec, torch.inference_mode():
+            self.recorder = rec
+            with tele.region("serve.prefill", batch=B, prompt_len=T, sync=lambda: logits):
+                logits, caches = tf.prefill(self.model, tokens, cache_len=self.cache_len,
+                                            use_kernel=self.use_kernel)
             positions = torch.arange(T, T + n_new, device=self.device)
-            for i in range(n_new):
-                if temperature > 0.0:
-                    probs = torch.softmax(logits / temperature, dim=-1)
-                    cur = torch.multinomial(probs, 1, generator=generator)
-                else:
-                    cur = torch.argmax(logits, dim=-1, keepdim=True)
-                out.append(cur)
-                if i + 1 < n_new:
-                    logits, caches = tf.decode_step(self.model, cur, positions[i], caches,
-                                                    use_kernel=self.use_kernel)
-        return torch.cat(out, dim=1) if out else tokens.new_zeros(tokens.shape[0], 0)
+            with tele.region("serve.decode", batch=B, n_new=n_new, sync=lambda: out):
+                for i in range(n_new):
+                    if temperature > 0.0:
+                        probs = torch.softmax(logits / temperature, dim=-1)
+                        cur = torch.multinomial(probs, 1, generator=generator)
+                    else:
+                        cur = torch.argmax(logits, dim=-1, keepdim=True)
+                    out.append(cur)
+                    if i + 1 < n_new:
+                        logits, caches = tf.decode_step(self.model, cur, positions[i], caches,
+                                                        use_kernel=self.use_kernel)
+        return torch.cat(out, dim=1) if out else tokens.new_zeros(B, 0)
+
+    def _observe(self):
+        """Flight recorder for the duration of a generate() call (no-op when
+        ``flight_dir`` is unset; joins a recorder that is already live)."""
+        if self.flight_dir is None:
+            return contextlib.nullcontext()
+        return tele.flight(self.flight_dir, meta={"app": "serve", "cache_len": self.cache_len})

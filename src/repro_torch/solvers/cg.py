@@ -26,11 +26,16 @@ Two Krylov schedules (``variant=``):
 The loop runs in Python.  Every scalar (``alpha``, ``beta``, the dots) stays
 a 0-d tensor on the device; the only host read per iteration is the f64
 residual norm for the stopping test, so iteration counts equal the
-reference's ``lax.while_loop`` on the same inputs.
+reference's ``lax.while_loop`` on the same inputs.  Under
+:func:`repro_torch.telemetry.watch` the health probes classify that same
+float (no further read); while a telemetry session is active the solve
+is counted (:mod:`repro_torch.telemetry.counters`), its loop bodies
+tagged ``"iteration"`` / ``"replacement"``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import time
@@ -39,8 +44,11 @@ from typing import Callable
 import numpy as np
 import torch
 
+from .. import telemetry as tele
 from .._device import synchronize
 from ..core import locations as _loc
+from ..telemetry import health as _health
+from ..telemetry.flight import note_solve as _note_solve
 from . import reductions as red
 
 VARIANTS = ("classic", "pipelined")
@@ -54,9 +62,15 @@ class SolveInfo:
     (for ``variant="pipelined"`` the one entering iteration ``j + 1``);
     its last entry equals ``relres``.  ``wall_s`` is the host time of the
     solve, synchronised on the result.  ``replacements`` counts the
-    residual-replacement segments a pipelined solve ran.  ``comm`` and
-    ``status`` stay None until the port's telemetry (comm counters, typed
-    health status) exists.
+    residual-replacement segments a pipelined solve ran, for
+    ``comm.totals(iterations, replacements)``.  ``comm`` (set while a
+    :mod:`repro_torch.telemetry` session is active) is the solve's
+    communication split: halo exchanges and bytes per dim and all-reduce
+    counts, setup vs per iteration vs per replacement, counted on the live
+    solve.  ``status`` is the typed
+    :class:`repro_torch.telemetry.SolveStatus` outcome — always classified
+    from the final scalars; under :func:`repro_torch.telemetry.watch` the
+    probes refine it with stagnation/divergence detection and early exit.
     """
 
     iterations: int
@@ -64,8 +78,8 @@ class SolveInfo:
     converged: bool
     residuals: np.ndarray = dataclasses.field(default_factory=lambda: np.zeros(0))
     wall_s: float | None = None
-    comm: object = None
-    status: object = None
+    comm: "tele.CommStats | None" = None
+    status: "tele.SolveStatus | None" = None
     replacements: int = 0
 
     def s_per_iter(self) -> float:
@@ -102,14 +116,20 @@ def replacement_count(iterations: int, replace_every: int) -> int:
 
 def cg_local(grid, apply_A: Callable, b, x, *, tol: float = 1e-6, maxiter: int = 1000,
              apply_M: Callable | None = None, project_nullspace: str | None = None,
-             variant: str = "classic", replace_every: int = 50):
+             variant: str = "classic", replace_every: int = 50, cfg=None, name: str = "cg"):
     """The Krylov loop on trees ``b``/``x`` with one-argument callables
     ``apply_A``/``apply_M`` (preconditioner setup already bound).
 
     Returns ``(x, k, relres, hist)``: the halo-fresh iterate, the iteration
     count, the final relative residual (0-d tensor) and the history (1-D
     f64 tensor).  ``x`` is updated out of place, except that the operator's
-    halo update writes its halo cells.
+    halo update writes its halo cells.  With a
+    :class:`repro_torch.telemetry.HealthConfig` ``cfg`` the loop is watched
+    (probes on the residual it reads, heartbeats under the solver ``name``)
+    and its :class:`repro_torch.telemetry.health.Probe` is returned fifth:
+    ``probe.finish(...)`` on the host values of ``relres`` and ``hist``
+    gives the terminal :class:`~repro_torch.telemetry.SolveStatus` and the
+    final-health events, with no device work of its own.
     """
     red_masks, unk_masks = _mask_trees(grid, b)
 
@@ -135,53 +155,78 @@ def cg_local(grid, apply_A: Callable, b, x, *, tol: float = 1e-6, maxiter: int =
             return t
 
     bnorm = red.tree_rhs_norm(grid, b, red_masks)
+    bnormf = float(bnorm)
+    # the health probe of a watched loop, made from its first residual
+    watch = None if cfg is None else (lambda res0: _health.Probe(cfg, name, res0, bnormf))
     common = dict(maxiter=maxiter, project=project, masked=masked, mdot=mdot, mdots=mdots,
-                  bnorm=bnorm)
+                  bnorm=bnorm, watch=watch)
     if variant == "classic":
-        x, res, k, hist = _classic_loop(apply_A, apply_M, b, x, tol * float(bnorm), **common)
+        x, res, k, hist, probe = _classic_loop(apply_A, apply_M, b, x, tol * bnormf, **common)
     else:
-        x, res, k, hist = _pipelined_loop(apply_A, apply_M, b, x, tol * float(bnorm),
-                                          replace_every=replace_every, **common)
+        x, res, k, hist, probe = _pipelined_loop(apply_A, apply_M, b, x, tol * bnormf,
+                                                 replace_every=replace_every, **common)
     # the mean-zero representative of a singular solve, halo-fresh
     x = _tmap(grid.update_halo, project(x))
     hist = torch.stack(hist) if hist else torch.zeros(0, dtype=torch.float64)
-    return x, k, res / bnorm, hist
+    if cfg is None:
+        return x, k, res / bnorm, hist
+    return x, k, res / bnorm, hist, probe
 
 
-def _classic_loop(apply_A, M, b, x, thresh, *, maxiter, project, masked, mdot, mdots, bnorm):
-    """Textbook preconditioned CG.  Returns ``(x, res, k, hist)``."""
+def _epilogue(grid, probe, k: int, relres, hist, tol: float, maxiter: int):
+    """The host values every solve ends with — the relative residual and the
+    history, read once — and, for a watched solve, its terminal status and
+    final-health events (one per virtual rank) from those same values.
+    Returns ``(relres, residuals, device_status)``."""
+    relres = float(relres)
+    residuals = hist.cpu().numpy()
+    if probe is None:
+        return relres, residuals, None
+    return relres, residuals, probe.finish(math.prod(grid.dims), k, relres, residuals, tol,
+                                           maxiter)
+
+
+def _classic_loop(apply_A, M, b, x, thresh, *, maxiter, project, masked, mdot, mdots, bnorm,
+                  watch):
+    """Textbook preconditioned CG.  Returns ``(x, res, k, hist, probe)``."""
     r = masked(_tmap(torch.sub, b, apply_A(x)))
     z = project(masked(M(r))) if M is not None else project(r)
     p = z
     rz = mdot(r, z)
     res = torch.sqrt(mdot(r, r))
-    hist, k = [], 0
-    while k < maxiter and float(res) > thresh:
-        Ap = masked(apply_A(p))
-        alpha = rz / mdot(p, Ap)
-        x = _tmap(lambda xi, pi: xi + alpha.to(xi.dtype) * pi, x, p)
-        r = _tmap(lambda ri, ai: ri - alpha.to(ri.dtype) * ai, r, Ap)
-        if M is not None:
-            z = project(masked(M(r)))
-            rz_new, rr = mdots((r, z), (r, r))   # one stacked reduction
-            res = torch.sqrt(rr)
-        else:
-            z = project(r)
-            rz_new = mdot(r, z)   # unpreconditioned: <r, z> is ||r||^2
-            res = torch.sqrt(rz_new)
-        beta = rz_new / rz
-        p = _tmap(lambda zi, pi: zi + beta.to(zi.dtype) * pi, z, p)
-        rz = rz_new
-        hist.append(res / bnorm)
+    resf = float(res)            # the one host read of each iteration's test
+    probe = None if watch is None else watch(resf)
+    hist, k, ok = [], 0, True
+    while k < maxiter and resf > thresh and ok:
+        with tele.tag("iteration"):
+            Ap = masked(apply_A(p))
+            alpha = rz / mdot(p, Ap)
+            x = _tmap(lambda xi, pi: xi + alpha.to(xi.dtype) * pi, x, p)
+            r = _tmap(lambda ri, ai: ri - alpha.to(ri.dtype) * ai, r, Ap)
+            if M is not None:
+                z = project(masked(M(r)))
+                rz_new, rr = mdots((r, z), (r, r))   # one stacked reduction
+                res = torch.sqrt(rr)
+            else:
+                z = project(r)
+                rz_new = mdot(r, z)   # unpreconditioned: <r, z> is ||r||^2
+                res = torch.sqrt(rz_new)
+            beta = rz_new / rz
+            p = _tmap(lambda zi, pi: zi + beta.to(zi.dtype) * pi, z, p)
+            rz = rz_new
+            hist.append(res / bnorm)
         k += 1
-    return x, res, k, hist
+        resf = float(res)
+        if probe is not None:
+            ok = probe.step(k, resf)
+    return x, res, k, hist, probe
 
 
 def _pipelined_loop(apply_A, M, b, x, thresh, *, maxiter, replace_every, project, masked,
-                    mdot, mdots, bnorm):
+                    mdot, mdots, bnorm, watch):
     """Ghysels–Vanroose pipelined CG with residual replacement at each
     segment head (the k = 0 head doubles as the setup).  Returns
-    ``(x, res, k, hist)``."""
+    ``(x, res, k, hist, probe)``."""
     if replace_every is None or int(replace_every) <= 0:
         replace_every = maxiter
     replace_every = int(replace_every)
@@ -201,40 +246,45 @@ def _pipelined_loop(apply_A, M, b, x, thresh, *, maxiter, replace_every, project
 
     r0 = masked(_tmap(torch.sub, b, apply_A(x)))
     res = torch.sqrt(mdot(r0, r0))
-    resf = float(res)
+    resf = float(res)            # the one host read of each iteration's test
+    probe = None if watch is None else watch(resf)
     p = _tmap(torch.zeros_like, b)
     gp = ap = torch.ones((), dtype=res.dtype, device=res.device)
-    hist, k = [], 0
-    while k < maxiter and resf > thresh:
-        # exact recomputation of the residual chain and of the search
-        # direction's auxiliaries (s = A p, q = M s, z = A q)
-        r = masked(_tmap(torch.sub, b, apply_A(x)))
-        u = prec(r)
-        w = masked(apply_A(u))
-        s = masked(apply_A(p))
-        q = prec(s)
-        z = masked(apply_A(q))
+    hist, k, ok = [], 0, True
+    while k < maxiter and resf > thresh and ok:
+        with tele.tag("replacement"):
+            # exact recomputation of the residual chain and of the search
+            # direction's auxiliaries (s = A p, q = M s, z = A q)
+            r = masked(_tmap(torch.sub, b, apply_A(x)))
+            u = prec(r)
+            w = masked(apply_A(u))
+            s = masked(apply_A(p))
+            q = prec(s)
+            z = masked(apply_A(q))
         limit = min(k + replace_every, maxiter)
-        while k < limit and resf > thresh:
-            gamma, delta, rr = mdots((r, u), (w, u), (r, r))
-            m = precit(w)
-            n = masked(apply_A(m))
-            res = torch.sqrt(rr)
-            beta = gamma / gp if k > 0 else torch.zeros_like(gamma)
-            alpha = gamma / (delta - beta * gamma / ap)
-            z = axpy(True, beta, n, z)
-            q = axpy(True, beta, m, q)
-            s = axpy(True, beta, w, s)
-            p = axpy(True, beta, u, p)
-            x = axpy(True, alpha, x, p)
-            r = axpy(False, alpha, r, s)
-            u = axpy(False, alpha, u, q)
-            w = axpy(False, alpha, w, z)
-            hist.append(res / bnorm)
-            gp, ap = gamma, alpha
+        while k < limit and resf > thresh and ok:
+            with tele.tag("iteration"):
+                gamma, delta, rr = mdots((r, u), (w, u), (r, r))
+                m = precit(w)
+                n = masked(apply_A(m))
+                res = torch.sqrt(rr)
+                beta = gamma / gp if k > 0 else torch.zeros_like(gamma)
+                alpha = gamma / (delta - beta * gamma / ap)
+                z = axpy(True, beta, n, z)
+                q = axpy(True, beta, m, q)
+                s = axpy(True, beta, w, s)
+                p = axpy(True, beta, u, p)
+                x = axpy(True, alpha, x, p)
+                r = axpy(False, alpha, r, s)
+                u = axpy(False, alpha, u, q)
+                w = axpy(False, alpha, w, z)
+                hist.append(res / bnorm)
+                gp, ap = gamma, alpha
             k += 1
             resf = float(res)
-    return x, res, k, hist
+            if probe is not None:
+                ok = probe.step(k, resf)
+    return x, res, k, hist, probe
 
 
 def cg(grid, apply_A: Callable, b, x0=None, *, tol: float = 1e-6, maxiter: int = 1000,
@@ -274,14 +324,35 @@ def cg(grid, apply_A: Callable, b, x0=None, *, tol: float = 1e-6, maxiter: int =
         args = tuple(cast(a) for a in args)
         x0 = None if x0 is None else cast(x0)
     x = _tmap(torch.zeros_like if x0 is None else torch.clone, b if x0 is None else x0)
+    cfg = _health.current()
     t0 = time.perf_counter()
-    M = apply_M.setup(*args) if hasattr(apply_M, "setup") else apply_M
-    x, k, relres, hist = cg_local(
-        grid, lambda u: apply_A(u, *args), b, x, tol=tol, maxiter=maxiter, apply_M=M,
-        project_nullspace=project_nullspace, variant=variant, replace_every=replace_every)
-    relres = float(relres)
+    with counted() as col:
+        M = apply_M.setup(*args) if hasattr(apply_M, "setup") else apply_M
+        outs = cg_local(
+            grid, lambda u: apply_A(u, *args), b, x, tol=tol, maxiter=maxiter, apply_M=M,
+            project_nullspace=project_nullspace, variant=variant, replace_every=replace_every,
+            cfg=cfg)
+    x, k, relres, hist = outs[:4]
+    probe = None if cfg is None else outs[4]
+    relres, residuals, dstatus = _epilogue(grid, probe, k, relres, hist, tol, maxiter)
     synchronize(_loc.tree_leaves(x)[0])
     wall = time.perf_counter() - t0
+    status = _health.classify(dstatus, relres, tol, k, maxiter)
     nrep = replacement_count(k, replace_every) if variant == "pipelined" else 0
-    return x, SolveInfo(iterations=k, relres=relres, converged=relres <= tol,
-                        residuals=hist.cpu().numpy(), wall_s=wall, replacements=nrep)
+    info = SolveInfo(iterations=k, relres=relres, converged=relres <= tol,
+                     residuals=residuals, wall_s=wall,
+                     comm=None if col is None else col.stats(), status=status,
+                     replacements=nrep)
+    _note_solve("cg", info)
+    return x, info
+
+
+@contextlib.contextmanager
+def counted():
+    """A live comm collector around a solve while a telemetry session is
+    active (yields None otherwise: nothing is counted)."""
+    if not tele.enabled():
+        yield None
+        return
+    with tele.counting() as col:
+        yield col

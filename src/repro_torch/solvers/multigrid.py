@@ -45,17 +45,19 @@ from __future__ import annotations
 
 import time
 
-import numpy as np
 import torch
 
+from .. import telemetry as tele
 from .._device import synchronize
 from ..core import locations as _loc
 from ..core.hide import hide_apply
 from ..kernels.solver3d import ops
 from ..kernels.solver3d.ref import face_diag, face_stencil, full_diag  # noqa: F401
+from ..telemetry import health as _health
+from ..telemetry.flight import note_solve as _note_solve
 from . import reductions as red
 from . import transfers
-from .cg import SolveInfo
+from .cg import SolveInfo, _epilogue, counted
 
 SMOOTHERS = ("jacobi", "chebyshev")
 
@@ -370,8 +372,9 @@ def multigrid_solve(grid, c, b, spacing, x0=None, *, loc: str | None = None, tol
     faces and the dead plane), wraparound on periodic dims.  With EVERY dim periodic the operator is
     singular; the rhs is projected onto mean-zero and the mean-zero
     representative is returned.  Convergence is the deduplicated global
-    relative residual on the fine level, read on the host once per cycle.
-    Returns ``(x, SolveInfo)``.
+    relative residual on the fine level, read on the host once per cycle
+    (the health probes of :func:`repro_torch.telemetry.watch` classify that
+    same float).  Returns ``(x, SolveInfo)``.
     """
     if grid.halo != 1:
         raise ValueError("multigrid assumes halo width 1 (overlap=2)")
@@ -388,37 +391,49 @@ def multigrid_solve(grid, c, b, spacing, x0=None, *, loc: str | None = None, tol
     hs = level_spacings(grid, grids, spacing)
     singular = all(grid.topo.periodic)
 
+    cfg = _health.current()
     t0 = time.perf_counter()
-    cs = build_coefficients(grid, grids, c)
-    v_cycle, residual = make_v_cycle(
-        grid, grids, hs, cs, loc=loc, nu_pre=nu_pre, nu_post=nu_post, omega=omega,
-        coarse_sweeps=coarse_sweeps, smoother=smoother, use_kernel=use_kernel)
-    mask = red.loc_solve_mask(grid, loc, b.dtype)
+    with counted() as col:
+        cs = build_coefficients(grid, grids, c)
+        v_cycle, residual = make_v_cycle(
+            grid, grids, hs, cs, loc=loc, nu_pre=nu_pre, nu_post=nu_post, omega=omega,
+            coarse_sweeps=coarse_sweeps, smoother=smoother, use_kernel=use_kernel)
+        mask = red.loc_solve_mask(grid, loc, b.dtype)
 
-    def demean(a):
-        return a - red.masked_mean(grid, a, mask).to(a.dtype)
+        def demean(a):
+            return a - red.masked_mean(grid, a, mask).to(a.dtype)
 
-    if singular:
-        b = demean(b)
-    bnorm = red.rhs_norm(grid, b, mask)
-    thresh = tol * float(bnorm)
-    grid.update_halo(x)
-    r = residual(0, x, b)
-    res = torch.sqrt(red.dot(grid, r, r, mask))
-    hist, k = [], 0
-    while k < maxiter and float(res) > thresh:
-        x = v_cycle(0, x, b)
+        if singular:
+            b = demean(b)
+        bnorm = red.rhs_norm(grid, b, mask)
+        bnormf = float(bnorm)
+        grid.update_halo(x)
         r = residual(0, x, b)
         res = torch.sqrt(red.dot(grid, r, r, mask))
-        hist.append(res / bnorm)
-        k += 1
-    if singular:
-        x = grid.update_halo(demean(x))
-    relres = float(res / bnorm)
+        resf = float(res)        # the one host read of each cycle's test
+        probe = None if cfg is None else _health.Probe(cfg, "mg", resf, bnormf)
+        hist, k, ok = [], 0, True
+        while k < maxiter and resf > tol * bnormf and ok:
+            with tele.tag("iteration"):
+                x = v_cycle(0, x, b)
+                r = residual(0, x, b)
+                res = torch.sqrt(red.dot(grid, r, r, mask))
+                hist.append(res / bnorm)
+            k += 1
+            resf = float(res)
+            if probe is not None:
+                ok = probe.step(k, resf)
+        if singular:
+            x = grid.update_halo(demean(x))
+    hist = torch.stack(hist) if hist else torch.zeros(0, dtype=torch.float64)
+    relres, residuals, dstatus = _epilogue(grid, probe, k, res / bnorm, hist, tol, maxiter)
     synchronize(x)
     wall = time.perf_counter() - t0
-    residuals = torch.stack(hist).cpu().numpy() if hist else np.zeros(0)
     if wrap is not None:
         x = wrap(x)
-    return x, SolveInfo(iterations=k, relres=relres, converged=relres <= tol,
-                        residuals=residuals, wall_s=wall)
+    info = SolveInfo(iterations=k, relres=relres, converged=relres <= tol,
+                     residuals=residuals, wall_s=wall,
+                     comm=None if col is None else col.stats(),
+                     status=_health.classify(dstatus, relres, tol, k, maxiter))
+    _note_solve("mg", info)
+    return x, info

@@ -10,7 +10,8 @@ the heavy-ball / second-order Richardson method.  For an SPD operator with
 spectral bounds ``lam_min <= lam(A) <= lam_max`` the optimal coefficients
 give O(sqrt(kappa)) iterations instead of the O(kappa) of first-order
 relaxation.  The loop runs in Python with one host read of the f64 residual
-norm per iteration (the stopping test).
+norm per iteration (the stopping test, which the health probes of
+:func:`repro_torch.telemetry.watch` classify too).
 """
 
 from __future__ import annotations
@@ -21,9 +22,12 @@ import time
 import numpy as np
 import torch
 
+from .. import telemetry as tele
 from .._device import synchronize
+from ..telemetry import health as _health
+from ..telemetry.flight import note_solve as _note_solve
 from . import reductions as red
-from .cg import SolveInfo
+from .cg import SolveInfo, _epilogue, counted
 
 
 @dataclasses.dataclass
@@ -53,27 +57,39 @@ def pseudo_transient(grid, apply_A, b, x0=None, *, lam_min: float, lam_max: floa
     """
     x = torch.zeros_like(b) if x0 is None else x0.clone()
     alpha, beta = optimal_parameters(lam_min, lam_max)
+    cfg = _health.current()
     t0 = time.perf_counter()
-    mask = red.solve_mask(grid, b.dtype)
-    mi = red.interior_mask(grid, dtype=b.dtype)
-    bnorm = red.rhs_norm(grid, b, mask)
-    thresh = tol * float(bnorm)
-    # r (the residual at x) is carried, so the operator runs once per iteration
-    r = (b - apply_A(x, *args)) * mi
-    res = torch.sqrt(red.dot(grid, r, r, mask))
-    v = torch.zeros_like(x)
-    hist, k = [], 0
-    while k < maxiter and float(res) > thresh:
-        v = beta * v + alpha * r
-        x = x + v
+    with counted() as col:
+        mask = red.solve_mask(grid, b.dtype)
+        mi = red.interior_mask(grid, dtype=b.dtype)
+        bnorm = red.rhs_norm(grid, b, mask)
+        bnormf = float(bnorm)
+        # r (the residual at x) is carried, so the operator runs once per iteration
         r = (b - apply_A(x, *args)) * mi
         res = torch.sqrt(red.dot(grid, r, r, mask))
-        hist.append(res.to(b.dtype))
-        k += 1
-    x = grid.update_halo(x)
-    relres = float(res / bnorm)
+        resf = float(res)        # the one host read of each iteration's test
+        probe = None if cfg is None else _health.Probe(cfg, "pt", resf, bnormf)
+        v = torch.zeros_like(x)
+        hist, k, ok = [], 0, True
+        while k < maxiter and resf > tol * bnormf and ok:
+            with tele.tag("iteration"):
+                v = beta * v + alpha * r
+                x = x + v
+                r = (b - apply_A(x, *args)) * mi
+                res = torch.sqrt(red.dot(grid, r, r, mask))
+                hist.append(res.to(b.dtype))
+            k += 1
+            resf = float(res)
+            if probe is not None:
+                ok = probe.step(k, resf)
+        x = grid.update_halo(x)
+    hist = torch.stack(hist) if hist else torch.zeros(0, dtype=b.dtype)
+    relres, residuals, dstatus = _epilogue(grid, probe, k, res / bnorm, hist, tol, maxiter)
     synchronize(x)
     wall = time.perf_counter() - t0
-    residuals = torch.stack(hist).cpu().numpy() if hist else np.zeros(0)
-    return x, PTInfo(iterations=k, relres=relres, converged=relres <= tol,
-                     residuals=residuals, wall_s=wall)
+    info = PTInfo(iterations=k, relres=relres, converged=relres <= tol,
+                  residuals=residuals, wall_s=wall,
+                  comm=None if col is None else col.stats(),
+                  status=_health.classify(dstatus, relres, tol, k, maxiter))
+    _note_solve("pt", info)
+    return x, info

@@ -14,7 +14,11 @@ overlap)``), so ownership drops them (each physical cell counted once) and
 
 Every block of a field lives on one card, so a global reduction is one sum
 over all axes of the masked product — the block axes take the place of the
-reference's ``psum`` over the mesh.  Floating fields accumulate in float64
+reference's ``psum`` over the mesh.  The all-reduce itself is then the
+identity: :func:`psum`, :func:`pmax` and :func:`pmin` are the reference's
+three wrappers, the single place where a ``torch.distributed`` backend
+would reduce across cards, and where the telemetry counts every global
+reduction (:mod:`repro_torch.telemetry.counters`).  Floating fields accumulate in float64
 (:func:`acc_dtype`), so f32 solves get faithful stopping tests.  Scalars
 come back as 0-d tensors on the field's device; reading one on the host is
 the caller's choice.
@@ -27,6 +31,30 @@ from typing import Callable
 import torch
 
 from ..core import locations as _loc
+from ..telemetry.counters import record_all_reduce as _record_all_reduce
+
+
+# The three wrappers below are the ONLY all-reduce call sites of the solver
+# stack, so the telemetry hook here counts every dot product and
+# convergence-test reduction of a solve (one falsy check when nothing
+# collects).  On one card the partial sums already cover every block.
+
+def psum(topo, x: torch.Tensor) -> torch.Tensor:
+    """Sum all-reduce of the per-rank partials ``x`` (identity here)."""
+    _record_all_reduce(x.numel())
+    return x
+
+
+def pmax(topo, x: torch.Tensor) -> torch.Tensor:
+    """Max all-reduce of the per-rank partials ``x`` (identity here)."""
+    _record_all_reduce(x.numel())
+    return x
+
+
+def pmin(topo, x: torch.Tensor) -> torch.Tensor:
+    """Min all-reduce of the per-rank partials ``x`` (identity here)."""
+    _record_all_reduce(x.numel())
+    return x
 
 
 def acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -107,7 +135,7 @@ def masked_mean(grid, a, mask) -> torch.Tensor:
     denominator summed together (one reduction), accumulated per
     :func:`acc_dtype`."""
     acc = acc_dtype(a.dtype)
-    s = torch.stack([(a.to(acc) * mask.to(acc)).sum(), mask.to(acc).sum()])
+    s = psum(grid.topo, torch.stack([(a.to(acc) * mask.to(acc)).sum(), mask.to(acc).sum()]))
     return s[0] / s[1]
 
 
@@ -115,7 +143,7 @@ def dot(grid, a, b, mask=None) -> torch.Tensor:
     """Deduplicated global dot product ``<a, b>``, accumulated in float64."""
     if mask is None:
         mask = owned_mask(grid, a.dtype)
-    return _partial(a, b, mask)
+    return psum(grid.topo, _partial(a, b, mask))
 
 
 def tree_dot(grid, a, b, masks) -> torch.Tensor:
@@ -126,16 +154,16 @@ def tree_dot(grid, a, b, masks) -> torch.Tensor:
     if not (len(la) == len(lb) == len(lm)):
         raise ValueError(f"tree_dot: mismatched leaves — {len(la)}/{len(lb)}/{len(lm)} "
                          "for a/b/masks")
-    return sum(_partial(x, y, m) for x, y, m in zip(la, lb, lm))
+    return psum(grid.topo, sum(_partial(x, y, m) for x, y, m in zip(la, lb, lm)))
 
 
 def tree_dot_many(grid, pairs, masks) -> tuple[torch.Tensor, ...]:
     """Several deduplicated global dots as ONE stacked sum.
 
     ``pairs`` is a sequence of ``(a, b)`` pairs sharing the structure of
-    ``masks``.  The partial sums are stacked into one tensor, which stands
-    for the reference's single all-reduce carrying e.g. ``<r, z>``,
-    ``<w, u>`` and ``||r||^2`` at once.  Returns one 0-d tensor per pair.
+    ``masks``.  The partial sums are stacked into one tensor and reduced by
+    ONE :func:`psum` carrying e.g. ``<r, z>``, ``<w, u>`` and ``||r||^2`` at
+    once.  Returns one 0-d tensor per pair.
     """
     lm = _leaves(masks)
     partials = []
@@ -145,7 +173,7 @@ def tree_dot_many(grid, pairs, masks) -> tuple[torch.Tensor, ...]:
             raise ValueError(f"tree_dot_many: mismatched leaves in pair {i} — "
                              f"{len(la)}/{len(lb)}/{len(lm)} for a/b/masks")
         partials.append(sum(_partial(x, y, m) for x, y, m in zip(la, lb, lm)))
-    s = torch.stack(partials)
+    s = psum(grid.topo, torch.stack(partials))
     return tuple(s.unbind())
 
 
@@ -170,21 +198,21 @@ def norm_linf(grid, a, mask=None) -> torch.Tensor:
     """Deduplicated global max-abs norm."""
     if mask is None:
         mask = owned_mask(grid, a.dtype)
-    return (a.abs() * mask).max()
+    return pmax(grid.topo, (a.abs() * mask).max())
 
 
 def field_min(grid, a, mask=None) -> torch.Tensor:
     """Deduplicated global minimum."""
     if mask is None:
         mask = owned_mask(grid, a.dtype)
-    return torch.where(mask > 0, a, torch.finfo(a.dtype).max).min()
+    return pmin(grid.topo, torch.where(mask > 0, a, torch.finfo(a.dtype).max).min())
 
 
 def field_max(grid, a, mask=None) -> torch.Tensor:
     """Deduplicated global maximum."""
     if mask is None:
         mask = owned_mask(grid, a.dtype)
-    return torch.where(mask > 0, a, torch.finfo(a.dtype).min).max()
+    return pmax(grid.topo, torch.where(mask > 0, a, torch.finfo(a.dtype).min).max())
 
 
 # ---------------------------------------------------------------------------

@@ -1,1 +1,1 @@
-"""Finite-difference helpers (ParallelStencil's FiniteDifferences3D)."""
+"""Finite-difference helpers (ParallelStencil's FiniteDifferences2D and 3D)."""

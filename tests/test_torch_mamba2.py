@@ -218,7 +218,7 @@ def test_generate_greedy_ids(reference):
                        ids)
 
 
-def test_generate_sampling_uses_the_generator(reference):
+def test_generate_sampling_uses_the_generator(reference, tmp_path):
     _, _, model = reference
     eng = Engine(CFG32, model, device="cpu")
     prompt = torch.zeros(B, 4, dtype=torch.long)
@@ -229,8 +229,10 @@ def test_generate_sampling_uses_the_generator(reference):
         eng.generate(prompt, 2, temperature=0.8)
     with pytest.raises(NotImplementedError, match="cross_inputs"):
         eng.generate(prompt, 2, cross_inputs={})
-    with pytest.raises(NotImplementedError, match="flight_dir"):
-        Engine(CFG32, model, device="cpu", flight_dir="x")
+    # a flight recorder around generate changes no id
+    flight = Engine(CFG32, model, device="cpu", flight_dir=str(tmp_path))
+    c = flight.generate(prompt, 5, temperature=0.8, generator=torch.Generator().manual_seed(3))
+    assert torch.equal(c, a) and flight.recorder is not None
     with pytest.raises(ValueError, match="lives on"):
         Engine(CFG32, model, device="meta")
 
