@@ -67,7 +67,18 @@ card.  Then it drives six paths through the kernels:
   resume from the checkpoint); Heat3D with hide under a session; and
   mamba2-1.3b through Engine(flight_dir=).  The launches of K1 and K2-K4
   center on these paths join their entries of the kernels line
-  (``launches_slice9``).
+  (``launches_slice9``);
+* last, the grid across processes (phase ``dist``): the one-process runs
+  here, then 8 processes of a gloo group on this card, one block each
+  (Heat3D 8 x 256^3 f32 100 steps with hide and without, every block and
+  the gathered field bitwise the one-process run, 7 / 1 K1 launches a
+  step per process; Poisson3D mgcg at 8 x 130^3 f64 with the one-process
+  iteration count), 2 gloo processes of 4 blocks (Heat3D bitwise, one
+  TwoPhase3D mgcg step with the one-process count), NCCL with one process
+  (Heat3D bitwise), and NCCL across min(cards, 4) cards where the host has
+  several.  gloo stages the halos through the host: its times measure no
+  link.  The processes' launches join the kernels line
+  (``launches_dist``).
 
 Times come from CUDA events or from host clocks around synchronised work.
 Every phase prints one line; any failure raises and exits non-zero.  The
@@ -2501,6 +2512,329 @@ def slice9_phases(sk, full=POISSON_FULL) -> tuple[dict, int]:
     return center, k1
 
 
+# ---------------------------------------------------------------------------
+# slice 10: the grid across processes (phase dist)
+# ---------------------------------------------------------------------------
+
+DIST_HEAT = dict(nx=256, ny=256, nz=256, dims=(2, 2, 2))                    # 8 x 256^3 f32
+DIST_POISSON = dict(nx=130, ny=130, nz=130, dims=(2, 2, 2))                # 8 x 130^3 f64
+DIST_TWOPHASE = dict(nx=130, ny=130, nz=130, dims=(2, 2, 2), method="mgcg")
+DIST_STEPS, DIST_WARM = 100, 2
+DIST_HIDE = (16, 2, 2)
+DIST_GROUP_TIMEOUT_S = 180     # a missing peer is an error after this, not a hang
+DIST_SPAWN_LIMIT_S = 420       # one spawn of processes, start-up included
+
+
+def dist_heat_start(app):
+    """The dist phase's seeded Heat3D start: a Gaussian bump on 1.7."""
+    def fn(ix, iy, iz):
+        x, y, z = ix.double() * app.dx, iy.double() * app.dy, iz.double() * app.dz
+        return 1.7 + torch.exp(-((x - 0.5) ** 2 + (y - 0.45) ** 2 + (z - 0.55) ** 2) / 0.02)
+    return app.grid.from_global_fn(fn)
+
+
+def block_digests(grid, T) -> dict:
+    """SHA-256 of every block's cells (halos included), by global block rank."""
+    import hashlib
+
+    a = T.detach().cpu().numpy()
+    return {str(r): hashlib.sha256(np.ascontiguousarray(a[idx]).tobytes()).hexdigest()
+            for r, idx in zip(grid.topo.block_ranks(), np.ndindex(*grid.local_dims))}
+
+
+def dist_heat(hide, gather: bool = False) -> dict:
+    """Heat3D at 8 x 256^3 from the seeded start, DIST_WARM + DIST_STEPS
+    steps; the timed steps' K1 launches and ms per step, the block digests
+    and (``gather``) the digest of the gathered field.  The same code runs
+    in every process of a group and, without a group, in the parent."""
+    import hashlib
+
+    from repro_torch.apps import Heat3D
+    from repro_torch.core import comm
+    from repro_torch.kernels.stencil3d import heat_step_cuda
+
+    app = Heat3D(**DIST_HEAT, hide=hide)
+    T, Ci = dist_heat_start(app), app.grid.full(1.0 / app.c0)
+    T, _ = app.run(DIST_WARM, T, Ci)
+    comm.barrier()
+    heat_step_cuda.launches = 0
+    t0 = time.perf_counter()
+    T, _ = app.run(DIST_STEPS, T, Ci)
+    comm.barrier()
+    ms = (time.perf_counter() - t0) * 1e3 / DIST_STEPS
+    out = {"launches": heat_step_cuda.launches, "ms_per_step": ms,
+           "digests": block_digests(app.grid, T), "local_dims": app.grid.local_dims}
+    if gather:
+        out["gather"] = hashlib.sha256(app.grid.gather(T).tobytes()).hexdigest()
+    if not torch.isfinite(T).all():
+        fail(f"Heat3D hide={hide}: non-finite field")
+    return out
+
+
+def dist_poisson() -> dict:
+    """Poisson3D mgcg at 8 x 130^3 f64 to 1e-8: iterations, history, the
+    K2-K5 launches of this process and ms per iteration."""
+    from repro_torch.apps import Poisson3D
+    from repro_torch.core import comm
+    from repro_torch.kernels import solver3d as sk
+
+    app = Poisson3D(**DIST_POISSON)
+    comm.barrier()
+    zero_counts(sk)
+    u, info = app.solve("mgcg", tol=1e-8)
+    comm.barrier()
+    return {"iterations": info.iterations, "residuals": [float(v) for v in info.residuals],
+            "relres": info.relres, "launches": launch_counts(sk),
+            "ms_per_iteration": info.wall_s * 1e3 / max(info.iterations, 1)}
+
+
+def dist_twophase() -> dict:
+    """One TwoPhase3D mgcg step at 8 x 130^3 f64: its pressure iterations and
+    this process's shifted K2-K4 launches."""
+    from repro_torch.apps import TwoPhase3D
+    from repro_torch.kernels import solver3d as sk
+
+    app = TwoPhase3D(**DIST_TWOPHASE)
+    before = shift_counts(sk)
+    t0 = time.perf_counter()
+    S, infos = app.run(1)
+    ms = (time.perf_counter() - t0) * 1e3
+    if not torch.isfinite(S.Pe.data).all():
+        fail("TwoPhase3D: non-finite pressure")
+    d = shift_diff(shift_counts(sk), before)
+    if any(n != shifted for n, shifted in d.values()):
+        fail(f"TwoPhase3D: unshifted K2-K5 launches in the pressure solve: {d}")
+    return {"iterations": [i.iterations for i in infos], "ms_per_step": ms,
+            "launches": {k: n for k, (n, _) in d.items()}}
+
+
+DIST_CHECKS = {
+    "heat_hide": lambda: dist_heat(DIST_HIDE),
+    "heat_plain": lambda: dist_heat(None, gather=True),
+    "poisson": dist_poisson,
+    "twophase": dist_twophase,
+}
+
+
+def dist_child() -> int:
+    """One process of a dist spawn: joins the group the parent described in
+    ``CHIP_SMOKE_DIST``, runs its checks on the kernels the parent built,
+    and writes what they return as JSON."""
+    import datetime
+    import os
+
+    import torch.distributed as dist
+
+    job = json.loads(os.environ["CHIP_SMOKE_DIST"])
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.kernels import _build
+
+    if not _build.library_path().exists():
+        fail("the kernels' library is missing: the parent builds it before spawning")
+    rank, world = job["rank"], job["world"]
+    if job["backend"] == "nccl":
+        torch.cuda.set_device(int(os.environ["LOCAL_RANK"]) % torch.cuda.device_count())
+    dist.init_process_group(job["backend"], init_method="file://" + job["rendezvous"],
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=DIST_GROUP_TIMEOUT_S))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {name: DIST_CHECKS[name]() for name in job["checks"]}
+    with open(os.path.join(job["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def dist_spawn(world: int, backend: str, checks, tmp: str) -> list:
+    """Run ``checks`` in ``world`` processes of a ``backend`` group on this
+    host; returns each rank's results.  Every process started is ended
+    before this returns; any failure fails the script."""
+    import os
+
+    job_dir = os.path.join(tmp, f"{backend}{world}")
+    os.makedirs(job_dir)
+    here = str(Path(__file__).resolve().parent)
+    cmd = [sys.executable, "-c",
+           f"import sys; sys.path.insert(0, {here!r}); import chip_smoke; "
+           "sys.exit(chip_smoke.dist_child())"]
+    procs, logs = [], []
+    for r in range(world):
+        job = {"rank": r, "world": world, "backend": backend, "checks": list(checks),
+               "rendezvous": os.path.join(job_dir, "rendezvous"), "out": job_dir}
+        env = dict(os.environ, LOCAL_RANK=str(r), OMP_NUM_THREADS="1",
+                   CHIP_SMOKE_DIST=json.dumps(job))
+        log = open(os.path.join(job_dir, f"log{r}.txt"), "w+")
+        logs.append(log)
+        procs.append(subprocess.Popen(cmd, env=env, stdout=log, stderr=subprocess.STDOUT))
+    # within the call's limit whatever happens: a hung group is killed
+    deadline = time.perf_counter() + min(DIST_SPAWN_LIMIT_S, remaining_s() - 30)
+    try:
+        for p in procs:
+            try:
+                p.wait(timeout=max(deadline - time.perf_counter(), 1.0))
+            except subprocess.TimeoutExpired:
+                break
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    rcs = [p.returncode for p in procs]
+    if any(rcs):
+        for r, log in enumerate(logs):
+            log.seek(0)
+            print(f"--- {backend} rank {r} rc={rcs[r]} ---\n{log.read()[-3000:]}", flush=True)
+        fail(f"dist: {world} {backend} processes ended with {rcs}")
+    for log in logs:
+        log.close()
+    out = []
+    for r in range(world):
+        with open(os.path.join(job_dir, f"rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def dist_phase(card: str) -> dict:
+    """Phase 33 (dist): the grid across processes on this host.  The
+    one-process runs first, in this process (no group); then 8 gloo
+    processes of one block each (Heat3D hide and plain bitwise, the
+    gathered field bitwise, mgcg counts), 2 gloo processes of 4 blocks
+    (Heat3D bitwise, a TwoPhase3D mgcg step's counts), NCCL with one
+    process (Heat3D bitwise), and NCCL across min(cards, 4) cards where
+    there are several.  Returns K1's, K2-K5's and shifted K2-K5's
+    launches in the group runs (summed over the processes; each check
+    zeroes and reads the counts around its own run)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.kernels import solver3d as sk
+
+    t_phase = time.perf_counter()
+    one = {"heat_hide": dist_heat(DIST_HIDE), "heat_plain": dist_heat(None, gather=True),
+           "poisson": dist_poisson(), "twophase": dist_twophase()}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    say("dist", config="one process", card=repr(card),
+        heat_ms_per_step_hide=one["heat_hide"]["ms_per_step"],
+        heat_ms_per_step_plain=one["heat_plain"]["ms_per_step"],
+        mgcg_iterations=one["poisson"]["iterations"],
+        mgcg_ms_per_iteration=one["poisson"]["ms_per_iteration"],
+        twophase_mgcg_iterations=one["twophase"]["iterations"])
+
+    def same_heat(name, got, where):
+        for r, res in enumerate(got):
+            want = {k: one[name]["digests"][k] for k in res[name]["digests"]}
+            if res[name]["digests"] != want:
+                fail(f"dist {where}: {name} of rank {r} differs from the one-process run")
+        if sorted(k for res in got for k in res[name]["digests"]) \
+                != sorted(one[name]["digests"]):
+            fail(f"dist {where}: the processes do not hold every block once")
+        per_step = 7 if name == "heat_hide" else 1
+        for r, res in enumerate(got):
+            if res[name]["launches"] != per_step * DIST_STEPS:
+                fail(f"dist {where}: rank {r} launched K1 {res[name]['launches']} times in "
+                     f"{DIST_STEPS} steps, expected {per_step * DIST_STEPS}")
+
+    def same_counts(name, got, where):
+        for r, res in enumerate(got):
+            if res[name]["iterations"] != one[name]["iterations"]:
+                fail(f"dist {where}: {name} of rank {r} took {res[name]['iterations']} "
+                     f"iterations, one process {one[name]['iterations']}")
+            for k in ("apply", "residual", "jacobi"):
+                if res[name]["launches"][k] == 0:
+                    fail(f"dist {where}: rank {r} never launched the {k} kernel")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    ops = ("apply", "residual", "jacobi", "cheb")
+    launches = {"heat": 0, "center": dict.fromkeys(ops, 0), "shift": dict.fromkeys(ops, 0)}
+
+    def tally(got):
+        for res in got:
+            launches["heat"] += sum(res[n]["launches"] for n in ("heat_hide", "heat_plain")
+                                    if n in res)
+            for n, kind in (("poisson", "center"), ("twophase", "shift")):
+                for k, v in res.get(n, {}).get("launches", {}).items():
+                    launches[kind][k] += v
+    try:
+        # ---- 8 gloo processes, one block each ------------------------------
+        t0 = time.perf_counter()
+        g8 = dist_spawn(8, "gloo", ("heat_hide", "heat_plain", "poisson"), tmp)
+        same_heat("heat_hide", g8, "8 gloo")
+        same_heat("heat_plain", g8, "8 gloo")
+        if g8[0]["heat_plain"]["gather"] != one["heat_plain"]["gather"]:
+            fail("dist 8 gloo: the gathered Heat3D field differs from the one-process run")
+        same_counts("poisson", g8, "8 gloo")
+        tally(g8)
+        say("dist", config="8 gloo processes x 1 block, Heat3D 8x256^3 f32", card=repr(card),
+            link="gloo staging through host on one card (measures no link)",
+            hide_ms_per_step=max(r["heat_hide"]["ms_per_step"] for r in g8),
+            hide_ms_per_step_one_process=one["heat_hide"]["ms_per_step"],
+            plain_ms_per_step=max(r["heat_plain"]["ms_per_step"] for r in g8),
+            plain_ms_per_step_one_process=one["heat_plain"]["ms_per_step"],
+            k1_launches_per_process_hide=g8[0]["heat_hide"]["launches"] // DIST_STEPS,
+            k1_launches_per_process_plain=g8[0]["heat_plain"]["launches"] // DIST_STEPS,
+            blocks="bitwise", gathered="bitwise")
+        say("dist", config="8 gloo processes x 1 block, Poisson3D mgcg 8x130^3 f64",
+            card=repr(card), link="gloo staging through host on one card (measures no link)",
+            iterations=g8[0]["poisson"]["iterations"],
+            iterations_one_process=one["poisson"]["iterations"],
+            ms_per_iteration=max(r["poisson"]["ms_per_iteration"] for r in g8),
+            ms_per_iteration_one_process=one["poisson"]["ms_per_iteration"],
+            k2_k5_launches_per_process=json.dumps(g8[0]["poisson"]["launches"]).replace(" ", ""),
+            k2_k5_launches_one_process=json.dumps(one["poisson"]["launches"]).replace(" ", ""),
+            spawn_s=time.perf_counter() - t0)
+        # ---- 2 gloo processes, 4 blocks each ------------------------------
+        t0 = time.perf_counter()
+        g2 = dist_spawn(2, "gloo", ("heat_hide", "twophase"), tmp)
+        same_heat("heat_hide", g2, "2 gloo")
+        same_counts("twophase", g2, "2 gloo")
+        if g2[0]["heat_hide"]["local_dims"] != [1, 2, 2]:
+            fail(f"dist 2 gloo: local blocks {g2[0]['heat_hide']['local_dims']}")
+        tally(g2)
+        say("dist", config="2 gloo processes x 4 blocks", card=repr(card),
+            link="gloo staging through host on one card (measures no link)",
+            heat_hide_ms_per_step=max(r["heat_hide"]["ms_per_step"] for r in g2),
+            heat_hide_ms_per_step_one_process=one["heat_hide"]["ms_per_step"],
+            heat="bitwise", twophase_mgcg_iterations=g2[0]["twophase"]["iterations"],
+            twophase_mgcg_iterations_one_process=one["twophase"]["iterations"],
+            twophase_ms_per_step=max(r["twophase"]["ms_per_step"] for r in g2),
+            twophase_ms_per_step_one_process=one["twophase"]["ms_per_step"],
+            k2_k5_launches_per_process=json.dumps(g2[0]["twophase"]["launches"]).replace(" ", ""),
+            spawn_s=time.perf_counter() - t0)
+        # ---- NCCL, one process -------------------------------------------
+        t0 = time.perf_counter()
+        n1 = dist_spawn(1, "nccl", ("heat_hide",), tmp)
+        same_heat("heat_hide", n1, "1 nccl")
+        tally(n1)
+        say("dist", config="1 nccl process x 8 blocks", card=repr(card), heat="bitwise",
+            heat_hide_ms_per_step=n1[0]["heat_hide"]["ms_per_step"],
+            heat_hide_ms_per_step_one_process=one["heat_hide"]["ms_per_step"],
+            spawn_s=time.perf_counter() - t0)
+        # ---- NCCL across cards -------------------------------------------
+        cards = torch.cuda.device_count()
+        if cards > 1:
+            world = min(cards, 4)
+            t0 = time.perf_counter()
+            nn = dist_spawn(world, "nccl", ("heat_hide", "poisson"), tmp)
+            same_heat("heat_hide", nn, f"{world} nccl")
+            same_counts("poisson", nn, f"{world} nccl")
+            tally(nn)
+            say("dist", config=f"{world} nccl processes, one card each", card=repr(card),
+                heat="bitwise", heat_hide_ms_per_step=max(r["heat_hide"]["ms_per_step"]
+                                                          for r in nn),
+                mgcg_iterations=nn[0]["poisson"]["iterations"], spawn_s=time.perf_counter() - t0)
+        else:
+            say("dist", config="nccl across cards", status="not run",
+                reason=f"this host has {cards} card; the phase needs 2 or more")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    say("dist", status="ok", elapsed_s=time.perf_counter() - t_phase,
+        k1_launches=launches["heat"],
+        k2_k5_launches=json.dumps(launches["center"]).replace(" ", ""),
+        k2_k5_shifted_launches=json.dumps(launches["shift"]).replace(" ", ""))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible; nothing was run", file=sys.stderr)
@@ -2668,6 +3002,18 @@ def main() -> int:
     for e in solver_entries:
         e["launches"] += center[e["name"]]
         e["launches_slice9"] = center[e["name"]]
+    # the processes of the dist phase: Heat3D's K1, Poisson's K2-K5 and the
+    # two-phase step's shifted K2-K5, summed over the processes
+    dist = dist_phase(card)
+    k1["launches"] += dist["heat"]
+    k1["launches_dist"] = dist["heat"]
+    for e in solver_entries:
+        e["launches"] += dist["center"][e["name"]]
+        e["launches_dist"] = dist["center"][e["name"]]
+    for e in shift_entries:
+        op = e["name"][:-len("_shift")]
+        e["launches"] += dist["shift"][op]
+        e["launches_dist"] = dist["shift"][op]
 
     print(json.dumps({"kernels": [k1] + solver_entries + face_entries + ssd_entries
                       + swa_entries + shift_entries}))

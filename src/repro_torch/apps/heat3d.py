@@ -1,4 +1,4 @@
-"""Paper Fig. 1: stencil-based 3-D heat diffusion solver, on one card.
+"""Paper Fig. 1: stencil-based 3-D heat diffusion solver.
 
 Three grid calls turn the single-block solver into a multi-block one:
 
@@ -8,7 +8,9 @@ Three grid calls turn the single-block solver into a multi-block one:
 
 The whole compute of a step is one heat-step kernel launch per block batch:
 one for the full field without hiding, seven with it (six boundary-shell
-slabs and the interior).
+slabs and the interior), in each process of a ``torch.distributed`` group
+over the blocks it holds.  :meth:`Heat3D.oracle` takes gathered global
+arrays.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ class Heat3D:
     lx: float = 1.0
     hide: tuple | None = (16, 2, 2)   # paper's @hide_communication tuple
     use_kernel: str = "auto"          # auto | cuda | ref
-    dims: tuple | None = None         # virtual ranks per dim (None: one)
+    dims: tuple | None = None         # global blocks per dim (None: one per process)
     dtype: torch.dtype = torch.float32
     device: object = None             # None: the CUDA card
     heartbeat: int = 0                # rank-0 heartbeat event every k solver iterations

@@ -1,4 +1,4 @@
-"""3-D variable-coefficient Poisson, solved three ways, on one card.
+"""3-D variable-coefficient Poisson, solved three ways.
 
     -div( c(x) grad u ) = f
 
@@ -15,7 +15,9 @@ the operator is singular: ``cg``/``mgcg`` run with
 returning the mean-zero representative; ``pt`` is rejected.
 
 On a CUDA tensor every operator application is kernel K2 and the V-cycle's
-residuals and sweeps are K3-K5.
+residuals and sweeps are K3-K5.  Under a ``torch.distributed`` group every
+process solves over the blocks it holds, and :meth:`Poisson3D.oracle`
+runs on the gathered arrays on every process.
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ class Poisson3D:
     lx: float = 1.0         # domain edge length along x (y/z scale with N)
     coef_amp: float = 0.5   # c = 1 + amp * (smooth); keep < 1 for SPD
     periodic: tuple = (False, False, False)
-    dims: tuple | None = None          # virtual ranks per dim (None: one)
+    dims: tuple | None = None          # global blocks per dim (None: one per process)
     dtype: torch.dtype = torch.float64
     use_kernel: str = "auto"           # auto | cuda | ref
     device: object = None              # None: the CUDA card

@@ -1,5 +1,4 @@
-"""Paper Fig. 3: nonlinear 3-D poro-viscous two-phase flow (porosity waves),
-on one card.
+"""Paper Fig. 3: nonlinear 3-D poro-viscous two-phase flow (porosity waves).
 
 Effective pressure ``Pe`` and porosity ``phi`` coupled through a
 porosity-dependent Darcy flux and viscous (de)compaction on a regular
@@ -30,7 +29,9 @@ Two time integrators (``method=``):
 
 The porosity is advanced with the new pressure; the nonlinear coefficients
 are frozen at the old porosity.  Any mix of periodic and Dirichlet dims
-works with every integrator.
+works with every integrator, and under a ``torch.distributed`` group every
+process steps the blocks it holds (:meth:`TwoPhase3D.oracle` runs on the
+gathered arrays).
 """
 
 from __future__ import annotations
@@ -72,7 +73,7 @@ class TwoPhase3D:
     variant: str = "classic"  # Krylov schedule: "classic" | "pipelined"
     hide: tuple | None = (8, 2, 2)   # explicit-step communication hiding
     periodic: tuple = (False, False, False)
-    dims: tuple | None = None          # virtual ranks per dim (None: one)
+    dims: tuple | None = None          # global blocks per dim (None: one per process)
     dtype: torch.dtype = torch.float64
     use_kernel: str = "auto"           # auto | cuda | ref (pressure operator, cycle)
     device: object = None              # None: the CUDA card

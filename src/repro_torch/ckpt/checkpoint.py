@@ -14,6 +14,17 @@ device to host before it returns and writes the files on a worker thread.
 A field restores onto another block layout through its deduplicated
 global array: save ``grid.gather(u)``, restore it, and ``grid2.scatter(G)``
 builds the field on any ``dims`` (the reference's own path).
+
+Under a ``torch.distributed`` group the files are those of the same state
+held by one process.  A field leaf — a ``Field``, or a bare tensor of the
+shape ``grid.shape`` of the ``grid=`` passed — is gathered into the field
+tensor of every block, ``(*dims, *local)`` (collective: every process
+saves), and process 0 alone writes the files; every other leaf is taken
+to be the same on every process (a gathered array, a step counter) and is
+written as process 0 holds it.  Every process then waits for the others.
+:func:`restore` reads on every process, and each takes its own blocks of a
+field leaf.  So a state saved on 8 processes restores on one process with
+the same ``dims``, and through its gathered array on any other layout.
 """
 
 from __future__ import annotations
@@ -28,6 +39,7 @@ import shutil
 import numpy as np
 import torch
 
+from ..core import comm
 from ..core import locations as _loc
 
 
@@ -64,6 +76,23 @@ def _unflatten(like, leaves):
     return next(leaves)
 
 
+def _field_grids(tree, grid=None) -> list:
+    """For each leaf of :func:`_flatten`, the grid of a field leaf (a
+    ``Field``'s own, or ``grid`` for a bare tensor of shape ``grid.shape``),
+    else None."""
+    if isinstance(tree, dict):
+        return [g for k in sorted(tree) for g in _field_grids(tree[k], grid)]
+    if isinstance(tree, (list, tuple)):
+        return [g for v in tree for g in _field_grids(v, grid)]
+    if _loc.is_field_set(tree):
+        return [g for _, v in tree.items() for g in _field_grids(v, grid)]
+    if _loc.is_field_node(tree):
+        return [tree.grid]
+    if grid is not None and isinstance(tree, torch.Tensor) and tuple(tree.shape) == grid.shape:
+        return [grid]
+    return [None]
+
+
 def _leaf_name(path) -> str:
     return "__".join(str(p) for p in path) or "root"
 
@@ -77,22 +106,57 @@ def _to_host(x) -> np.ndarray:
     return np.array(x, copy=True)
 
 
-def _host_leaves(state):
-    return [(_leaf_name(p), _to_host(x)) for p, x in _flatten(state)]
+def _host_leaves(state, grid=None):
+    """Host copies of the leaves, a field leaf of a grid spread over
+    processes gathered into the field tensor of every block (collective)."""
+    out = []
+    for (p, x), g in zip(_flatten(state), _field_grids(state, grid)):
+        if g is not None and g.distributed:
+            x = g.all_blocks(x)
+        out.append((_leaf_name(p), _to_host(x)))
+    return out
 
 
-def save(state, step: int, ckpt_dir: str) -> str:
-    """Synchronous save.  Returns the checkpoint path."""
-    return _write(_host_leaves(state), step, ckpt_dir)
+def _path(step: int, ckpt_dir: str) -> str:
+    return os.path.join(ckpt_dir, f"step_{step:08d}")
 
 
-def async_save(state, step: int, ckpt_dir: str):
-    """Device-to-host copy now; file IO on a worker thread.  Returns a future."""
-    return _executor().submit(_write, _host_leaves(state), step, ckpt_dir)
+def save(state, step: int, ckpt_dir: str, grid=None) -> str:
+    """Synchronous save.  Returns the checkpoint path.  Under a process
+    group every process calls it (``grid``: see the module docstring)."""
+    leaves = _host_leaves(state, grid)
+    if comm.rank() == 0:
+        _write(leaves, step, ckpt_dir)
+    comm.barrier()
+    return _path(step, ckpt_dir)
+
+
+class GroupSave:
+    """The future of :func:`async_save`: process 0's write, or nothing to
+    wait for on the others.  :meth:`result` is collective: it waits for the
+    write, then for every process of the group (if there is one)."""
+
+    def __init__(self, future, path: str):
+        self._future, self._path = future, path
+
+    def result(self, timeout=None) -> str:
+        if self._future is not None:
+            self._future.result(timeout=timeout)
+        comm.barrier()
+        return self._path
+
+
+def async_save(state, step: int, ckpt_dir: str, grid=None):
+    """Device-to-host copy now (and, under a process group, the gather of
+    the field leaves); file IO on a worker thread.  Returns a
+    :class:`GroupSave`."""
+    leaves = _host_leaves(state, grid)
+    future = _executor().submit(_write, leaves, step, ckpt_dir) if comm.rank() == 0 else None
+    return GroupSave(future, _path(step, ckpt_dir))
 
 
 def _write(host_leaves, step: int, ckpt_dir: str) -> str:
-    final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    final = _path(step, ckpt_dir)
     tmp = final + ".tmp"
     os.makedirs(tmp, exist_ok=True)
     names = []
@@ -122,9 +186,11 @@ def _shape(like) -> tuple:
     return tuple(np.shape(like))
 
 
-def restore(state_like, step: int, ckpt_dir: str, shardings=None):
+def restore(state_like, step: int, ckpt_dir: str, shardings=None, grid=None):
     """Restore into the structure of ``state_like`` (shapes must match);
-    every leaf comes back as a tensor with the stored dtype.
+    every leaf comes back as a tensor with the stored dtype.  A field leaf
+    of a grid spread over processes (see the module docstring) takes this
+    process's blocks of the stored field tensor of every block.
 
     ``shardings`` is the one-card counterpart of the reference's target
     shardings: a tree of ``torch.device``s matching ``state_like``, or one
@@ -132,8 +198,9 @@ def restore(state_like, step: int, ckpt_dir: str, shardings=None):
     ``state_like`` tensor, and on the CPU where ``state_like`` holds a
     NumPy array or a Python number.
     """
-    path = os.path.join(ckpt_dir, f"step_{step:08d}")
+    path = _path(step, ckpt_dir)
     leaves = _flatten(state_like)
+    grids = _field_grids(state_like, grid)
     if shardings is None or isinstance(shardings, (str, torch.device)):
         devices = [shardings] * len(leaves)
     else:
@@ -141,8 +208,13 @@ def restore(state_like, step: int, ckpt_dir: str, shardings=None):
         if len(devices) != len(leaves):
             raise ValueError(f"shardings has {len(devices)} leaves, the state {len(leaves)}")
     out = []
-    for (p, like), dev in zip(leaves, devices):
+    for (p, like), dev, g in zip(leaves, devices, grids):
         arr = np.load(os.path.join(path, _leaf_name(p) + ".npy"))
+        if g is not None and g.distributed:
+            if tuple(arr.shape) != g.full_shape:
+                raise ValueError(f"{_leaf_name(p)}: ckpt {arr.shape} != field {g.full_shape}")
+            arr = np.ascontiguousarray(arr[tuple(
+                slice(o, o + m) for o, m in zip(g.topo.offset, g.local_dims))])
         if tuple(arr.shape) != _shape(like):
             raise ValueError(f"{_leaf_name(p)}: ckpt {arr.shape} != target {_shape(like)}")
         if dev is None:

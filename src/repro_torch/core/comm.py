@@ -1,0 +1,152 @@
+"""The process-group backend of the implicit global grid.
+
+A field's blocks may live in several processes of a ``torch.distributed``
+process group, the paper's one rank per GPU: each process holds the
+contiguous box of blocks that :class:`repro_torch.core.topology.
+CartesianTopology` assigns it.  This module is the ONLY place that calls
+``torch.distributed``:
+
+* :func:`sendrecv` — the neighbour exchange of one halo slab per
+  direction along one grid dimension (``batch_isend_irecv``);
+* :func:`all_reduce` — sum, max and min of the reductions' partials;
+* :func:`all_gather` — every process's tensor, for ``gather``;
+* :func:`barrier`, and what a process needs to know of the group
+  (:func:`initialized`, :func:`world_size`, :func:`rank`).
+
+The group is the default one the caller made with
+``torch.distributed.init_process_group``, and its backend is the caller's
+choice: ``nccl`` between cards, ``gloo`` on the CPU and for several
+processes sharing one card.  Nothing here picks, changes or falls back to
+another backend.  gloo's point-to-point and collective calls take CPU
+tensors only, so under gloo a CUDA tensor is staged through host memory:
+copied to the host, sent, received into host buffers and copied back.
+That is how gloo moves device data, not a fallback, and it makes the host
+wait for the device at every exchange.  Without a group (or with a group
+of one process) none of these functions is reached by the grid.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# Tags of the two directions of one exchange.  gloo matches messages by
+# tag; NCCL ignores tags and matches the messages between a pair of ranks
+# in the order they were issued, so :func:`sendrecv` issues the
+# low-going pair before the high-going one on every process.
+_TAG_LOW, _TAG_HIGH = 1, 2
+
+
+def _dist():
+    import torch.distributed as dist
+    return dist
+
+
+def initialized() -> bool:
+    """True when a default process group exists."""
+    try:
+        dist = _dist()
+    except ImportError:  # a build without distributed support
+        return False
+    return dist.is_available() and dist.is_initialized()
+
+
+def world_size() -> int:
+    """Processes in the default group (1 without one)."""
+    return _dist().get_world_size() if initialized() else 1
+
+
+def rank() -> int:
+    """This process's rank in the default group (0 without one)."""
+    return _dist().get_rank() if initialized() else 0
+
+
+def backend() -> str | None:
+    """The default group's backend (``"gloo"``, ``"nccl"``), None without one."""
+    return str(_dist().get_backend()) if initialized() else None
+
+
+def _staged(t: torch.Tensor) -> bool:
+    """Whether ``t`` must travel through host memory (gloo and a CUDA tensor)."""
+    return t.device.type == "cuda" and backend() == "gloo"
+
+
+def _wire(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous tensor the backend can send: a host copy under staging."""
+    return t.detach().to("cpu") if _staged(t) else t.detach().contiguous()
+
+
+def _buffer(like: torch.Tensor) -> torch.Tensor:
+    return torch.empty(like.shape, dtype=like.dtype,
+                       device="cpu" if _staged(like) else like.device)
+
+
+def sendrecv(to_low: torch.Tensor | None, to_high: torch.Tensor | None,
+             low: int | None, high: int | None):
+    """One exchange along a grid dimension: ``to_low`` goes to process
+    ``low`` and ``to_high`` to process ``high`` (None where there is no
+    neighbour); returns ``(from_low, from_high)``, what those processes
+    sent this way, on the tensors' device (None where there is none).
+
+    ``low`` and ``high`` may be the same process (two processes along a
+    periodic dimension): each direction has its own tag, and the
+    low-going send and receive are issued before the high-going ones.
+    """
+    dist = _dist()
+    like = to_low if to_low is not None else to_high
+    ops, from_low, from_high = [], None, None
+    if low is not None:
+        ops.append(dist.P2POp(dist.isend, _wire(to_low), low, tag=_TAG_LOW))
+    if high is not None:
+        from_high = _buffer(like)
+        ops.append(dist.P2POp(dist.irecv, from_high, high, tag=_TAG_LOW))
+    if high is not None:
+        ops.append(dist.P2POp(dist.isend, _wire(to_high), high, tag=_TAG_HIGH))
+    if low is not None:
+        from_low = _buffer(like)
+        ops.append(dist.P2POp(dist.irecv, from_low, low, tag=_TAG_HIGH))
+    for work in dist.batch_isend_irecv(ops) if ops else ():
+        work.wait()
+    dev = like.device
+    return tuple(None if t is None else t.to(dev) for t in (from_low, from_high))
+
+
+def all_gather(t: torch.Tensor) -> list[torch.Tensor]:
+    """``t`` of every process, in rank order (every process passes a tensor
+    of the same shape and dtype).  Under staging the results stay on the
+    host."""
+    dist = _dist()
+    w = _wire(t)
+    out = [torch.empty_like(w) for _ in range(world_size())]
+    dist.all_gather(out, w)
+    return out
+
+
+def all_reduce(x: torch.Tensor, op: str) -> torch.Tensor:
+    """``op`` in {"sum", "max", "min"} of ``x`` over the processes, as a new
+    tensor on ``x``'s device.
+
+    A sum gathers the partials of every process and reduces them on each
+    process by the same call on the same tensor, so every process reads
+    the same bits: the solvers' stopping tests read these values on each
+    process, and a one-ulp disagreement between processes would send them
+    on different iteration counts.  Max and min are exact in any order.
+    """
+    if op == "sum":
+        return torch.stack(all_gather(x)).sum(0).to(x.device)
+    dist = _dist()
+    ops = {"max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}
+    if op not in ops:
+        raise ValueError(f"unknown reduction {op!r}; expected sum, max or min")
+    w = _wire(x).clone()
+    dist.all_reduce(w, op=ops[op])
+    return w.to(x.device)
+
+
+def barrier() -> None:
+    """Wait for every process of the default group (a no-op without one)."""
+    if initialized():
+        _dist().barrier()
+
+
+__all__ = ["all_gather", "all_reduce", "backend", "barrier", "initialized", "rank",
+           "sendrecv", "world_size"]

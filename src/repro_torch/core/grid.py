@@ -1,4 +1,4 @@
-"""The implicit global grid — the paper's core abstraction, on one card.
+"""The implicit global grid — the paper's core abstraction.
 
 The user writes a single-device stencil code on a local grid of shape
 ``(nx, ny, nz)`` (halo cells included).  The global grid follows from the
@@ -6,14 +6,22 @@ block counts ``dims`` of a Cartesian topology:
 
     nx_g = dims_x * (nx - overlap) + overlap        (overlap = 2 * halo)
 
-A *field* is one contiguous tensor of shape ``(*dims, *local_shape)``: all
-``prod(dims)`` blocks are virtual ranks on the same card, each block
-contiguous like a real rank's memory, neighbouring blocks logically
-overlapping.  Local-view functions act on the trailing ``ndims`` axes with
-the block axes as a batch (``vmap`` written out), so ``parallel`` is a plain
+``dims`` are the global block counts.  Without a ``torch.distributed``
+group one process holds every block: a *field* is one contiguous tensor of
+shape ``(*dims, *local_shape)``, all ``prod(dims)`` blocks virtual ranks on
+the same device, each block contiguous like a real rank's memory,
+neighbouring blocks logically overlapping.  Under a group of ``P``
+processes the blocks are spread over them (:mod:`.topology`): each process
+holds the box of ``local_dims`` blocks its coordinate in the process
+layout ``procs`` gives it, and its field tensor is ``(*local_dims,
+*local_shape)``; halos cross processes by point-to-point messages and
+reductions by all-reduces (:mod:`.comm`).  ``dims=None`` is one block per
+process.  Local-view functions act on the trailing ``ndims`` axes with the
+block axes as a batch (``vmap`` written out), so ``parallel`` is a plain
 call.  The reference's storage layout, one array of stacked blocks
 (``stacked_shape``), is reached through :meth:`to_stacked` /
-:meth:`from_stacked`.
+:meth:`from_stacked`; these and :meth:`gather` / :meth:`scatter` see the
+whole grid on every process.
 
 Three calls turn a single-device solver into a multi-block one, as in the
 paper's Fig. 1:
@@ -31,13 +39,16 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from . import comm
 from . import halo as _halo
 from . import hide as _hide
-from .topology import CartesianTopology, dims_create
+from .topology import CartesianTopology, dims_create, procs_for
 
 
 class ImplicitGlobalGrid:
-    """Implicit global grid over ``prod(dims)`` virtual ranks on one device."""
+    """Implicit global grid over ``prod(dims)`` blocks, held by this process
+    alone or spread over the processes of the default ``torch.distributed``
+    group in the process layout :func:`procs_for` gives."""
 
     def __init__(
         self,
@@ -58,13 +69,16 @@ class ImplicitGlobalGrid:
             raise ValueError("overlap must be even (two halo layers of width h)")
         self.overlap = int(overlap)
         self.halo = self.overlap // 2
+        nprocs = comm.world_size()
         if dims is None:
-            dims = dims_create(1, self.ndims)  # one card is one rank
+            dims = dims_create(nprocs, self.ndims)  # one block per process
         dims = tuple(int(d) for d in dims)
         if len(dims) != self.ndims:
             raise ValueError(f"dims {dims} do not match grid rank {self.ndims}")
+        procs = procs_for(dims, nprocs)
         self.topo = CartesianTopology(
-            dims=dims, periodic=tuple(bool(p) for p in periodic[: self.ndims]))
+            dims=dims, periodic=tuple(bool(p) for p in periodic[: self.ndims]), procs=procs,
+            pcoord=tuple(int(c) for c in np.unravel_index(comm.rank(), procs)))
         self.dtype = dtype
         self.device = resolve_device(device)
         for n in self.local_shape:
@@ -76,7 +90,18 @@ class ImplicitGlobalGrid:
     # ------------------------------------------------------------------
     @property
     def dims(self) -> tuple[int, ...]:
+        """Global block counts."""
         return self.topo.dims
+
+    @property
+    def local_dims(self) -> tuple[int, ...]:
+        """Block counts this process holds (``dims`` without a group)."""
+        return self.topo.local_dims
+
+    @property
+    def distributed(self) -> bool:
+        """True when the blocks are spread over more than one process."""
+        return self.topo.nprocs > 1
 
     def n_g(self, dim: int) -> int:
         n = self.local_shape[dim]
@@ -110,13 +135,18 @@ class ImplicitGlobalGrid:
 
     @property
     def shape(self) -> tuple[int, ...]:
-        """Shape of a field tensor: ``(*dims, *local_shape)``."""
+        """Shape of this process's field tensor: ``(*local_dims, *local_shape)``."""
+        return tuple(self.local_dims) + tuple(self.local_shape)
+
+    @property
+    def full_shape(self) -> tuple[int, ...]:
+        """Shape of the field tensor of every block: ``(*dims, *local_shape)``."""
         return tuple(self.dims) + tuple(self.local_shape)
 
     def local_global_indices(self) -> tuple[torch.Tensor, ...]:
-        """Global index tensors of every block, each shaped to broadcast
-        against a field (block axis and local axis of its dim, ones
-        elsewhere)."""
+        """Global index tensors of every block of this process, each shaped
+        to broadcast against a field (block axis and local axis of its dim,
+        ones elsewhere)."""
         out = []
         nd = self.ndims
         for d in range(nd):
@@ -176,30 +206,57 @@ class ImplicitGlobalGrid:
     # ------------------------------------------------------------------
     # layout conversion, gather / scatter (tests, IO, checkpoints)
     # ------------------------------------------------------------------
-    def to_stacked(self, A: torch.Tensor) -> np.ndarray:
-        """Field -> the reference's stacked-blocks NumPy array."""
-        nd = self.ndims
+    def all_blocks(self, A: torch.Tensor) -> torch.Tensor:
+        """Field -> the field tensor of every block, ``(*dims, *local)``
+        (``A`` itself without a group).  Collective under a group: every
+        process calls it and gets the whole, on the host unless the
+        backend moves device tensors."""
         if tuple(A.shape) != self.shape:
             raise ValueError(f"expected a field of shape {self.shape}, got {tuple(A.shape)}")
+        if not self.distributed:
+            return A
+        parts = comm.all_gather(A)
+        out = parts[0].new_empty(self.full_shape)
+        for r, part in enumerate(parts):
+            pc = np.unravel_index(r, self.topo.procs)
+            out[tuple(slice(c * n, (c + 1) * n)
+                      for c, n in zip(pc, self.local_dims))] = part
+        return out
+
+    def to_stacked(self, A: torch.Tensor) -> np.ndarray:
+        """Field -> the reference's stacked-blocks NumPy array of the whole
+        grid (collective under a group, see :meth:`all_blocks`)."""
+        nd = self.ndims
+        A = self.all_blocks(A)
         perm = [p for d in range(nd) for p in (d, nd + d)]
         a = A.detach().permute(perm).reshape(self.stacked_shape)
         if a.dtype == torch.bfloat16:
             a = a.float()
         return a.cpu().numpy()
 
-    def from_stacked(self, a, dtype=None) -> torch.Tensor:
-        """Stacked-blocks array (the reference's layout) -> field tensor."""
-        a = np.asarray(a)
-        if a.shape != self.stacked_shape:
-            raise ValueError(f"expected {self.stacked_shape}, got {a.shape}")
+    def _from_own_stacked(self, a, dtype=None) -> torch.Tensor:
+        """This process's blocks, stacked as the reference stacks them
+        (``local_dims[d] * local_shape[d]`` per dim) -> field tensor."""
         nd = self.ndims
-        split = [s for d in range(nd) for s in (self.dims[d], self.local_shape[d])]
+        split = [s for d in range(nd) for s in (self.local_dims[d], self.local_shape[d])]
         perm = list(range(0, 2 * nd, 2)) + list(range(1, 2 * nd, 2))
         t = torch.from_numpy(np.ascontiguousarray(a)).reshape(split).permute(perm)
         return t.to(device=self.device, dtype=dtype or self.dtype).contiguous()
 
+    def from_stacked(self, a, dtype=None) -> torch.Tensor:
+        """Stacked-blocks array of the whole grid (the reference's layout)
+        -> this process's field tensor."""
+        a = np.asarray(a)
+        if a.shape != self.stacked_shape:
+            raise ValueError(f"expected {self.stacked_shape}, got {a.shape}")
+        if self.distributed:
+            a = a[tuple(slice(o * n, (o + m) * n) for o, m, n in
+                        zip(self.topo.offset, self.local_dims, self.local_shape))]
+        return self._from_own_stacked(a, dtype)
+
     def gather(self, A: torch.Tensor) -> np.ndarray:
-        """Reconstruct the deduplicated global field as a NumPy array."""
+        """Reconstruct the deduplicated global field as a NumPy array (on
+        every process; collective under a group)."""
         a = self.to_stacked(A)
         ol = self.overlap
         for d in range(self.ndims):
@@ -215,13 +272,14 @@ class ImplicitGlobalGrid:
         return a
 
     def scatter(self, G, dtype=None) -> torch.Tensor:
-        """Inverse of :meth:`gather`: build the field from a global array."""
+        """Inverse of :meth:`gather`: build the field from a global array
+        (every process passes the whole array and takes its blocks)."""
         G = np.asarray(G)
         if G.shape != self.global_shape:
             raise ValueError(f"expected {self.global_shape}, got {G.shape}")
         a = G
         for d in range(self.ndims):
-            D = self.dims[d]
+            o, D = self.topo.offset[d], self.local_dims[d]
             n = self.local_shape[d]
             stride = n - self.overlap
 
@@ -229,8 +287,8 @@ class ImplicitGlobalGrid:
                 return (slice(None),) * d + (s,)
 
             a = np.concatenate(
-                [a[idx(slice(b * stride, b * stride + n))] for b in range(D)], axis=d)
-        return self.from_stacked(a, dtype=dtype)
+                [a[idx(slice(b * stride, b * stride + n))] for b in range(o, o + D)], axis=d)
+        return self._from_own_stacked(a, dtype=dtype)
 
     # ------------------------------------------------------------------
     # grid hierarchy (geometric multigrid support)
@@ -241,8 +299,9 @@ class ImplicitGlobalGrid:
                    for n in self.local_shape)
 
     def coarsen(self) -> "ImplicitGlobalGrid":
-        """One-level-coarser grid with the same block counts, periodicity,
-        halo width, dtype and device.
+        """One-level-coarser grid with the same block counts, process
+        layout (every level has the same owners), periodicity, halo width,
+        dtype and device.
 
         Each local interior extent (``n - overlap``) halves, so the global
         interior cell count halves per dim (cell-centered coarsening) and
@@ -258,7 +317,8 @@ class ImplicitGlobalGrid:
             coarse.append(inner // 2 + self.overlap)
         coarse += [None] * (3 - len(coarse))  # the constructor drops None dims
         return ImplicitGlobalGrid(*coarse, overlap=self.overlap, periodic=self.topo.periodic,
-                                  dims=self.dims, dtype=self.dtype, device=self.device)
+                                  dims=self.dims, dtype=self.dtype,
+                                  device=self.device)
 
     def hierarchy(self, max_levels: int | None = None) -> list["ImplicitGlobalGrid"]:
         """Fine-to-coarse grid hierarchy, coarsening while possible."""
@@ -268,10 +328,13 @@ class ImplicitGlobalGrid:
         return levels
 
     def finalize(self):
-        """Paper's ``finalize_global_grid()``: waits for the device; eager
-        PyTorch keeps no compiled executables to release."""
+        """Paper's ``finalize_global_grid()``: waits for the device and, under
+        a group, for every process.  Eager PyTorch keeps no compiled
+        executables to release, and the group stays the caller's: it was
+        made and is destroyed outside the grid."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        comm.barrier()
 
 
 def init_global_grid(nx, ny=1, nz=1, **kw) -> ImplicitGlobalGrid:

@@ -1,15 +1,20 @@
-"""Halo updates — the paper's ``update_halo!`` on virtual ranks.
+"""Halo updates — the paper's ``update_halo!`` on blocks.
 
-A field is a tensor ``(*lead, *dims, *local)``: the block axes come first
-and every block holds its local array, halo cells included.  For each
-distributed grid dimension, every block sends its innermost non-halo slabs
-``[h, 2h)`` and ``[n-2h, n-h)`` to its two neighbours.  On one card that
-exchange is a copy between neighbouring blocks of the same tensor, done by
-:func:`exchange`; a multi-card backend replaces that one function.
+A field is a tensor ``(*lead, *local_dims, *local)``: the block axes of
+this process come first and every block holds its local array, halo cells
+included.  For each distributed grid dimension, every block sends its
+innermost non-halo slabs ``[h, 2h)`` and ``[n-2h, n-h)`` to its two
+neighbours (:func:`exchange`).  Between blocks of one process that is a
+copy between neighbouring blocks of the same tensor (a roll along the block
+axis); the edge blocks of a process that has neighbouring processes along
+the dimension take what those sent instead (:func:`repro_torch.core.comm.
+sendrecv`).  A dimension held by one process is a pure local roll, periodic
+or not.
 
 Non-periodic physical boundaries keep their existing ring (it holds the
-boundary conditions).  Dimensions are updated in sequence, so corner and
-edge values propagate across dimensions as in ImplicitGlobalGrid.
+boundary conditions): which blocks those are follows from their global
+coordinates.  Dimensions are updated in sequence, so corner and edge values
+propagate across dimensions (and processes) as in ImplicitGlobalGrid.
 
 Unlike the reference, which returns new arrays, the update writes the halo
 planes of the given tensors in place (no second copy of the field) and
@@ -23,6 +28,7 @@ from typing import Sequence
 import torch
 
 from ..telemetry.counters import record_halo as _record_halo
+from . import comm
 from .locations import STAGGER_DIM
 from .topology import CartesianTopology
 
@@ -30,15 +36,32 @@ from .topology import CartesianTopology
 _STAGGER_DIM = {None: None, **STAGGER_DIM}
 
 
-def exchange(slab: torch.Tensor, block_axis: int, shift: int) -> torch.Tensor:
-    """Neighbour exchange along one block axis: block ``b`` of the result
-    holds what block ``b - shift`` sent (wrapping at the ends).
+def exchange(topo: CartesianTopology, send_low: torch.Tensor, send_high: torch.Tensor,
+             gdim: int, block_axis: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Neighbour exchange along grid dimension ``gdim``: returns
+    ``(recv_low, recv_high)``, where block ``b`` of ``recv_low`` holds what
+    the block before it sent high (``send_high``) and block ``b`` of
+    ``recv_high`` what the block after it sent low (``send_low``).
 
-    This is the virtual-ranks backend: every block lives on this card, so a
-    send is a copy between blocks.  The result is a fresh tensor, so reading
-    it never races with writes into the field it came from.
+    Within this process a send is a copy between blocks (a roll along the
+    block axis, wrapping at the ends).  With neighbouring processes along
+    ``gdim``, the edge blocks' wrapped entries are overwritten by the slabs
+    those processes sent.  The results are fresh tensors, so reading them
+    never races with writes into the field they came from.
     """
-    return torch.roll(slab, shift, block_axis)
+    recv_low = torch.roll(send_high, 1, block_axis)
+    recv_high = torch.roll(send_low, -1, block_axis)
+    if topo.procs[gdim] > 1:
+        D = send_low.shape[block_axis]
+        low, high = topo.neighbour(gdim, -1), topo.neighbour(gdim, +1)
+        from_low, from_high = comm.sendrecv(
+            send_low.narrow(block_axis, 0, 1), send_high.narrow(block_axis, D - 1, 1),
+            low, high)
+        if from_low is not None:
+            recv_low.narrow(block_axis, 0, 1).copy_(from_low)
+        if from_high is not None:
+            recv_high.narrow(block_axis, D - 1, 1).copy_(from_high)
+    return recv_low, recv_high
 
 
 def _update_one_dim(topo: CartesianTopology, A: torch.Tensor, gdim: int,
@@ -50,17 +73,22 @@ def _update_one_dim(topo: CartesianTopology, A: torch.Tensor, gdim: int,
     D = A.shape[block_axis]
     send_low = A.narrow(axis, h, h)            # -> left neighbour's high halo
     send_high = A.narrow(axis, n - 2 * h, h)   # -> right neighbour's low halo
-    recv_low = exchange(send_high, block_axis, +1)
-    recv_high = exchange(send_low, block_axis, -1)
+    recv_low, recv_high = exchange(topo, send_low, send_high, gdim, block_axis)
     low = A.narrow(axis, 0, h)
     high = A.narrow(axis, n - h, h)
     if topo.periodic[gdim]:
         low.copy_(recv_low)
         high.copy_(recv_high)
-    elif D > 1:
-        # Physical-boundary blocks keep their ring (it holds the BCs).
-        low.narrow(block_axis, 1, D - 1).copy_(recv_low.narrow(block_axis, 1, D - 1))
-        high.narrow(block_axis, 0, D - 1).copy_(recv_high.narrow(block_axis, 0, D - 1))
+        return
+    # Physical-boundary blocks keep their ring (it holds the BCs): the
+    # global first block its low ring, the global last block its high one.
+    first = 1 if topo.offset[gdim] == 0 else 0
+    stop = D - 1 if topo.offset[gdim] + D == topo.dims[gdim] else D
+    if D - first > 0:
+        low.narrow(block_axis, first, D - first).copy_(
+            recv_low.narrow(block_axis, first, D - first))
+    if stop > 0:
+        high.narrow(block_axis, 0, stop).copy_(recv_high.narrow(block_axis, 0, stop))
 
 
 def update_halo(
@@ -73,7 +101,7 @@ def update_halo(
     """Exchange halos of ``arrays`` in place; returns them (one tensor if one
     was passed).
 
-    Each array is ``(*lead, *topo.dims, *local)``.  ``width`` is the halo
+    Each array is ``(*lead, *topo.local_dims, *local)``.  ``width`` is the halo
     width h (the paper's ``overlap = 2h``); ``dims`` restricts the update to
     some grid dimensions; ``locations`` gives each array's staggering
     location (the exchange is location-independent; unknown names raise).
@@ -88,15 +116,16 @@ def update_halo(
             raise ValueError(f"unknown staggering location {loc!r}")
     for A in arrays:
         off = A.ndim - 2 * nd
-        if off < 0 or tuple(A.shape[off:off + nd]) != tuple(topo.dims):
+        if off < 0 or tuple(A.shape[off:off + nd]) != tuple(topo.local_dims):
             raise ValueError(
                 f"array of shape {tuple(A.shape)} is not a field over blocks "
-                f"{tuple(topo.dims)}: expected (*lead, *dims, *local)")
+                f"{tuple(topo.local_dims)}: expected (*lead, *local_dims, *local)")
         for d in dims:
             if topo.dims[d] == 1 and not topo.periodic[d]:
                 continue  # nothing to exchange
             # telemetry hook (one falsy check unless a collector is active):
-            # ONE block's slab, (*lead, *local), as a rank sends it
+            # ONE block's slab, (*lead, *local), as a rank sends it, so the
+            # counts do not depend on how many blocks a process holds
             _record_halo(A.shape[:off] + A.shape[off + nd:], off + d, width,
                          A.element_size())
             _update_one_dim(topo, A, d, off + d, off + nd + d, width)

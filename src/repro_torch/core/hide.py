@@ -5,7 +5,9 @@ shell of the output, (2) exchange the halos of those fresh boundary values
 on a high-priority side stream, (3) compute the much larger interior on the
 current stream at the same time.  The reference could only expose this
 dependence structure to XLA's scheduler; here the streams are explicit.  On
-the CPU the same three phases run in sequence.
+the CPU the same three phases run in sequence.  Under a process group the
+exchange of step (2) includes the point-to-point messages to neighbouring
+processes (:mod:`.comm`), issued from the side stream.
 
 ``hide_communication(topo, step_fn, inputs, width, halo)`` is bitwise equal
 to ``update_halo(topo, step_fn(*inputs))``.  Conventions:
@@ -40,7 +42,7 @@ def hide_communication(
     halo: int = 1,
 ):
     """Boundary-first step with the halo exchange overlapped (fields
-    ``(*dims, *local)``).
+    ``(*local_dims, *local)``).
 
     ``width[d]`` is the boundary-shell thickness along grid dim ``d`` (the
     paper's ``@hide_communication (16, 2, 2)`` tuple), clamped to >= halo so
@@ -99,7 +101,12 @@ def hide_communication(
         # ---- 2. exchange of the fresh shell on a high-priority stream ----
         # The exchange reads the send slabs [h, 2h) / [n-2h, n-h) inside
         # the shell and writes the halo planes; the interior writes only
-        # [w+h, n-w-h) in every dim.  The two touch disjoint cells.
+        # [w+h, n-w-h) in every dim.  The two touch disjoint cells.  NCCL
+        # messages are ordered after the side stream's work and the side
+        # stream waits for them.  gloo stages the slabs through host
+        # memory: the host waits for the shell inside this block, so the
+        # interior is issued only after the exchange and nothing overlaps
+        # (correct, and the order of events is the same).
         cur = torch.cuda.current_stream(ref.device)
         side = torch.cuda.Stream(device=ref.device, priority=-1)
         shell_done = cur.record_event()
@@ -130,7 +137,8 @@ def hide_apply(topo: CartesianTopology, op_fn: Callable, u: torch.Tensor, *extra
     stale halos on the current stream; the exchange into a copy and the
     shells ``[h, 2h)`` / ``[n-2h, n-h)`` recomputed on a side stream) was
     slower than this one on an H100 (``PERF.md``, the two-phase findings).
-    It returns with an exchange between cards (``ROADMAP.md``).
+    Under a process group the exchange crosses processes; the overlapped
+    form for that case is not written yet (``ROADMAP.md``).
     """
     nd = topo.ndims
     if u.ndim != 2 * nd:

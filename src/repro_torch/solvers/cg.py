@@ -157,7 +157,8 @@ def cg_local(grid, apply_A: Callable, b, x, *, tol: float = 1e-6, maxiter: int =
     bnorm = red.tree_rhs_norm(grid, b, red_masks)
     bnormf = float(bnorm)
     # the health probe of a watched loop, made from its first residual
-    watch = None if cfg is None else (lambda res0: _health.Probe(cfg, name, res0, bnormf))
+    watch = None if cfg is None else (lambda res0: _health.Probe(
+        cfg, name, res0, bnormf, ranks=grid.topo.block_ranks()))
     common = dict(maxiter=maxiter, project=project, masked=masked, mdot=mdot, mdots=mdots,
                   bnorm=bnorm, watch=watch)
     if variant == "classic":
@@ -173,17 +174,17 @@ def cg_local(grid, apply_A: Callable, b, x, *, tol: float = 1e-6, maxiter: int =
     return x, k, res / bnorm, hist, probe
 
 
-def _epilogue(grid, probe, k: int, relres, hist, tol: float, maxiter: int):
+def _epilogue(probe, k: int, relres, hist, tol: float, maxiter: int):
     """The host values every solve ends with — the relative residual and the
     history, read once — and, for a watched solve, its terminal status and
-    final-health events (one per virtual rank) from those same values.
+    final-health events (one per block this process holds) from those same
+    values.
     Returns ``(relres, residuals, device_status)``."""
     relres = float(relres)
     residuals = hist.cpu().numpy()
     if probe is None:
         return relres, residuals, None
-    return relres, residuals, probe.finish(math.prod(grid.dims), k, relres, residuals, tol,
-                                           maxiter)
+    return relres, residuals, probe.finish(k, relres, residuals, tol, maxiter)
 
 
 def _classic_loop(apply_A, M, b, x, thresh, *, maxiter, project, masked, mdot, mdots, bnorm,
@@ -334,7 +335,7 @@ def cg(grid, apply_A: Callable, b, x0=None, *, tol: float = 1e-6, maxiter: int =
             cfg=cfg)
     x, k, relres, hist = outs[:4]
     probe = None if cfg is None else outs[4]
-    relres, residuals, dstatus = _epilogue(grid, probe, k, relres, hist, tol, maxiter)
+    relres, residuals, dstatus = _epilogue(probe, k, relres, hist, tol, maxiter)
     synchronize(_loc.tree_leaves(x)[0])
     wall = time.perf_counter() - t0
     status = _health.classify(dstatus, relres, tol, k, maxiter)

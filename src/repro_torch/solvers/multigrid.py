@@ -411,7 +411,8 @@ def multigrid_solve(grid, c, b, spacing, x0=None, *, loc: str | None = None, tol
         r = residual(0, x, b)
         res = torch.sqrt(red.dot(grid, r, r, mask))
         resf = float(res)        # the one host read of each cycle's test
-        probe = None if cfg is None else _health.Probe(cfg, "mg", resf, bnormf)
+        probe = None if cfg is None else _health.Probe(cfg, "mg", resf, bnormf,
+                                                       ranks=grid.topo.block_ranks())
         hist, k, ok = [], 0, True
         while k < maxiter and resf > tol * bnormf and ok:
             with tele.tag("iteration"):
@@ -426,7 +427,7 @@ def multigrid_solve(grid, c, b, spacing, x0=None, *, loc: str | None = None, tol
         if singular:
             x = grid.update_halo(demean(x))
     hist = torch.stack(hist) if hist else torch.zeros(0, dtype=torch.float64)
-    relres, residuals, dstatus = _epilogue(grid, probe, k, res / bnorm, hist, tol, maxiter)
+    relres, residuals, dstatus = _epilogue(probe, k, res / bnorm, hist, tol, maxiter)
     synchronize(x)
     wall = time.perf_counter() - t0
     if wrap is not None:

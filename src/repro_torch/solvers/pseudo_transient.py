@@ -68,7 +68,8 @@ def pseudo_transient(grid, apply_A, b, x0=None, *, lam_min: float, lam_max: floa
         r = (b - apply_A(x, *args)) * mi
         res = torch.sqrt(red.dot(grid, r, r, mask))
         resf = float(res)        # the one host read of each iteration's test
-        probe = None if cfg is None else _health.Probe(cfg, "pt", resf, bnormf)
+        probe = None if cfg is None else _health.Probe(cfg, "pt", resf, bnormf,
+                                                       ranks=grid.topo.block_ranks())
         v = torch.zeros_like(x)
         hist, k, ok = [], 0, True
         while k < maxiter and resf > tol * bnormf and ok:
@@ -84,7 +85,7 @@ def pseudo_transient(grid, apply_A, b, x0=None, *, lam_min: float, lam_max: floa
                 ok = probe.step(k, resf)
         x = grid.update_halo(x)
     hist = torch.stack(hist) if hist else torch.zeros(0, dtype=b.dtype)
-    relres, residuals, dstatus = _epilogue(grid, probe, k, res / bnorm, hist, tol, maxiter)
+    relres, residuals, dstatus = _epilogue(probe, k, res / bnorm, hist, tol, maxiter)
     synchronize(x)
     wall = time.perf_counter() - t0
     info = PTInfo(iterations=k, relres=relres, converged=relres <= tol,

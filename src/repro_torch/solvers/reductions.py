@@ -12,16 +12,17 @@ planes are wrap duplicates of the opposite interior (``i == i +- (N -
 overlap)``), so ownership drops them (each physical cell counted once) and
 :func:`interior_mask` pins nothing there.
 
-Every block of a field lives on one card, so a global reduction is one sum
-over all axes of the masked product — the block axes take the place of the
-reference's ``psum`` over the mesh.  The all-reduce itself is then the
-identity: :func:`psum`, :func:`pmax` and :func:`pmin` are the reference's
-three wrappers, the single place where a ``torch.distributed`` backend
-would reduce across cards, and where the telemetry counts every global
-reduction (:mod:`repro_torch.telemetry.counters`).  Floating fields accumulate in float64
-(:func:`acc_dtype`), so f32 solves get faithful stopping tests.  Scalars
-come back as 0-d tensors on the field's device; reading one on the host is
-the caller's choice.
+A process's partial is one sum over all axes of the masked product of its
+blocks — the block axes take the place of the reference's ``psum`` over
+the mesh within a process.  :func:`psum`, :func:`pmax` and :func:`pmin`
+are the reference's three wrappers: they all-reduce the partials across the
+processes of a group (:func:`repro_torch.core.comm.all_reduce`; the
+identity when one process holds every block), and they are where the
+telemetry counts every global reduction
+(:mod:`repro_torch.telemetry.counters`).  Floating fields accumulate in
+float64 (:func:`acc_dtype`), so f32 solves get faithful stopping tests.
+Scalars come back as 0-d tensors on the field's device; reading one on the
+host is the caller's choice.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from typing import Callable
 
 import torch
 
+from ..core import comm
 from ..core import locations as _loc
 from ..telemetry.counters import record_all_reduce as _record_all_reduce
 
@@ -37,24 +39,27 @@ from ..telemetry.counters import record_all_reduce as _record_all_reduce
 # The three wrappers below are the ONLY all-reduce call sites of the solver
 # stack, so the telemetry hook here counts every dot product and
 # convergence-test reduction of a solve (one falsy check when nothing
-# collects).  On one card the partial sums already cover every block.
+# collects).  With one process the partials already cover every block.
+
+def _all_reduce(topo, x: torch.Tensor, op: str) -> torch.Tensor:
+    _record_all_reduce(x.numel())
+    return comm.all_reduce(x, op) if topo.nprocs > 1 else x
+
 
 def psum(topo, x: torch.Tensor) -> torch.Tensor:
-    """Sum all-reduce of the per-rank partials ``x`` (identity here)."""
-    _record_all_reduce(x.numel())
-    return x
+    """Sum all-reduce of the per-process partials ``x`` (the partials added
+    in process order, the same bits on every process)."""
+    return _all_reduce(topo, x, "sum")
 
 
 def pmax(topo, x: torch.Tensor) -> torch.Tensor:
-    """Max all-reduce of the per-rank partials ``x`` (identity here)."""
-    _record_all_reduce(x.numel())
-    return x
+    """Max all-reduce of the per-process partials ``x``."""
+    return _all_reduce(topo, x, "max")
 
 
 def pmin(topo, x: torch.Tensor) -> torch.Tensor:
-    """Min all-reduce of the per-rank partials ``x`` (identity here)."""
-    _record_all_reduce(x.numel())
-    return x
+    """Min all-reduce of the per-process partials ``x``."""
+    return _all_reduce(topo, x, "min")
 
 
 def acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -216,8 +221,8 @@ def field_max(grid, a, mask=None) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# host-level forms: with every block on one card, a local-view reduction is
-# already a host-level call; these keep the reference's names
+# host-level forms: a local-view reduction already reduces over every block
+# and process; these keep the reference's names
 # ---------------------------------------------------------------------------
 
 def host_reduce(grid, fn: Callable, *fields) -> torch.Tensor:

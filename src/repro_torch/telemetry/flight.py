@@ -26,10 +26,15 @@ context manager::
     with tele.flight("out/flight", meta={"app": "twophase"}):
         app.run(nt)
 
-On one card every virtual rank's buffer lives in this process: the
-per-rank final-health events route by their rank, host-side events land
-on the process rank.  Under multi-process launches each process dumps its
-own ranks; the diag CLI merges the files either way.
+Every block's buffer lives in the process that holds the block: the
+per-block health events route by their block's rank, host-side events
+carry the process rank (:func:`repro_torch.telemetry.timers.process_rank`).
+So each process dumps its own blocks' files, and the files of a run spread
+over processes are the files of the same run in one process; the diag CLI
+merges them either way.  A process that holds several blocks may not hold
+the block its rank names, whose file another process writes: its
+host-side events then go into the file of the first block it has events
+of (:meth:`FlightRecorder.dump`).
 """
 
 from __future__ import annotations
@@ -45,6 +50,9 @@ from .sink import NullSink
 from .timers import process_rank
 
 _CURRENT: "FlightRecorder | None" = None
+
+# Event types that are about one block and carry that block's rank.
+_BLOCK_EVENTS = ("health", "heartbeat")
 
 _DUMP_SIGNALS = (signal.SIGTERM, signal.SIGUSR1)
 
@@ -97,6 +105,7 @@ class FlightRecorder:
         self.epoch = time.time()
         self.host_rank = process_rank()
         self._buffers: dict[int, collections.deque] = {}
+        self._blocks: set[int] = set()   # ranks of the per-block events
         self.dump_count = 0
         self.dumped_paths: list[str] = []
 
@@ -106,6 +115,8 @@ class FlightRecorder:
         if rank is None:
             rank = event.get("rank")
         r = self.host_rank if rank is None else int(rank)
+        if event.get("type") in _BLOCK_EVENTS:
+            self._blocks.add(r)
         ev = dict(event)
         ev.setdefault("wall", time.time())
         buf = self._buffers.get(r)
@@ -121,13 +132,24 @@ class FlightRecorder:
         r = self.host_rank if rank is None else int(rank)
         return list(self._buffers.get(r, ()))
 
+    def _files(self) -> dict[int, list[dict]]:
+        """The events of each file, by rank: the buffers, with the
+        host-side events moved into the first block's file when this
+        process has per-block events but none of the block its rank names
+        (under a process group that block is another process's)."""
+        files = {r: list(b) for r, b in self._buffers.items()}
+        if self._blocks and self.host_rank not in self._blocks and self.host_rank in files:
+            first = min(self._blocks)
+            files[first] = sorted(files.pop(self.host_rank) + files[first],
+                                  key=lambda e: e["wall"])
+        return files or {self.host_rank: []}
+
     def dump(self, reason: str = "manual") -> list[str]:
         """Write one ``flight-rank<r>.jsonl`` per buffered rank."""
         os.makedirs(self.dir, exist_ok=True)
         mem = memory_watermark()
         paths = []
-        for r in self.ranks or [self.host_rank]:
-            buf = self._buffers.get(r, ())
+        for r, buf in sorted(self._files().items()):
             path = os.path.join(self.dir, f"flight-rank{r:04d}.jsonl")
             header = {"type": "flight_header", "rank": r,
                       "host_rank": self.host_rank, "epoch": self.epoch,

@@ -11,11 +11,12 @@ watches the solve on that same float:
   stagnation window, a sticky status and early exit.  They add no host
   read and no reduction per iteration; with no watch installed the loops
   run exactly as before;
-* a rank-0 heartbeat every ``heartbeat_every`` iterations, and after the
-  loop one final-health event per virtual rank with the last ``TAIL``
-  residuals, taken from the history the solver reads to the host once at
-  the end anyway, emitted into the session (:mod:`.timers`) or straight
-  into the flight recorder (:mod:`.flight`).  A watched solve does the
+* a rank-0 heartbeat every ``heartbeat_every`` iterations (from the
+  process that holds block 0), and after the loop one final-health event
+  per block this process holds with the last ``TAIL`` residuals, taken
+  from the history the solver reads to the host once at the end anyway,
+  emitted into the session (:mod:`.timers`) or straight into the flight
+  recorder (:mod:`.flight`).  A watched solve does the
   same device work and the same host reads as an unwatched one.
 
 Usage::
@@ -126,11 +127,16 @@ class Probe:
     ``step(k, res)`` classifies the residual after iteration ``k`` and
     fires the heartbeat; it returns False once the (sticky) status left
     ``RUNNING``, which ends the loop.  ``res`` is the float the loop's
-    stopping test read; ``bnorm`` the rhs norm as a float.
+    stopping test read; ``bnorm`` the rhs norm as a float.  ``ranks`` are
+    the global ranks of the blocks this process holds
+    (``grid.topo.block_ranks()``): the heartbeat comes from the process
+    holding block 0, and the final-health events name each of them.
     """
 
-    def __init__(self, cfg: HealthConfig, solver: str, res0: float, bnorm: float):
+    def __init__(self, cfg: HealthConfig, solver: str, res0: float, bnorm: float, *,
+                 ranks):
         self.cfg, self.solver = cfg, solver
+        self.ranks = tuple(int(r) for r in ranks)
         self.res0, self.bnorm = res0, bnorm
         self.res = res0          # the last residual the loop read
         self.status = SolveStatus.RUNNING
@@ -153,7 +159,7 @@ class Probe:
             new = SolveStatus.DIVERGED_NONFINITE
         if self.status == SolveStatus.RUNNING:
             self.status = new
-        if cfg.heartbeat_every and k % cfg.heartbeat_every == 0:
+        if cfg.heartbeat_every and k % cfg.heartbeat_every == 0 and 0 in self.ranks:
             _emit({"type": "heartbeat", "solver": self.solver, "rank": 0,
                    "iteration": int(k), "relres": res / self.bnorm}, rank=0)
         return self.status == SolveStatus.RUNNING
@@ -170,25 +176,23 @@ class Probe:
             return SolveStatus.DIVERGED_NONFINITE
         return SolveStatus.CONVERGED if res <= tol * self.bnorm else SolveStatus.MAX_ITERATIONS
 
-    def finish(self, nranks: int, k: int, relres: float, hist, tol: float,
-               maxiter: int) -> SolveStatus:
+    def finish(self, k: int, relres: float, hist, tol: float, maxiter: int) -> SolveStatus:
         """:meth:`finalize`, then the final-health events: the solve's
         epilogue, on the relative residual and history it already read on
         the host (no device work here)."""
         status = self.finalize(tol)
-        self.emit_final(nranks, k, relres, status, hist, maxiter)
+        self.emit_final(k, relres, status, hist, maxiter)
         return status
 
-    def emit_final(self, nranks: int, k: int, relres: float, status: SolveStatus,
-                   hist, maxiter: int):
-        """One final-health event per virtual rank ``0..nranks-1`` with the
+    def emit_final(self, k: int, relres: float, status: SolveStatus, hist, maxiter: int):
+        """One final-health event per block of :attr:`ranks` with the
         residual tail: the reference's window ``hist[start:start+n]`` of its
         zero-filled ``maxiter`` buffer, ``n = min(TAIL, maxiter)``.
         ``hist`` is the history already on the host."""
         n = min(TAIL, maxiter)
         start = min(max(k - n, 0), maxiter - n)
         tail = [float(hist[i]) if i < len(hist) else 0.0 for i in range(start, start + n)]
-        for rank in range(nranks):
+        for rank in self.ranks:
             _emit({"type": "health", "solver": self.solver, "rank": rank,
                    "iteration": int(k), "relres": float(relres),
                    "status": status.name, "residual_tail": list(tail)}, rank=rank)

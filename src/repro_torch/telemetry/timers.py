@@ -11,9 +11,8 @@ work.  ``region(name, sync=...)`` waits at the region's exit until the
 value (or the result of the callable) is ready — a
 ``torch.cuda.synchronize`` on each CUDA device it lives on, nothing for
 CPU tensors — before closing the span.  Spans are host time.  ``rank``
-is the process rank (``torch.distributed``'s when it is initialised, else
-0: one card is one process), so multi-process traces merge into one
-Perfetto timeline with a row per rank.
+is the process's rank (:func:`process_rank`), so multi-process traces
+merge into one Perfetto timeline with a row per rank.
 """
 
 from __future__ import annotations
@@ -25,15 +24,10 @@ from .sink import MemorySink, NullSink
 
 
 def process_rank() -> int:
-    """This process's rank: ``torch.distributed``'s if initialised, else 0."""
-    try:
-        import torch.distributed as dist
+    """This process's rank in the default process group, else 0."""
+    from ..core import comm
 
-        if dist.is_available() and dist.is_initialized():
-            return int(dist.get_rank())
-    except Exception:  # a build without distributed support
-        pass
-    return 0
+    return comm.rank()
 
 
 class Session:
