@@ -68,7 +68,7 @@ card.  Then it drives six paths through the kernels:
   mamba2-1.3b through Engine(flight_dir=).  The launches of K1 and K2-K4
   center on these paths join their entries of the kernels line
   (``launches_slice9``);
-* last, the grid across processes (phase ``dist``): the one-process runs
+* the grid across processes (phase ``dist``): the one-process runs
   here, then 8 processes of a gloo group on this card, one block each
   (Heat3D 8 x 256^3 f32 100 steps with hide and without, every block and
   the gathered field bitwise the one-process run, 7 / 1 K1 launches a
@@ -77,8 +77,15 @@ card.  Then it drives six paths through the kernels:
   TwoPhase3D mgcg step with the one-process count), NCCL with one process
   (Heat3D bitwise), and NCCL across min(cards, 4) cards where the host has
   several.  gloo stages the halos through the host: its times measure no
-  link.  The processes' launches join the kernels line
-  (``launches_dist``).
+  link.  Stokes3D at 14^3 (the ``"stress"`` velocity solve on 8 gloo
+  processes, a Schur solve on 2 gloo processes of 4 blocks, the velocity
+  and Schur solves on the NCCL process) with the reference's counts, and
+  Gross-Pitaevskii at 18^3 bitwise on 8, 2 and the NCCL process.  The
+  processes' launches join the kernels line (``launches_dist``);
+* last, alone, the port's analyzer (phase ``analysis``): a Poisson3D mgcg
+  solve bitwise with equal launches around a capture of itself, the
+  sweep's one-process targets clean with every launch counter unchanged,
+  and the launch plans of K1-K7 at every shape this script launched.
 
 Times come from CUDA events or from host clocks around synchronised work.
 Every phase prints one line; any failure raises and exits non-zero.  The
@@ -2608,11 +2615,74 @@ def dist_twophase() -> dict:
             "launches": {k: n for k, (n, _) in d.items()}}
 
 
+DIST_STOKES = dict(nx=8, ny=8, nz=8, dims=(2, 2, 2))            # 14^3 f64, 2x2x2 blocks
+DIST_STOKES_VELOCITY = {"stress": 7, "face": 17}    # the reference's iterations at 14^3
+DIST_STOKES_SCHUR = (10, 84)                        # Schur-CG "stress": outer, inner
+DIST_GP = dict(nx=10, ny=10, nz=10, dims=(2, 2, 2))                # 18^3 complex64
+DIST_GP_STEPS = 10
+DIST_F5 = 1e-10   # fields relative to their largest value (F5: partial sums in another order)
+
+
+def dist_stokes_velocity(precond: str) -> dict:
+    """A Stokes3D velocity solve at 14^3 f64 (tol 1e-8): iterations,
+    history, the gathered velocity and this process's face K2-K5
+    launches."""
+    from repro_torch import fields
+    from repro_torch.apps import Stokes3D
+    from repro_torch.kernels import solver3d as sk
+
+    app = Stokes3D(**DIST_STOKES)
+    before = face_counts(sk)
+    t0 = time.perf_counter()
+    V, info = app.velocity_solve(precond=precond, tol=1e-8)
+    return {"precond": precond, "iterations": info.iterations,
+            "ms": (time.perf_counter() - t0) * 1e3,
+            "residuals": [float(v) for v in info.residuals],
+            "fields": {k: fields.gather(V[k]).tolist() for k in ("vx", "vy", "vz")},
+            "face_launches": diff(face_counts(sk), before)}
+
+
+def dist_stokes_schur() -> dict:
+    """A Stokes3D Schur-CG solve (compiled schedule, "stress") at 14^3:
+    counts, the divergence residual and the gathered pressure."""
+    from repro_torch import fields
+    from repro_torch.apps import Stokes3D
+
+    app = Stokes3D(**DIST_STOKES)
+    t0 = time.perf_counter()
+    V, P, info = app.solve(tol=1e-6, method="schur", precond="stress")
+    return {"outer": info.outer_iterations, "inner": info.inner_iterations,
+            "relres_div": info.relres_div, "relres_momentum": info.relres_momentum,
+            "ms": (time.perf_counter() - t0) * 1e3, "P": fields.gather(P).tolist()}
+
+
+def dist_gp() -> dict:
+    """GrossPitaevskii3D on 18^3 complex64 blocks, DIST_GP_STEPS RK4 steps:
+    digests of the gathered potential and field (bitwise across layouts)."""
+    import hashlib
+
+    from repro_torch.apps import GrossPitaevskii3D
+
+    app = GrossPitaevskii3D(**DIST_GP)
+    t0 = time.perf_counter()
+    psi = app.run(DIST_GP_STEPS)
+    G = app.grid.gather(psi)
+    if G.shape != (18, 18, 18) or not np.isfinite(G).all():
+        fail(f"GP: gathered field {G.shape}, finite {bool(np.isfinite(G).all())}")
+    return {"psi": hashlib.sha256(G.tobytes()).hexdigest(),
+            "V": hashlib.sha256(app.grid.gather(app._V).tobytes()).hexdigest(),
+            "ms": (time.perf_counter() - t0) * 1e3}
+
+
 DIST_CHECKS = {
     "heat_hide": lambda: dist_heat(DIST_HIDE),
     "heat_plain": lambda: dist_heat(None, gather=True),
     "poisson": dist_poisson,
     "twophase": dist_twophase,
+    "stokes_stress": lambda: dist_stokes_velocity("stress"),
+    "stokes_face": lambda: dist_stokes_velocity("face"),
+    "stokes_schur": dist_stokes_schur,
+    "gp": dist_gp,
 }
 
 
@@ -2698,20 +2768,28 @@ def dist_phase(card: str) -> dict:
     """Phase 33 (dist): the grid across processes on this host.  The
     one-process runs first, in this process (no group); then 8 gloo
     processes of one block each (Heat3D hide and plain bitwise, the
-    gathered field bitwise, mgcg counts), 2 gloo processes of 4 blocks
-    (Heat3D bitwise, a TwoPhase3D mgcg step's counts), NCCL with one
-    process (Heat3D bitwise), and NCCL across min(cards, 4) cards where
-    there are several.  Returns K1's, K2-K5's and shifted K2-K5's
-    launches in the group runs (summed over the processes; each check
-    zeroes and reads the counts around its own run)."""
+    gathered field bitwise, mgcg counts, the Stokes3D "stress" velocity
+    solve with the reference's count and F5's tolerance, GP bitwise), NCCL
+    with one process of 8 blocks (Heat3D, the Stokes3D velocity solves and
+    GP bitwise against this process; the Stokes3D Schur solve with the
+    reference's counts), 2 gloo processes of 4 blocks (Heat3D bitwise, a
+    TwoPhase3D mgcg step's counts, the Schur solve's counts and pressure
+    within F5's tolerance of the NCCL process's, GP bitwise), and NCCL
+    across min(cards, 4)
+    cards where there are several.  Returns K1's, K2-K5's, shifted and
+    face K2-K5's launches in the group runs (summed over the processes;
+    each check zeroes and reads the counts around its own run)."""
     import shutil
     import tempfile
 
-    from repro_torch.kernels import solver3d as sk
-
     t_phase = time.perf_counter()
-    one = {"heat_hide": dist_heat(DIST_HIDE), "heat_plain": dist_heat(None, gather=True),
-           "poisson": dist_poisson(), "twophase": dist_twophase()}
+    # the Schur solve's one-process run is the NCCL process's (a group of
+    # one process is this process's arithmetic: checked bitwise below)
+    one = {name: fn() for name, fn in DIST_CHECKS.items() if name != "stokes_schur"}
+    for name, precond in (("stokes_stress", "stress"), ("stokes_face", "face")):
+        if one[name]["iterations"] != DIST_STOKES_VELOCITY[precond]:
+            fail(f"dist one process: Stokes velocity {precond} took {one[name]['iterations']} "
+                 f"iterations, the reference {DIST_STOKES_VELOCITY[precond]}")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     say("dist", config="one process", card=repr(card),
@@ -2719,7 +2797,10 @@ def dist_phase(card: str) -> dict:
         heat_ms_per_step_plain=one["heat_plain"]["ms_per_step"],
         mgcg_iterations=one["poisson"]["iterations"],
         mgcg_ms_per_iteration=one["poisson"]["ms_per_iteration"],
-        twophase_mgcg_iterations=one["twophase"]["iterations"])
+        twophase_mgcg_iterations=one["twophase"]["iterations"],
+        stokes_velocity_ms=json.dumps({one[n]["precond"]: one[n]["ms"] for n in
+                                       ("stokes_stress", "stokes_face")}).replace(" ", ""),
+        gp_ms=one["gp"]["ms"])
 
     def same_heat(name, got, where):
         for r, res in enumerate(got):
@@ -2744,9 +2825,45 @@ def dist_phase(card: str) -> dict:
                 if res[name]["launches"][k] == 0:
                     fail(f"dist {where}: rank {r} never launched the {k} kernel")
 
+    def close(a, b, bitwise):
+        if bitwise:
+            return a == b
+        a, b = np.asarray(a), np.asarray(b)
+        return a.shape == b.shape and float(np.abs(a - b).max()) <= DIST_F5 * float(
+            np.abs(b).max())
+
+    def same_stokes(got, where, bitwise=False):
+        """Counts equal; fields within F5's tolerance of one process's
+        (bitwise for a group of one process)."""
+        for r, res in enumerate(got):
+            for name in ("stokes_stress", "stokes_face"):
+                if name not in res:
+                    continue
+                g, want = res[name], one[name]
+                if g["iterations"] != want["iterations"]:
+                    fail(f"dist {where}: Stokes {name} of rank {r} took {g['iterations']} "
+                         f"iterations, one process {want['iterations']}")
+                if not np.allclose(g["residuals"], want["residuals"], rtol=1e-6, atol=1e-9):
+                    fail(f"dist {where}: Stokes {name} history of rank {r} differs")
+                for k, w in want["fields"].items():
+                    if not close(g["fields"][k], w, bitwise):
+                        fail(f"dist {where}: Stokes {name} {k} of rank {r} differs from one "
+                             "process")
+            if "stokes_schur" in res:
+                g = res["stokes_schur"]
+                if (g["outer"], g["inner"]) != DIST_STOKES_SCHUR:
+                    fail(f"dist {where}: Schur counts of rank {r} {g['outer']}/{g['inner']}, "
+                         f"the reference {DIST_STOKES_SCHUR}")
+                if "stokes_schur" in one and not close(g["P"], one["stokes_schur"]["P"], False):
+                    fail(f"dist {where}: Schur pressure of rank {r} differs from one process")
+            if "gp" in res and {k: res["gp"][k] for k in ("psi", "V")} \
+                    != {k: one["gp"][k] for k in ("psi", "V")}:
+                fail(f"dist {where}: GP of rank {r} differs from one process (bitwise)")
+
     tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
     ops = ("apply", "residual", "jacobi", "cheb")
-    launches = {"heat": 0, "center": dict.fromkeys(ops, 0), "shift": dict.fromkeys(ops, 0)}
+    launches = {"heat": 0, "center": dict.fromkeys(ops, 0), "shift": dict.fromkeys(ops, 0),
+                "face": dict.fromkeys(ops, 0)}
 
     def tally(got):
         for res in got:
@@ -2755,15 +2872,20 @@ def dist_phase(card: str) -> dict:
             for n, kind in (("poisson", "center"), ("twophase", "shift")):
                 for k, v in res.get(n, {}).get("launches", {}).items():
                     launches[kind][k] += v
+            for n in ("stokes_stress", "stokes_face"):
+                for k, v in res.get(n, {}).get("face_launches", {}).items():
+                    launches["face"][k] += v
     try:
         # ---- 8 gloo processes, one block each ------------------------------
         t0 = time.perf_counter()
-        g8 = dist_spawn(8, "gloo", ("heat_hide", "heat_plain", "poisson"), tmp)
+        g8 = dist_spawn(8, "gloo", ("heat_hide", "heat_plain", "poisson", "stokes_stress", "gp"),
+                        tmp)
         same_heat("heat_hide", g8, "8 gloo")
         same_heat("heat_plain", g8, "8 gloo")
         if g8[0]["heat_plain"]["gather"] != one["heat_plain"]["gather"]:
             fail("dist 8 gloo: the gathered Heat3D field differs from the one-process run")
         same_counts("poisson", g8, "8 gloo")
+        same_stokes(g8, "8 gloo")
         tally(g8)
         say("dist", config="8 gloo processes x 1 block, Heat3D 8x256^3 f32", card=repr(card),
             link="gloo staging through host on one card (measures no link)",
@@ -2781,13 +2903,37 @@ def dist_phase(card: str) -> dict:
             ms_per_iteration=max(r["poisson"]["ms_per_iteration"] for r in g8),
             ms_per_iteration_one_process=one["poisson"]["ms_per_iteration"],
             k2_k5_launches_per_process=json.dumps(g8[0]["poisson"]["launches"]).replace(" ", ""),
-            k2_k5_launches_one_process=json.dumps(one["poisson"]["launches"]).replace(" ", ""),
+            k2_k5_launches_one_process=json.dumps(one["poisson"]["launches"]).replace(" ", ""))
+        say("dist", config="8 gloo processes x 1 block, Stokes3D 14^3 f64 and GP 18^3 c64",
+            card=repr(card), link="gloo staging through host on one card (measures no link)",
+            stokes_stress_iterations=g8[0]["stokes_stress"]["iterations"],
+            stokes_stress_ms=max(r["stokes_stress"]["ms"] for r in g8),
+            stokes_stress_ms_one_process=one["stokes_stress"]["ms"],
+            stokes_fields=f"within {DIST_F5} of their largest value", gp="bitwise",
+            gp_ms=max(r["gp"]["ms"] for r in g8), gp_ms_one_process=one["gp"]["ms"],
             spawn_s=time.perf_counter() - t0)
-        # ---- 2 gloo processes, 4 blocks each ------------------------------
+        # ---- NCCL, one process of 8 blocks --------------------------------
         t0 = time.perf_counter()
-        g2 = dist_spawn(2, "gloo", ("heat_hide", "twophase"), tmp)
+        n1 = dist_spawn(1, "nccl", ("heat_hide", "stokes_stress", "stokes_face", "stokes_schur",
+                                    "gp"), tmp)
+        same_heat("heat_hide", n1, "1 nccl")
+        same_stokes(n1, "1 nccl", bitwise=True)
+        one["stokes_schur"] = n1[0]["stokes_schur"]
+        tally(n1)
+        say("dist", config="1 nccl process x 8 blocks", card=repr(card), heat="bitwise",
+            stokes_velocity="bitwise", gp="bitwise",
+            heat_hide_ms_per_step=n1[0]["heat_hide"]["ms_per_step"],
+            heat_hide_ms_per_step_one_process=one["heat_hide"]["ms_per_step"],
+            stokes_schur=f"{n1[0]['stokes_schur']['outer']}/{n1[0]['stokes_schur']['inner']}",
+            stokes_schur_ms=n1[0]["stokes_schur"]["ms"],
+            face_launches=json.dumps(n1[0]["stokes_face"]["face_launches"]).replace(" ", ""),
+            spawn_s=time.perf_counter() - t0)
+        # ---- 2 gloo processes, 4 blocks each --------------------------------
+        t0 = time.perf_counter()
+        g2 = dist_spawn(2, "gloo", ("heat_hide", "twophase", "stokes_schur", "gp"), tmp)
         same_heat("heat_hide", g2, "2 gloo")
         same_counts("twophase", g2, "2 gloo")
+        same_stokes(g2, "2 gloo")
         if g2[0]["heat_hide"]["local_dims"] != [1, 2, 2]:
             fail(f"dist 2 gloo: local blocks {g2[0]['heat_hide']['local_dims']}")
         tally(g2)
@@ -2800,15 +2946,9 @@ def dist_phase(card: str) -> dict:
             twophase_ms_per_step=max(r["twophase"]["ms_per_step"] for r in g2),
             twophase_ms_per_step_one_process=one["twophase"]["ms_per_step"],
             k2_k5_launches_per_process=json.dumps(g2[0]["twophase"]["launches"]).replace(" ", ""),
-            spawn_s=time.perf_counter() - t0)
-        # ---- NCCL, one process -------------------------------------------
-        t0 = time.perf_counter()
-        n1 = dist_spawn(1, "nccl", ("heat_hide",), tmp)
-        same_heat("heat_hide", n1, "1 nccl")
-        tally(n1)
-        say("dist", config="1 nccl process x 8 blocks", card=repr(card), heat="bitwise",
-            heat_hide_ms_per_step=n1[0]["heat_hide"]["ms_per_step"],
-            heat_hide_ms_per_step_one_process=one["heat_hide"]["ms_per_step"],
+            stokes_schur=f"{g2[0]['stokes_schur']['outer']}/{g2[0]['stokes_schur']['inner']}",
+            stokes_schur_ms=max(r["stokes_schur"]["ms"] for r in g2),
+            stokes_schur_ms_one_process=one["stokes_schur"]["ms"], gp="bitwise",
             spawn_s=time.perf_counter() - t0)
         # ---- NCCL across cards -------------------------------------------
         cards = torch.cuda.device_count()
@@ -2831,8 +2971,151 @@ def dist_phase(card: str) -> dict:
     say("dist", status="ok", elapsed_s=time.perf_counter() - t_phase,
         k1_launches=launches["heat"],
         k2_k5_launches=json.dumps(launches["center"]).replace(" ", ""),
-        k2_k5_shifted_launches=json.dumps(launches["shift"]).replace(" ", ""))
+        k2_k5_shifted_launches=json.dumps(launches["shift"]).replace(" ", ""),
+        k2_k5_face_launches=json.dumps(launches["face"]).replace(" ", ""))
     return launches
+
+
+ANALYSIS_POISSON = dict(nx=130, ny=130, nz=130, dims=(2, 2, 2))    # 8 x 130^3 f64
+CELL_LAUNCHES: set = set()   # (kernel, nb, nx, ny, nz) of every K1-K5 launch of this process
+SWA_LAUNCHES: set = set()    # (dtype code, B, H, T) of every K6 launch of this process
+SSD_LAUNCHES: set = set()    # (dtype code, Ba, T, H, G, N, P, L) of every K7 launch
+
+
+def record_launch_shapes() -> None:
+    """Record the shape of every K1-K7 launch of this process: K1-K5's
+    wrappers make their launch plan with ``cell_plan`` and K6's and K7's
+    reach their C entry point through ``_entry``, each looked up at every
+    call."""
+    from repro_torch.kernels import plans
+    from repro_torch.kernels.solver3d import kernel as sk3
+    from repro_torch.kernels.ssd import kernel as kssd
+    from repro_torch.kernels.stencil3d import kernel as hk
+    from repro_torch.kernels.swa import kernel as kswa
+
+    def recording(kernel, nb, nx, ny, nz):
+        CELL_LAUNCHES.add((kernel, nb, nx, ny, nz))
+        return plans.cell_plan(kernel, nb, nx, ny, nz)
+
+    sk3.cell_plan = hk.cell_plan = recording
+
+    def record_entry(module, shapes: set, shape):
+        entry = module._entry
+
+        def recorded():
+            fn = entry()
+
+            def launch(*args):
+                err = fn(*args)
+                if err == 0:
+                    shapes.add(shape(args))
+                return err
+            return launch
+        module._entry = recorded
+
+    # the C entry points' arguments: K6 (code, q, k, v, o, B, H, Hkv, T, ...),
+    # K7 (code, x, B, C, dt, s, y, states, Ba, T, H, G, N, P, L, ...)
+    record_entry(kswa, SWA_LAUNCHES, lambda a: (a[0], a[5], a[6], a[8]))
+    record_entry(kssd, SSD_LAUNCHES, lambda a: (a[0], *a[8:15]))
+
+
+def kernel_counters() -> dict:
+    """Every launch counter of every kernel wrapper."""
+    from repro_torch.kernels.solver3d import kernel as sk3
+    from repro_torch.kernels.ssd import kernel as kssd
+    from repro_torch.kernels.stencil3d import kernel as hk
+    from repro_torch.kernels.swa import kernel as kswa
+
+    out = {w.__name__: w.launches for w in sk3.WRAPPERS}
+    out.update({f"{w.__name__}.shifted": w.shifted_launches for w in sk3.WRAPPERS[:4]})
+    out["heat_step_cuda"] = hk.heat_step_cuda.launches
+    for w in (kswa.swa_attention_cuda, kssd.ssd_intra_chunk_cuda):
+        out[w.__name__] = w.launches
+        out[f"{w.__name__}.tc"] = w.tc_launches
+    return out
+
+
+def analysis_phase(card: str) -> dict:
+    """Phase 34 (analysis): the port's analyzer on the card.  A Poisson3D
+    mgcg solve at 8 x 130^3 f64 before and after a capture of the same
+    solve: the same iterate (SHA-256), iterations and K2-K5 launches.  The
+    sweep's 21 one-process targets with the apps on the card (every kernel
+    route "cuda": launch plans recorded, nothing launched): every target
+    clean and every launch counter unchanged.  Then the launch plans of K1-K7 at every shape
+    this process launched: each covers its output once, and K6's and K7's
+    equal their C entry points' own.  Returns the phase's numbers."""
+    import hashlib
+
+    from repro_torch.analysis import driver, launchgrid
+    from repro_torch.apps import Poisson3D
+    from repro_torch.kernels import plans
+    from repro_torch.kernels.ssd import kernel as kssd
+    from repro_torch.kernels.swa import kernel as kswa
+
+    t_phase = time.perf_counter()
+    app = Poisson3D(**ANALYSIS_POISSON)
+
+    def solve():
+        c0 = kernel_counters()
+        u, info = app.solve("mgcg", tol=1e-8)
+        torch.cuda.synchronize()
+        moved = {k: v for k, v in diff(kernel_counters(), c0).items() if v}
+        return hashlib.sha256(u.cpu().numpy().tobytes()).hexdigest(), info.iterations, moved
+
+    before = solve()
+    c0 = kernel_counters()
+    t0 = time.perf_counter()
+    rep = driver.capture_check(lambda: app.solve("mgcg", tol=1e-8))
+    capture_s = time.perf_counter() - t0
+    # the four group/ targets (2 gloo processes each, ~40 s of start-up) run
+    # in the CPU tests (tests/test_torch_analysis_group.py), not here
+    t0 = time.perf_counter()
+    reports = {n: driver.run_target(n, device="cuda") for n in driver.targets()
+               if not n.startswith("group/")}
+    sweep_s = time.perf_counter() - t0
+    if kernel_counters() != c0:
+        fail(f"analysis: a check moved a launch counter: {diff(kernel_counters(), c0)}")
+    bad = {n: [str(f) for f in r] for n, r in reports.items() if r}
+    if rep or bad:
+        fail(f"analysis: findings on the card: mgcg capture {[str(f) for f in rep]}, sweep {bad}")
+    after = solve()
+    if after != before:
+        fail(f"analysis: the mgcg solve after a check differs: {before[1:]} vs {after[1:]}")
+    # launch plans at every shape this process launched
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n_plans = 0
+    for kernel, *shape in sorted(CELL_LAUNCHES):
+        f = launchgrid.check_plan(plans.cell_plan(kernel, *shape))
+        n_plans += 1
+        if f:
+            fail(f"analysis: {kernel} plan at {shape}: {[str(x) for x in f]}")
+    codes = {v: k for k, v in kswa.DTYPE_CODES.items()}
+    for code, B, H, T in sorted(SWA_LAUNCHES):
+        py = plans.swa_plan(code == 1, B, H, T, sms)
+        c = kswa.c_plan(codes[code], B, H, T)
+        if (py.grid[0], py.grid[1], py.block[0], py.tile[2]) != c or launchgrid.check_plan(py):
+            fail(f"analysis: K6 plan at {(code, B, H, T)}: python {py.grid, py.block, py.tile}, "
+                 f"C {c}")
+        n_plans += 1
+    codes = {v: k for k, v in kssd.DTYPE_CODES.items()}
+    for code, Ba, T, H, G, N, P, L in sorted(SSD_LAUNCHES):
+        tc = kssd.kernel_for(codes[code], N, P) == kssd.KERNELS[1]
+        py = plans.ssd_plan(tc, Ba, T, H, G, L, sms)
+        c = kssd.c_plan(codes[code], Ba, T, H, G, N, P, L)
+        if (*py.grid, py.block[0], py.tile[2]) != c or launchgrid.check_plan(py):
+            fail(f"analysis: K7 plan at {(code, Ba, T, H, G, N, P, L)}: python "
+                 f"{py.grid, py.block, py.tile}, C {c}")
+        n_plans += 1
+    library = len(plans.library_plans(sms))
+    out = {"targets": len(reports), "sweep_s": sweep_s, "capture_s": capture_s,
+           "plans": n_plans}
+    say("analysis", card=repr(card), targets=len(reports), findings=0, sweep_s=sweep_s,
+        group_targets="in the CPU tests", mgcg_capture_s=capture_s,
+        mgcg_before_after="bitwise", mgcg_iterations=before[1],
+        mgcg_launches=json.dumps(before[2]).replace(" ", ""), launch_counters="unchanged",
+        launched_plans_checked=n_plans, library_plans=library,
+        elapsed_s=time.perf_counter() - t_phase, status="ok")
+    return out
 
 
 def main() -> int:
@@ -2846,6 +3129,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    record_launch_shapes()
     dev = torch.device("cuda", 0)
     card = gpu_line()
     print(card, flush=True)
@@ -3005,6 +3289,10 @@ def main() -> int:
     # the processes of the dist phase: Heat3D's K1, Poisson's K2-K5 and the
     # two-phase step's shifted K2-K5, summed over the processes
     dist = dist_phase(card)
+    # the analyzer's phase, alone after the groups have ended; its mgcg
+    # solves' launches are checked equal around a capture, not added to the
+    # counts
+    analysis_phase(card)
     k1["launches"] += dist["heat"]
     k1["launches_dist"] = dist["heat"]
     for e in solver_entries:
@@ -3014,6 +3302,10 @@ def main() -> int:
         op = e["name"][:-len("_shift")]
         e["launches"] += dist["shift"][op]
         e["launches_dist"] = dist["shift"][op]
+    for e in face_entries:
+        op = e["name"][:-len("_face")]
+        e["launches"] += dist["face"][op]
+        e["launches_dist"] = dist["face"][op]
 
     print(json.dumps({"kernels": [k1] + solver_entries + face_entries + ssd_entries
                       + swa_entries + shift_entries}))

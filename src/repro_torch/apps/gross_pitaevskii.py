@@ -30,16 +30,12 @@ class GrossPitaevskii3D:
     trap: float = 0.5           # harmonic trap strength
     hide: tuple | None = None   # kept for the reference's signature; unused (complex
                                 # halos go through plain update_halo)
-    dims: tuple | None = None   # virtual ranks per dim (None: one)
+    dims: tuple | None = None   # global blocks per dim (None: one per process)
     device: object = None       # None: the CUDA card
 
     def __post_init__(self):
         self.grid = init_global_grid(self.nx, self.ny, self.nz, dims=self.dims,
                                      dtype=torch.complex64, device=self.device)
-        if self.grid.distributed:
-            raise NotImplementedError(
-                "GrossPitaevskii3D is not yet checked with its blocks spread over processes; "
-                "run it in one process")
         g = self.grid
         self.dx = self.lx / (g.nx_g() - 1)
         # RK4 stability for i dpsi/dt = H psi: |lambda_max * dt| < 2.8 with

@@ -43,6 +43,8 @@ import numpy as np
 import torch
 
 from .. import fields, solvers
+from ..analysis import capture as _cap
+from ..analysis import markers as _mk
 from ..core import boundary, init_global_grid
 from ..fields import Field, FieldSet, ops
 from ..kernels.solver3d import ops as kops
@@ -143,7 +145,7 @@ class Stokes3D:
     theta: float = 1.3      # Uzawa step (times local eta); stable < ~1.8
     stress: str = "full"    # "full" symmetric-gradient | "stripped" block
     bc: str = "noslip"      # "noslip" | "freeslip" (tangential stress-free)
-    dims: tuple | None = None          # virtual ranks per dim (None: one)
+    dims: tuple | None = None          # global blocks per dim (None: one per process)
     dtype: torch.dtype = torch.float64
     use_kernel: str = "auto"           # auto | cuda | ref
     device: object = None              # None: the CUDA card
@@ -159,10 +161,6 @@ class Stokes3D:
             raise ValueError(f"unknown bc {self.bc!r}; pick from {BCS}")
         self.grid = init_global_grid(self.nx, self.ny, self.nz, dims=self.dims,
                                      dtype=self.dtype, device=self.device)
-        if self.grid.distributed:
-            raise NotImplementedError(
-                "Stokes3D is not yet checked with its blocks spread over processes; "
-                "run it in one process")
         g = self.grid
         self.dx = self.lx / (g.nx_g() - 1)
         self.spacing = (self.dx, self.dx, self.dx)
@@ -331,9 +329,9 @@ class Stokes3D:
         g = self.grid
         mc, ms = self._mask("interior", "center"), self._mask("solve", "center")
         divV = ops.div(V, self.spacing).data
-        dn = torch.sqrt(torch.sum(divV ** 2 * ms))
+        dn = torch.sqrt(red.psum(g.topo, torch.sum(divV ** 2 * ms)))
         P2 = (P.data - self.theta * self.eta.data * divV) * mc
-        mean = torch.sum(P2 * ms) / torch.sum(ms)
+        mean = red.psum(g.topo, torch.sum(P2 * ms)) / red.psum(g.topo, torch.sum(ms))
         P2 = (P2 - mean) * mc
         return P.with_data(g.update_halo(P2)), dn
 
@@ -350,7 +348,7 @@ class Stokes3D:
         rn = torch.sqrt(red.tree_dot(g, r, r, masks))
         fn = torch.sqrt(red.tree_dot(g, F, F, masks))
         divV = ops.div(V, self.spacing).data
-        dn = torch.sqrt(torch.sum(divV ** 2 * ms))
+        dn = torch.sqrt(red.psum(g.topo, torch.sum(divV ** 2 * ms)))
         return float(rn / fn), float(dn)
 
     # ------------------------------------------------------------------
@@ -495,7 +493,12 @@ class Stokes3D:
         converge, as the reference's loop predicate does), and once per
         inner CG iteration inside ``cg_local``.  The inner solves'
         convergence flag and worst relative residual are checked after the
-        loop."""
+        loop.  Under an analyzer capture the loop is recorded, not run."""
+        if _cap.capturing():   # an analyzer capture: record this solve, run nothing
+            _cap.maybe_capture("stokes.schur", self.grid, (self.F, self.eta),
+                               lambda: self._solve_schur_compiled(
+                                   tol, outer_maxiter, inner_tol, precond, variant,
+                                   inner_maxiter))
         g = self.grid
         eta = self.eta
         pre = self._precond(precond)
@@ -539,7 +542,8 @@ class Stokes3D:
         k, itot = 0, k0
         ok, worst = rr0 <= inner_tol, rr0
         thresh = tol * d0
-        while k < outer_maxiter and bool((res > thresh) & ok):
+        while k < outer_maxiter and _mk.loop_bool((res > thresh) & ok, site="apps.stokes.schur",
+                                                  first=k == 0):
             # Schur matvec: one whole velocity solve per outer step
             W, kw, rrw = vsolve(gradp(g.update_halo(p.clone())), zeros_v)
             Sp, _ = negdiv(W)
@@ -559,6 +563,8 @@ class Stokes3D:
         G = gradp(Ph)
         V, kf, rrf = vsolve(FieldSet(vx=F.vx - G.vx, vy=F.vy - G.vy, vz=F.vz - G.vz), V0)
         ok, worst = ok & (rrf <= inner_tol), torch.maximum(worst, rrf)
+        if _mk.TRACE is not None:   # a capture stops before the host reads
+            return V, None, None
         if not bool(ok):
             raise RuntimeError(
                 "Schur-CG inner velocity solve did not converge inside the outer loop "

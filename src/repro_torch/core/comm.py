@@ -11,7 +11,14 @@ CartesianTopology` assigns it.  This module is the ONLY place that calls
 * :func:`all_reduce` — sum, max and min of the reductions' partials;
 * :func:`all_gather` — every process's tensor, for ``gather``;
 * :func:`barrier`, and what a process needs to know of the group
-  (:func:`initialized`, :func:`world_size`, :func:`rank`).
+  (:func:`initialized`, :func:`world_size`, :func:`rank`);
+* :func:`exchange_through_store` — bytes of every process through the
+  group's key-value store (no collective: a process that never publishes
+  is a timeout, not a hang), for the analyzer's cross-process check.
+
+Under an analyzer check (:mod:`repro_torch.analysis`) the four
+communicating functions record what they would send and return meta
+tensors of the right shape: nothing is sent.
 
 The group is the default one the caller made with
 ``torch.distributed.init_process_group``, and its backend is the caller's
@@ -27,7 +34,12 @@ of one process) none of these functions is reached by the grid.
 
 from __future__ import annotations
 
+import datetime
+import time
+
 import torch
+
+from ..analysis import markers as _mk
 
 # Tags of the two directions of one exchange.  gloo matches messages by
 # tag; NCCL ignores tags and matches the messages between a pair of ranks
@@ -91,6 +103,8 @@ def sendrecv(to_low: torch.Tensor | None, to_high: torch.Tensor | None,
     periodic dimension): each direction has its own tag, and the
     low-going send and receive are issued before the high-going ones.
     """
+    if _mk.TRACE is not None:
+        return _mk.TRACE.sendrecv(to_low, to_high, low, high)
     dist = _dist()
     like = to_low if to_low is not None else to_high
     ops, from_low, from_high = [], None, None
@@ -114,6 +128,9 @@ def all_gather(t: torch.Tensor) -> list[torch.Tensor]:
     """``t`` of every process, in rank order (every process passes a tensor
     of the same shape and dtype).  Under staging the results stay on the
     host."""
+    if _mk.TRACE is not None:
+        _mk.TRACE.collective("all_gather", t, site="core.comm.all_gather")
+        return [t.clone() for _ in range(world_size())]
     dist = _dist()
     w = _wire(t)
     out = [torch.empty_like(w) for _ in range(world_size())]
@@ -131,6 +148,9 @@ def all_reduce(x: torch.Tensor, op: str) -> torch.Tensor:
     process, and a one-ulp disagreement between processes would send them
     on different iteration counts.  Max and min are exact in any order.
     """
+    if _mk.TRACE is not None:
+        _mk.TRACE.collective("all_reduce", x, reduce_op=op, site="core.comm.all_reduce")
+        return x.clone()
     if op == "sum":
         return torch.stack(all_gather(x)).sum(0).to(x.device)
     dist = _dist()
@@ -144,9 +164,32 @@ def all_reduce(x: torch.Tensor, op: str) -> torch.Tensor:
 
 def barrier() -> None:
     """Wait for every process of the default group (a no-op without one)."""
+    if _mk.TRACE is not None:
+        _mk.TRACE.collective("barrier", site="core.comm.barrier")
+        return
     if initialized():
         _dist().barrier()
 
 
-__all__ = ["all_gather", "all_reduce", "backend", "barrier", "initialized", "rank",
-           "sendrecv", "world_size"]
+def exchange_through_store(key: str, payload: bytes, timeout: float) -> list:
+    """Every process's ``payload`` (this one's included), in rank order,
+    through the default group's key-value store under ``key``; None for a
+    process that did not publish within ``timeout`` seconds.  No
+    collective is issued, so processes that disagree cannot hang here."""
+    store = _dist().distributed_c10d._get_default_store()
+    store.set(f"{key}/{rank()}", payload)
+    deadline = time.monotonic() + timeout
+    out = []
+    for r in range(world_size()):
+        k = f"{key}/{r}"
+        try:
+            left = max(deadline - time.monotonic(), 0.001)
+            store.wait([k], datetime.timedelta(seconds=left))
+            out.append(store.get(k))
+        except RuntimeError:   # the store's timeout (DistStoreError is one)
+            out.append(None)
+    return out
+
+
+__all__ = ["all_gather", "all_reduce", "backend", "barrier", "exchange_through_store",
+           "initialized", "rank", "sendrecv", "world_size"]

@@ -19,14 +19,22 @@ propagate across dimensions (and processes) as in ImplicitGlobalGrid.
 Unlike the reference, which returns new arrays, the update writes the halo
 planes of the given tensors in place (no second copy of the field) and
 returns the same tensors.
+
+Under an analyzer check (:mod:`repro_torch.analysis`) each array's update
+is wrapped in ``exchange_in`` / ``exchange_out`` markers and each exchange
+records its peer tables; outside a check each is one falsy test.
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
+import dataclasses
+
+import numpy as np
 import torch
 
+from ..analysis import markers as _mk
 from ..telemetry.counters import record_halo as _record_halo
 from . import comm
 from .locations import STAGGER_DIM
@@ -49,6 +57,9 @@ def exchange(topo: CartesianTopology, send_low: torch.Tensor, send_high: torch.T
     those processes sent.  The results are fresh tensors, so reading them
     never races with writes into the field they came from.
     """
+    if _mk.TRACE is not None:
+        _mk.TRACE.table(**peer_table(topo, gdim, +1), site="core.halo.exchange")
+        _mk.TRACE.table(**peer_table(topo, gdim, -1), site="core.halo.exchange")
     recv_low = torch.roll(send_high, 1, block_axis)
     recv_high = torch.roll(send_low, -1, block_axis)
     if topo.procs[gdim] > 1:
@@ -62,6 +73,52 @@ def exchange(topo: CartesianTopology, send_low: torch.Tensor, send_high: torch.T
         if from_high is not None:
             recv_high.narrow(block_axis, D - 1, 1).copy_(from_high)
     return recv_low, recv_high
+
+
+def peer_table(topo: CartesianTopology, gdim: int, shift: int) -> dict:
+    """The (source block, destination block) pairs along ``gdim`` (global
+    block coordinates) of the slabs :func:`exchange` moves ``shift`` (+1:
+    each block's high slab to the next block's low halo) and the pairs the
+    destinations receive from, for every process coordinate along
+    ``gdim``: the roll within a process, :meth:`CartesianTopology.
+    neighbour` between processes, and no pair into a physical boundary's
+    ring.  The analyzer's congruence rule classifies them."""
+    L, P, n = topo.local_dims[gdim], topo.procs[gdim], topo.dims[gdim]
+    periodic = topo.periodic[gdim]
+
+    def at(q):
+        c = list(topo.pcoord)
+        c[gdim] = q
+        return dataclasses.replace(topo, pcoord=tuple(c))
+
+    def pcoord_of(rank):
+        return int(np.unravel_index(rank, topo.procs)[gdim])
+
+    def partner(q, i, s):
+        """Global block next to local block ``i`` of process ``q`` in
+        direction ``s``, by the exchange's rule (None: no partner)."""
+        j = i + s
+        if 0 <= j < L:
+            return q * L + j
+        if P > 1:
+            r = at(q).neighbour(gdim, s)
+            return None if r is None else pcoord_of(r) * L + (j % L)
+        return q * L + (j % L)
+
+    def takes(c):   # a physical boundary's ring keeps its BCs
+        return periodic or not (c == 0 and shift > 0 or c == n - 1 and shift < 0)
+
+    send, recv = [], []
+    for q in range(P):
+        for i in range(L):
+            c = q * L + i
+            d = partner(q, i, shift)
+            if d is not None and takes(d):
+                send.append((c, d))
+            s = partner(q, i, -shift)
+            if s is not None and takes(c):
+                recv.append((s, c))
+    return dict(gdim=gdim, shift=shift, n=n, send=send, recv=recv)
 
 
 def _update_one_dim(topo: CartesianTopology, A: torch.Tensor, gdim: int,
@@ -120,6 +177,7 @@ def update_halo(
             raise ValueError(
                 f"array of shape {tuple(A.shape)} is not a field over blocks "
                 f"{tuple(topo.local_dims)}: expected (*lead, *local_dims, *local)")
+        _mk.exchange_in(A, width=width, site="core.halo.update_halo")
         for d in dims:
             if topo.dims[d] == 1 and not topo.periodic[d]:
                 continue  # nothing to exchange
@@ -129,4 +187,5 @@ def update_halo(
             _record_halo(A.shape[:off] + A.shape[off + nd:], off + d, width,
                          A.element_size())
             _update_one_dim(topo, A, d, off + d, off + nd + d, width)
+        _mk.exchange_out(A, width=width, site="core.halo.update_halo")
     return arrays[0] if len(arrays) == 1 else arrays

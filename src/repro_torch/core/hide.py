@@ -30,6 +30,7 @@ from typing import Callable, Sequence
 
 import torch
 
+from ..analysis import markers as _mk
 from .halo import update_halo
 from .topology import CartesianTopology
 
@@ -97,7 +98,7 @@ def hide_communication(
         for k in range(len(outs)):
             outs[k][sl_global].copy_(int_out[k][sl_local])
 
-    if ref.device.type == "cuda":
+    if ref.device.type == "cuda" and _mk.TRACE is None:
         # ---- 2. exchange of the fresh shell on a high-priority stream ----
         # The exchange reads the send slabs [h, 2h) / [n-2h, n-h) inside
         # the shell and writes the halo planes; the interior writes only
@@ -119,9 +120,16 @@ def hide_communication(
         # ---- 3. interior on the current stream, concurrently -----------
         interior()
         cur.wait_event(exchanged)
-    else:
+    else:   # the CPU, and an analyzer check (which records the same three phases)
         update_halo(topo, *outs, width=h)
         interior()
+    # Contract for the analyzer: the exchange above sent the fresh boundary
+    # shell, written BEFORE it, so the output's ghosts are fresh although
+    # the interior write lands after it (which the plain min-rule can't see).
+    if _mk.TRACE is not None:
+        for A in outs:
+            _mk.exchange_out(A, width=h, site="core.hide.hide_communication.contract",
+                             contract=True)
     return outs[0] if len(outs) == 1 else tuple(outs)
 
 
@@ -144,4 +152,8 @@ def hide_apply(topo: CartesianTopology, op_fn: Callable, u: torch.Tensor, *extra
     if u.ndim != 2 * nd:
         raise ValueError(
             f"hide_apply expects fields (*dims, *local) of rank {2 * nd}, got rank {u.ndim}")
-    return op_fn(update_halo(topo, u.clone(), width=int(halo)), *extra)
+    ub = update_halo(topo, u.clone(), width=int(halo))
+    # the exchanged copy is the operand the contract names (an analyzer
+    # marker; the redundancy rule does not pair it with a later exchange)
+    _mk.exchange_out(ub, width=int(halo), site="core.hide.hide_apply.contract", contract=True)
+    return op_fn(ub, *extra)

@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from ..analysis import markers as _mk
+
 MODES = ("auto", "cuda", "ref")
 
 
@@ -23,7 +25,7 @@ def resolve(use_kernel: str, x: torch.Tensor, *, where: str = "kernel") -> str:
         raise ValueError(f"{where}: unknown use_kernel={use_kernel!r}; pick from {MODES}")
     if use_kernel == "ref":
         return "ref"
-    dev = x.device.type
+    dev = _mk.device_type(x)   # inside an analyzer check: the checked device
     if dev == "cuda":
         return "cuda"
     if use_kernel == "auto" and dev == "cpu":

@@ -1,0 +1,111 @@
+"""Launch plans of the hand-written kernels, for the analyzer's launch rule
+(:mod:`repro_torch.analysis.launchgrid`).
+
+* K1 and K2-K5 (``heat_step.cu``, ``solver3d.cu``): one thread per cell in
+  thread blocks of ``CELL_TILE`` cells; grid x over z tiles, y over y
+  tiles, z over (x tiles) x blocks of the field.  The wrappers pass
+  ``plan.grid`` and ``plan.block`` to the C entry points, which launch
+  that grid and refuse a block they were not compiled for.
+* K6 (``swa.cu``) and K7 (``ssd.cu``): the C entry points choose the plan
+  themselves (from the SM count); these functions mirror that choice and
+  the kernels' block -> tile arithmetic, and ``chip_smoke.py`` holds them
+  against the C entry points' ``repro_swa_plan`` / ``repro_ssd_plan`` at
+  every shape it launches.
+"""
+
+from __future__ import annotations
+
+from ..analysis.launchgrid import LaunchPlan
+
+CELL_TILE = (2, 4, 32)    # cells per thread block along x, y, z
+H100_SMS = 132            # the SM count of an H100 SXM, for plans made off the card
+
+
+def cell_plan(kernel: str, nb: int, nx: int, ny: int, nz: int) -> LaunchPlan:
+    """K1 / K2-K5 over ``nb`` blocks of ``(nx, ny, nz)`` cells."""
+    tx, ty, tz = CELL_TILE
+    xt = -(-nx // tx)
+
+    def out_map(gx, gy, gz):
+        return gz // xt, gz % xt, gy, gx
+
+    return LaunchPlan(kernel, grid=(-(-nz // tz), -(-ny // ty), xt * nb), block=(tz, ty, tx),
+                      shape=(nb, nx, ny, nz), tile=(1, tx, ty, tz),
+                      guard=(False, True, True, True), out_map=out_map)
+
+
+def swa_plan(tensor_cores: bool, B: int, H: int, T: int, sms: int = H100_SMS) -> LaunchPlan:
+    """K6 over (B, H, T) query rows: the CUDA-core kernel takes 64 rows of
+    one (batch, head) per block; the tensor-core kernel 64 rows per
+    consumer warpgroup (two when the grid fills the SMs), the last q tiles
+    first."""
+    n_bh = B * H
+    if not tensor_cores:
+        return LaunchPlan("K6 swa_kernel", grid=(-(-T // 64), n_bh, 1), block=(256, 1, 1),
+                          shape=(B, H, T), tile=(1, 1, 64), guard=(False, False, True),
+                          out_map=lambda gx, gy, gz: (gy // H, gy % H, gx))
+    nwg = 2 if n_bh * -(-T // 128) >= sms else 1
+    bm = 64 * nwg
+    nq = -(-T // bm)
+
+    def out_map(gx, gy, gz):
+        bh = gx % n_bh
+        return bh // H, bh % H, nq - 1 - gx // n_bh
+
+    return LaunchPlan("K6 swa_kernel_tc", grid=(n_bh * nq, 1, 1), block=(128 * nwg + 128, 1, 1),
+                      shape=(B, H, T), tile=(1, 1, bm), guard=(False, False, True),
+                      out_map=out_map)
+
+
+def ssd_plan(tensor_cores: bool, Ba: int, T: int, H: int, G: int, L: int,
+             sms: int = H100_SMS) -> LaunchPlan:
+    """K7 over (batch, chunk, head): the CUDA-core kernel one head of one
+    chunk per block; the tensor-core kernel ``HS`` heads of one group per
+    block, HS the largest divisor of H / G (at most 8) that leaves two
+    blocks per SM."""
+    nc = T // L
+    if not tensor_cores:
+        return LaunchPlan("K7 ssd_chunk_kernel", grid=(nc, H, Ba), block=(256, 1, 1),
+                          shape=(Ba, nc, H), tile=(1, 1, 1), guard=(False,) * 3,
+                          out_map=lambda gx, gy, gz: (gz, gx, gy))
+    R, groups = H // G, Ba * nc * G
+    hs = next((s for s in range(min(R, 8), 1, -1) if R % s == 0 and groups * (R // s) >= 2 * sms),
+              1)
+    ns = R // hs
+
+    def out_map(gx, gy, gz):
+        r = gx // ns
+        g, r = r % G, r // G
+        return r // nc, r % nc, g * ns + gx % ns
+
+    return LaunchPlan("K7 ssd_chunk_kernel_tc", grid=(groups * ns, 1, 1), block=(128, 1, 1),
+                      shape=(Ba, nc, H), tile=(1, 1, hs), guard=(False,) * 3, out_map=out_map)
+
+
+# (nb, nx, ny, nz) of K1-K5 launches: the tests' blocks, the main paths'
+# blocks and every level of their multigrid hierarchies
+_CELL_SHAPES = ((1, 10, 10, 10), (8, 10, 10, 10), (1, 18, 18, 18), (8, 6, 6, 6), (1, 5, 7, 33),
+                (1, 512, 512, 512), (8, 256, 256, 256)) + tuple(
+    (nb, n, n, n) for nb, top in ((1, 514), (8, 258), (1, 386), (8, 194))
+    for n in (top, (top + 2) // 2, (top + 6) // 4, (top + 14) // 8, (top + 30) // 16))
+# K6 (B, H, T) and K7 (Ba, T, H, G, L): the tests' and the serving paths' shapes
+_SWA_SHAPES = ((2, 4, 64), (1, 8, 32), (1, 4, 16), (1, 2, 64), (1, 8, 1), (1, 8, 5), (1, 8, 50),
+               (2, 8, 1500), (1, 8, 333), (6, 8, 333), (17, 8, 5), (4, 8, 2048), (1, 8, 1000))
+_SSD_SHAPES = ((4, 2048, 64, 1, 64), (1, 1000, 64, 1, 50), (2, 7, 64, 1, 1), (2, 64, 8, 2, 8),
+               (2, 20, 8, 1, 5))
+
+
+def library_plans(sms: int = H100_SMS) -> list[tuple[str, LaunchPlan]]:
+    """``(label, plan)`` for every kernel at the shapes above (the
+    analyzer's ``kernels/library`` target)."""
+    out = []
+    for nb, nx, ny, nz in _CELL_SHAPES:
+        for k in ("K1 heat_step", "K2-K5 solver3d"):
+            out.append((f"{k}[{nb}x{nx}x{ny}x{nz}]", cell_plan(k, nb, nx, ny, nz)))
+    for tc in (False, True):
+        for B, H, T in _SWA_SHAPES:
+            out.append((f"K6[{B}x{H}x{T},tc={tc}]", swa_plan(tc, B, H, T, sms)))
+        for Ba, T, H, G, L in _SSD_SHAPES:
+            out.append((f"K7[{Ba}x{T}x{H},G={G},L={L},tc={tc}]",
+                        ssd_plan(tc, Ba, T, H, G, L, sms)))
+    return out

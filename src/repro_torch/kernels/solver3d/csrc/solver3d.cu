@@ -333,10 +333,9 @@ void launch_center(int op, const Params<T>& p, dim3 grid, dim3 block, cudaStream
 }
 
 template <typename T>
-cudaError_t launch(int op, int sd, const Params<T>& p, int nb, cudaStream_t stream) {
-  const dim3 block(kTz, kTy, kTx);
-  const dim3 grid((p.nz + kTz - 1) / kTz, (p.ny + kTy - 1) / kTy,
-                  ((p.nx + kTx - 1) / kTx) * nb);
+cudaError_t launch(int op, int sd, const Params<T>& p, dim3 grid, dim3 block,
+                   cudaStream_t stream) {
+  if (block.x != kTz || block.y != kTy || block.z != kTx) return cudaErrorInvalidValue;
   if (op < kApply || op > kCheb || sd < -1 || sd > 2) return cudaErrorInvalidValue;
   if (sd != -1 && p.s != nullptr) return cudaErrorInvalidValue;  // shifts are center only
   switch (sd) {
@@ -363,9 +362,9 @@ cudaError_t launch(int op, int sd, const Params<T>& p, int nb, cudaStream_t stre
 template <typename T>
 cudaError_t run(int op, int sd, const void* u, const void* c, const void* f,
                 const void* dia, const void* d, const void* m, const void* s, void* out,
-                void* dout, int nb,
+                void* dout,
                 int nx, int ny, int nz, const long long* st, const double* h2, double omega,
-                double a, double b, int first, cudaStream_t stream) {
+                double a, double b, int first, dim3 grid, dim3 block, cudaStream_t stream) {
   Params<T> p;
   p.u = static_cast<const T*>(u);
   p.c = static_cast<const T*>(c);
@@ -388,7 +387,7 @@ cudaError_t run(int op, int sd, const void* u, const void* c, const void* f,
   p.a = T(a);
   p.b = T(b);
   p.first = first;
-  return launch<T>(op, sd, p, nb, stream);
+  return launch<T>(op, sd, p, grid, block, stream);
 }
 
 }  // namespace
@@ -400,21 +399,26 @@ cudaError_t run(int op, int sd, const void* u, const void* c, const void* f,
 // the center ops' Helmholtz shift (null: no shift; a face op refuses one).
 // strides: 28 element strides, (batch, x, y, z) for u, c, f, dia, d, m and s
 // in turn.  h2: h_x^2, h_y^2, h_z^2.  first: K5's first step (a is not used and
-// d is not read).  Returns cudaGetLastError() after the launch (0 on
-// success).
+// d is not read).  grid and block are the caller's launch plan
+// (kernels/plans.py::cell_plan: grid (z tiles, y tiles, x tiles * nb)); a
+// block other than (kTz, kTy, kTx) is refused.  Returns cudaGetLastError()
+// after the launch (0 on success).
 extern "C" int repro_solver3d(int op, int dtype, int sd, const void* u, const void* c,
                               const void* f, const void* dia, const void* d, const void* m,
                               const void* s, void* out, void* dout, int nb, int nx, int ny, int nz,
                               const long long* strides, const double* h2, double omega, double a,
-                              double b, int first, void* stream) {
+                              double b, int first, int gx, int gy, int gz, int bx, int by, int bz,
+                              void* stream) {
+  if (nb < 1) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  const dim3 grid(gx, gy, gz), block(bx, by, bz);
   switch (dtype) {
     case 0:
-      return run<float>(op, sd, u, c, f, dia, d, m, s, out, dout, nb, nx, ny, nz, strides, h2,
-                        omega, a, b, first, cs);
+      return run<float>(op, sd, u, c, f, dia, d, m, s, out, dout, nx, ny, nz, strides, h2,
+                        omega, a, b, first, grid, block, cs);
     case 2:
-      return run<double>(op, sd, u, c, f, dia, d, m, s, out, dout, nb, nx, ny, nz, strides, h2,
-                         omega, a, b, first, cs);
+      return run<double>(op, sd, u, c, f, dia, d, m, s, out, dout, nx, ny, nz, strides, h2,
+                         omega, a, b, first, grid, block, cs);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

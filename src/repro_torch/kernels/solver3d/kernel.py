@@ -8,7 +8,10 @@ sizes, allocates its outputs with ``torch.empty`` (the kernel writes every
 cell, ring included), launches on the current CUDA stream without
 synchronising, and raises if the launch was refused.
 ``<wrapper>.launches`` counts the launches.  The kernels multiply by a
-host-computed ``1/h²`` where the plain version divides by ``h²``.
+host-computed ``1/h²`` where the plain version divides by ``h²``.  The grid
+and block come from :func:`repro_torch.kernels.plans.cell_plan`, the plan
+the analyzer checks; under an analyzer check a wrapper records that plan,
+reads its ``u`` as a radius-1 stencil and launches nothing (its count stays).
 
 The center wrappers take an optional Helmholtz ``shift`` field (``A u =
 shift * u - div(c grad u)``, the two-phase pressure operator); the
@@ -19,15 +22,17 @@ counts the launches that carried one.
 from __future__ import annotations
 
 import ctypes
+import math
 import functools
 
 import torch
 
+from ...analysis import markers as _mk
 from .. import _build
+from ..plans import cell_plan
 
 DTYPE_CODES = {torch.float32: 0, torch.float64: 2}
 OPS = {"apply": 0, "residual": 1, "jacobi": 2, "cheb": 3}
-_TILE = (2, 4, 32)       # cells per thread block along x, y, z (solver3d.cu)
 _MAX_GRID_YZ = 65535
 
 
@@ -35,7 +40,7 @@ _MAX_GRID_YZ = 65535
 def _entry():
     fn = _build.load().repro_solver3d
     fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p] * 2 + [ctypes.c_double] * 3 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_double] * 3 + [ctypes.c_int] * 7
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -44,6 +49,11 @@ def _entry():
 def _launch(op: str, u, c, f=None, dia=None, d=None, m=None, s=None, *, sd=None, h2,
             omega=0.0, a=0.0, b=0.0, first=False):
     where = f"solver3d.{op}{'' if sd is None else '_face'}_cuda"
+    if _mk.TRACE is not None:   # an analyzer check: record the plan, launch nothing
+        u = _mk.consume(u, radius=1, site=f"kernels.solver3d.kernel.{op}")
+        plan = cell_plan(f"K{OPS[op] + 2} solver3d.{op}", math.prod(u.shape[:-3]),
+                         *u.shape[-3:])
+        return _mk.TRACE.kernel(plan, (u, c, f, dia, d, m, s), 2 if op == "cheb" else 1)
     if sd not in (None, 0, 1, 2):
         raise ValueError(f"{where}: stagger dim {sd!r} is not 0, 1 or 2")
     if sd is not None and op != "apply" and m is None:
@@ -69,7 +79,8 @@ def _launch(op: str, u, c, f=None, dia=None, d=None, m=None, s=None, *, sd=None,
     dout = torch.empty_like(out) if op == "cheb" else None
     if out.numel() == 0:
         return out if dout is None else (out, dout)
-    if -(-ny // _TILE[1]) > _MAX_GRID_YZ or -(-nx // _TILE[0]) * nb > _MAX_GRID_YZ:
+    plan = cell_plan(f"K{OPS[op] + 2} solver3d.{op}", nb, nx, ny, nz)
+    if max(plan.grid[1:]) > _MAX_GRID_YZ:
         raise ValueError(f"{where}: shape {(nb, nx, ny, nz)} exceeds the launch grid")
     strides = (ctypes.c_longlong * 28)(*[st for k in inputs for st in (
         views[k].stride() if k in views else (0, 0, 0, 0))])
@@ -84,15 +95,19 @@ def _launch(op: str, u, c, f=None, dia=None, d=None, m=None, s=None, *, sd=None,
                        ptr("c"), ptr("f"), ptr("dia"), ptr("d"), ptr("m"), ptr("s"),
                        out.data_ptr(),
                        None if dout is None else dout.data_ptr(), nb, nx, ny, nz, strides, h2s,
-                       float(omega), float(a), float(b), int(bool(first)), stream)
+                       float(omega), float(a), float(b), int(bool(first)), *plan.grid,
+                       *plan.block, stream)
     if err != 0:
         raise RuntimeError(f"{where}: launch failed with CUDA error {err}")
     return out if dout is None else (out, dout)
 
 
-def _count(wrapper, shift) -> None:
+def _count(wrapper, shift=None) -> None:
+    if _mk.TRACE is not None:   # an analyzer check launched nothing
+        return
     wrapper.launches += 1
-    wrapper.shifted_launches += shift is not None
+    if shift is not None:
+        wrapper.shifted_launches += 1
 
 
 def apply_cuda(u, c, *, h2, shift=None):
@@ -132,14 +147,14 @@ def apply_face_cuda(u, c, *, sd, h2):
     """K2 face: the raw, unmasked roll-form ``A u`` of a field staggered
     along ``sd``; same contract as ``ref.apply_op_ref(loc=<face>)``."""
     out = _launch("apply", u, c, sd=sd, h2=h2)
-    apply_face_cuda.launches += 1
+    _count(apply_face_cuda)
     return out
 
 
 def residual_face_cuda(u, c, f, imask, *, sd, h2):
     """K3 face: ``(f - A u) * imask`` over the whole block."""
     out = _launch("residual", u, c, f, m=imask, sd=sd, h2=h2)
-    residual_face_cuda.launches += 1
+    _count(residual_face_cuda)
     return out
 
 
@@ -147,7 +162,7 @@ def jacobi_face_cuda(u, c, f, dia, imask, *, sd, omega, h2):
     """K4 face: ``u + (omega * ((f - A u) * imask)) / dia`` over the whole
     block."""
     out = _launch("jacobi", u, c, f, dia, m=imask, sd=sd, h2=h2, omega=omega)
-    jacobi_face_cuda.launches += 1
+    _count(jacobi_face_cuda)
     return out
 
 
@@ -157,7 +172,7 @@ def cheb_face_cuda(u, c, f, dia, imask, d, *, sd, a, b, h2):
     first = a is None
     out = _launch("cheb", u, c, f, dia, None if first else d, imask, sd=sd, h2=h2,
                   a=0.0 if first else a, b=b, first=first)
-    cheb_face_cuda.launches += 1
+    _count(cheb_face_cuda)
     return out
 
 

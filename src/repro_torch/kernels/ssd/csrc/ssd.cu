@@ -102,6 +102,38 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kTcThreads = 128;             // one warpgroup
+constexpr int kTcMaxHS = 8;                 // heads per block, at most
+
+// The launch plan of either kernel (kernels/plans.py::ssd_plan mirrors it):
+// blocks along x, y and z, threads per block and heads per block.  The
+// CUDA-core kernel takes one head of one chunk per block; the tensor-core
+// kernel HS heads of one group, HS the largest divisor of H / G, at most
+// kTcMaxHS, that leaves at least two blocks per SM (else one head).
+struct Plan {
+  long long gx;
+  int gy, gz, threads, heads;
+};
+
+Plan plan_for(bool tensor_cores, int Ba, int H, int G, int nc, int sms) {
+  if (!tensor_cores) return Plan{nc, H, Ba, kThreads, 1};
+  const int R = H / G;
+  const long long groups = static_cast<long long>(Ba) * nc * G;
+  int HS = 1;
+  for (int hs = std::min(R, kTcMaxHS); hs > 1; --hs)
+    if (R % hs == 0 && groups * (R / hs) >= 2LL * sms) {
+      HS = hs;
+      break;
+    }
+  return Plan{groups * (R / HS), 1, 1, kTcThreads, HS};
+}
+
+int sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return static_cast<int>(err);
+}
 
 template <typename T> __device__ __forceinline__ float up(T x);
 template <> __device__ __forceinline__ float up<float>(float x) { return x; }
@@ -263,8 +295,9 @@ int run(const void* x, const void* Bm, const void* Cm, const float* dt, const fl
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(d.nc, d.H, Ba);
-  ssd_chunk_kernel<T><<<grid, kThreads, bytes, stream>>>(
+  const Plan pl = plan_for(false, Ba, d.H, d.G, d.nc, 0);
+  const dim3 grid(static_cast<unsigned>(pl.gx), pl.gy, pl.gz);
+  ssd_chunk_kernel<T><<<grid, pl.threads, bytes, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(Bm), static_cast<const T*>(Cm), dt, s,
       static_cast<T*>(y), states, d);
   return static_cast<int>(cudaGetLastError());
@@ -274,9 +307,7 @@ int run(const void* x, const void* Bm, const void* Cm, const float* dt, const fl
 // bfloat16: the tensor-core kernel
 // ===========================================================================
 
-constexpr int kTcThreads = 128;             // one warpgroup
 constexpr int kTcStages = 3;                // stages of the X ring
-constexpr int kTcMaxHS = 8;                 // heads per block, at most
 constexpr uint32_t kTile = 64 * 128;        // 64 rows of 128 bytes, 128-byte swizzled
 constexpr uint32_t kKStep = 16 * 128;       // 16 rows of a tile: one k-step of an MN-major operand
 constexpr int kTcTiles = 4 + kTcStages + 4;  // C, B, the X ring, the states' staging
@@ -630,21 +661,13 @@ int make_states_map(CUtensorMap* map, void* ptr, int P, int N, long long rows) {
 
 int run_tc(const void* x, const void* Bm, const void* Cm, const float* dt, const float* s,
            void* y, float* states, int Ba, const Dims& d, cudaStream_t stream) {
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // heads per block: the largest divisor of H / G, at most kTcMaxHS, that
-  // leaves at least two blocks per SM (else one head per block)
+  int sms = 0;
+  const int e_sm = sm_count(&sms);
+  if (e_sm != 0) return e_sm;
   const int R = d.H / d.G;
-  const long long groups = static_cast<long long>(Ba) * d.nc * d.G;
-  int HS = 1;
-  for (int hs = std::min(R, kTcMaxHS); hs > 1; --hs)
-    if (R % hs == 0 && groups * (R / hs) >= 2LL * sms) {
-      HS = hs;
-      break;
-    }
-  const long long blocks = groups * (R / HS);
+  const Plan pl = plan_for(true, Ba, d.H, d.G, d.nc, sms);
+  const int HS = pl.heads;
+  const long long blocks = pl.gx;
   if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
   alignas(64) CUtensorMap xmap, bmap, cmap, ymap, smap;
   int e = make_map(&xmap, x, d.P, d.H, d.L, d.nc, Ba, d.xh, d.xt, d.xb);
@@ -655,11 +678,11 @@ int run_tc(const void* x, const void* Bm, const void* Cm, const float* dt, const
   if (e == 0) e = make_states_map(&smap, states, d.P, d.N, static_cast<long long>(Ba) * d.nc * d.H);
   if (e != 0) return e;
   const size_t bytes = tc_smem_bytes(HS);
-  err = cudaFuncSetAttribute(ssd_chunk_kernel_tc, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(bytes));
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_chunk_kernel_tc, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const TcDims t{d.T, d.H, d.G, d.N, d.P, d.L, d.nc, R, HS, R / HS};
-  ssd_chunk_kernel_tc<<<static_cast<unsigned>(blocks), kTcThreads, bytes, stream>>>(
+  ssd_chunk_kernel_tc<<<static_cast<unsigned>(blocks), pl.threads, bytes, stream>>>(
       xmap, bmap, cmap, ymap, smap, dt, s, t);
   return static_cast<int>(cudaGetLastError());
 }
@@ -699,4 +722,26 @@ extern "C" int repro_ssd_intra_chunk(int dtype, const void* x, const void* Bm, c
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The launch plan repro_ssd_intra_chunk uses for these sizes (dtype and the
+// widths N, P pick the kernel as there): out[0..4] = blocks along x, y and
+// z, threads per block, heads per block.  Returns a CUDA error code.
+extern "C" int repro_ssd_plan(int dtype, int Ba, int T, int H, int G, int N, int P, int L,
+                              long long* out) {
+  if (L < 1 || T % L != 0 || G < 1 || H % G != 0 || dtype < 0 || dtype > 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool tc = dtype == 1 && N % 8 == 0 && P % 8 == 0;
+  int sms = 0;
+  if (tc) {
+    const int e = sm_count(&sms);
+    if (e != 0) return e;
+  }
+  const Plan p = plan_for(tc, Ba, H, G, T / L, sms);
+  out[0] = p.gx;
+  out[1] = p.gy;
+  out[2] = p.gz;
+  out[3] = p.threads;
+  out[4] = p.heads;
+  return 0;
 }

@@ -19,6 +19,10 @@ through TMA tensor maps, which need 16-byte aligned views with strides of
 buffer (the Mamba layer's views are never copied).
 ``ssd_intra_chunk_cuda.launches`` counts the launches,
 ``ssd_intra_chunk_cuda.tc_launches`` those on the tensor cores.
+:func:`c_plan` is the C entry point's launch plan, which ``chip_smoke.py``
+holds against the analyzer's (:func:`repro_torch.kernels.plans.ssd_plan`)
+at every shape it launched.  Under an analyzer check the wrapper records
+that plan and launches nothing.
 
 :func:`ssd_kernel` is the counterpart of the reference's ``ssd_pallas``:
 K7, then the inter-chunk recurrence and ``Y_off`` in PyTorch, which the
@@ -32,7 +36,9 @@ import functools
 
 import torch
 
+from ...analysis import markers as _mk
 from .. import _build, tma_ready
+from ..plans import H100_SMS, ssd_plan
 from .ref import chunk_logdecay
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -48,6 +54,19 @@ def _entry():
                    + [ctypes.c_void_p] * 2 + [ctypes.POINTER(ctypes.c_int)])
     fn.restype = ctypes.c_int
     return fn
+
+
+def c_plan(dtype: torch.dtype, Ba: int, T: int, H: int, G: int, N: int, P: int, L: int) -> tuple:
+    """The C entry point's launch plan: blocks along x, y and z, threads
+    per block, heads per block."""
+    fn = _build.load().repro_ssd_plan
+    fn.argtypes = [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * 5)()
+    err = fn(DTYPE_CODES[dtype], Ba, T, H, G, N, P, L, out)
+    if err != 0:
+        raise RuntimeError(f"repro_ssd_plan failed with CUDA error {err}")
+    return tuple(out)
 
 
 def kernel_for(dtype: torch.dtype, N: int, P: int) -> str:
@@ -91,6 +110,13 @@ def check_args(x, dt, A, B, C, chunk: int) -> None:
 def ssd_intra_chunk_cuda(x, dt, A, B, C, *, chunk: int = 64):
     """K7 on the card; contract of ``ssd_intra_chunk_ref``."""
     where = "ssd_intra_chunk_cuda"
+    if _mk.TRACE is not None:   # an analyzer check: record the plan, launch nothing
+        Ba, T, H, P = x.shape
+        G, N = B.shape[2], B.shape[3]
+        plan = ssd_plan(kernel_for(x.dtype, N, P) == KERNELS[1], Ba, T, H, G, chunk, H100_SMS)
+        y = _mk.TRACE.kernel(plan, (x, dt, B, C))
+        states = y.new_empty((Ba, T // chunk, H, N, P), dtype=torch.float32)
+        return y, states, chunk_logdecay(dt, A, chunk)
     ins = {"x": x, "dt": dt, "A": A, "B": B, "C": C}
     if x.device.type != "cuda" or any(v.device != x.device for v in ins.values()):
         raise ValueError(f"{where}: inputs must lie on one CUDA device, got "

@@ -82,13 +82,10 @@ heat_step_kernel(const T* __restrict__ Tin, const T* __restrict__ Ci, T* __restr
 }
 
 template <typename T>
-cudaError_t launch(const void* Tin, const void* Ci, void* out, int nb, int nx, int ny, int nz,
+cudaError_t launch(const void* Tin, const void* Ci, void* out, int nx, int ny, int nz,
                    Strides st, Strides sc, double lam, double dt, double dx2, double dy2,
-                   double dz2, cudaStream_t stream) {
+                   double dz2, dim3 grid, dim3 block, cudaStream_t stream) {
   using A = typename Acc<T>::type;
-  const dim3 block(kTz, kTy, kTx);
-  const dim3 grid((nz + kTz - 1) / kTz, (ny + kTy - 1) / kTy,
-                  ((nx + kTx - 1) / kTx) * nb);
   heat_step_kernel<T><<<grid, block, 0, stream>>>(
       static_cast<const T*>(Tin), static_cast<const T*>(Ci), static_cast<T*>(out), nx, ny, nz,
       st, sc, A(lam), A(dt), A(1) / A(dx2), A(1) / A(dy2), A(1) / A(dz2));
@@ -99,22 +96,29 @@ cudaError_t launch(const void* Tin, const void* Ci, void* out, int nb, int nx, i
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float64.  Strides are in elements:
 // (batch, x, y, z) for T (ts*) and Ci (cs*).  dx2 = dx * dx, and so on.
-// Returns cudaGetLastError() after the launch (0 on success).
+// grid and block are the caller's launch plan (kernels/plans.py::cell_plan:
+// grid (z tiles, y tiles, x tiles * nb)); a block other than (kTz, kTy, kTx)
+// is refused.  Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int repro_heat_step(int dtype, const void* Tin, const void* Ci, void* out, int nb,
                                int nx, int ny, int nz, long long tsb, long long tsx,
                                long long tsy, long long tsz, long long csb, long long csx,
                                long long csy, long long csz, double lam, double dt, double dx2,
-                               double dy2, double dz2, void* stream) {
+                               double dy2, double dz2, int gx, int gy, int gz, int bx, int by,
+                               int bz, void* stream) {
+  if (bx != kTz || by != kTy || bz != kTx || nb < 1) return static_cast<int>(cudaErrorInvalidValue);
   const Strides st{tsb, tsx, tsy, tsz}, sc{csb, csx, csy, csz};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(gx, gy, gz), block(bx, by, bz);
   switch (dtype) {
     case 0:
-      return launch<float>(Tin, Ci, out, nb, nx, ny, nz, st, sc, lam, dt, dx2, dy2, dz2, s);
+      return launch<float>(Tin, Ci, out, nx, ny, nz, st, sc, lam, dt, dx2, dy2, dz2, grid, block,
+                           s);
     case 1:
-      return launch<__nv_bfloat16>(Tin, Ci, out, nb, nx, ny, nz, st, sc, lam, dt, dx2, dy2,
-                                   dz2, s);
+      return launch<__nv_bfloat16>(Tin, Ci, out, nx, ny, nz, st, sc, lam, dt, dx2, dy2, dz2,
+                                   grid, block, s);
     case 2:
-      return launch<double>(Tin, Ci, out, nb, nx, ny, nz, st, sc, lam, dt, dx2, dy2, dz2, s);
+      return launch<double>(Tin, Ci, out, nx, ny, nz, st, sc, lam, dt, dx2, dy2, dz2, grid, block,
+                            s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -106,6 +106,30 @@ constexpr int kBQ = 64;
 constexpr int kBK = 64;
 constexpr int kThreads = 256;
 constexpr int kMaxD = 256;
+
+// The launch plan of either kernel (kernels/plans.py::swa_plan mirrors it):
+// blocks along x and y, threads per block and q rows per block.  The
+// CUDA-core kernel takes kBQ rows of one (batch, head) per block; the
+// tensor-core kernel 64 rows per consumer warpgroup, two warpgroups when
+// the grid fills the SMs.
+struct Plan {
+  long long gx, gy;
+  int threads, rows;
+};
+
+Plan plan_for(bool tensor_cores, int B, int H, int T, int sms) {
+  const long long n_bh = static_cast<long long>(B) * H;
+  if (!tensor_cores) return Plan{(T + kBQ - 1) / kBQ, n_bh, kThreads, kBQ};
+  const int nwg = n_bh * ((T + 127) / 128) >= sms ? 2 : 1;
+  return Plan{n_bh * ((T + 64 * nwg - 1) / (64 * nwg)), 1, 128 * nwg + 128, 64 * nwg};
+}
+
+int sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return static_cast<int>(err);
+}
 constexpr float kNegInf = -1e30f;
 
 // ===========================================================================
@@ -290,8 +314,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, const Di
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((d.T + kBQ - 1) / kBQ, B * d.H);
-  swa_kernel<NC><<<grid, kThreads, bytes, stream>>>(
+  const Plan pl = plan_for(false, B, d.H, d.T, 0);
+  const dim3 grid(static_cast<unsigned>(pl.gx), static_cast<unsigned>(pl.gy));
+  swa_kernel<NC><<<grid, pl.threads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(o), d);
   return static_cast<int>(cudaGetLastError());
@@ -675,13 +700,13 @@ int make_map(CUtensorMap* map, int (&pos)[3], const void* ptr, int D, int rows, 
 template <int DP>
 int launch_tc(const void* q, const void* k, const void* v, void* o, int B, const Dims& d,
               cudaStream_t stream) {
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  int sms = 0;
+  const int e_sm = sm_count(&sms);
+  if (e_sm != 0) return e_sm;
   const long long n_bh = static_cast<long long>(B) * d.H;
-  const int nwg = n_bh * ((d.T + 127) / 128) >= sms ? 2 : 1;
-  const long long blocks = n_bh * ((d.T + 64 * nwg - 1) / (64 * nwg));
+  const Plan pl = plan_for(true, B, d.H, d.T, sms);
+  const int nwg = pl.rows / 64;
+  const long long blocks = pl.gx;
   if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
   alignas(64) CUtensorMap qmap, kmap, vmap;
   int qp[3], kp[3], vp[3];
@@ -690,13 +715,14 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B, const
   if (e == 0) e = make_map(&vmap, vp, v, d.D, d.S, d.Hkv, B, d.vs, d.vh, d.vb, kTcBN);
   if (e != 0) return e;
   const size_t bytes = tc_smem_bytes(DP, nwg);
-  err = cudaFuncSetAttribute(swa_kernel_tc<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(bytes));
+  cudaError_t err = cudaFuncSetAttribute(swa_kernel_tc<DP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const TcDims t{d.H, d.Hkv, d.T, d.S, d.D, d.w, nwg, static_cast<int>(n_bh), d.scale * kLog2e,
                  qp[0], qp[1], qp[2], kp[0], kp[1], kp[2], vp[0], vp[1], vp[2],
                  d.ob, d.oh, d.ot};
-  swa_kernel_tc<DP><<<static_cast<unsigned>(blocks), 128 * nwg + 128, bytes, stream>>>(
+  swa_kernel_tc<DP><<<static_cast<unsigned>(blocks), pl.threads, bytes, stream>>>(
       qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), t);
   return static_cast<int>(cudaGetLastError());
 }
@@ -737,4 +763,22 @@ extern "C" int repro_swa_attention(int dtype, const void* q, const void* k, cons
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The launch plan repro_swa_attention uses for (B, H, T) (dtype picks the
+// kernel as there): out[0..3] = blocks along x and y, threads per block, q
+// rows per block.  Returns a CUDA error code.
+extern "C" int repro_swa_plan(int dtype, int B, int H, int T, long long* out) {
+  if (dtype < 0 || dtype > 1 || T < 1) return static_cast<int>(cudaErrorInvalidValue);
+  int sms = 0;
+  if (dtype == 1) {
+    const int e = sm_count(&sms);
+    if (e != 0) return e;
+  }
+  const Plan p = plan_for(dtype == 1, B, H, T, sms);
+  out[0] = p.gx;
+  out[1] = p.gy;
+  out[2] = p.threads;
+  out[3] = p.rows;
+  return 0;
 }

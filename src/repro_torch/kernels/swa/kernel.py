@@ -22,7 +22,10 @@ kernel's limits (D a multiple of 4, at most 256), raises on anything
 else, launches on the current CUDA stream without synchronising, and
 raises if the launch was refused.  ``swa_attention_cuda.launches`` counts
 the launches, ``swa_attention_cuda.tc_launches`` those the C entry point
-reports as tensor-core launches.
+reports as tensor-core launches.  :func:`c_plan` is the C entry point's
+launch plan, which ``chip_smoke.py`` holds against the analyzer's
+(:func:`repro_torch.kernels.plans.swa_plan`) at every shape it launched.
+Under an analyzer check the wrapper records that plan and launches nothing.
 """
 
 from __future__ import annotations
@@ -32,7 +35,9 @@ import functools
 
 import torch
 
+from ...analysis import markers as _mk
 from .. import _build, tma_ready
+from ..plans import H100_SMS, swa_plan
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_D = 256
@@ -49,6 +54,19 @@ def _entry():
     return fn
 
 
+def c_plan(dtype: torch.dtype, B: int, H: int, T: int) -> tuple:
+    """The C entry point's launch plan for (B, H, T): blocks along x and y,
+    threads per block, q rows per block."""
+    fn = _build.load().repro_swa_plan
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * 4)()
+    err = fn(DTYPE_CODES[dtype], B, H, T, out)
+    if err != 0:
+        raise RuntimeError(f"repro_swa_plan failed with CUDA error {err}")
+    return tuple(out)
+
+
 def _aligned_copy(t):
     """The values of a (B, H, T, D) view in a fresh (B, T, H, D8) buffer, D8
     the next multiple of 8, seen through the same (B, H, T, D) view."""
@@ -61,6 +79,9 @@ def _aligned_copy(t):
 def swa_attention_cuda(q, k, v, *, window: int, scale: float | None = None):
     """K6 on the card; the contract of ``swa_ref`` for any T >= 1, S >= T."""
     where = "swa_attention_cuda"
+    if _mk.TRACE is not None:   # an analyzer check: record the plan, launch nothing
+        B, H, T, _ = q.shape
+        return _mk.TRACE.kernel(swa_plan(q.dtype == torch.bfloat16, B, H, T, H100_SMS), (q, k, v))
     ins = {"q": q, "k": k, "v": v}
     if q.device.type != "cuda" or any(t.device != q.device for t in ins.values()):
         raise ValueError(f"{where}: inputs must lie on one CUDA device, got "

@@ -26,7 +26,10 @@ Two Krylov schedules (``variant=``):
 The loop runs in Python.  Every scalar (``alpha``, ``beta``, the dots) stays
 a 0-d tensor on the device; the only host read per iteration is the f64
 residual norm for the stopping test, so iteration counts equal the
-reference's ``lax.while_loop`` on the same inputs.  Under
+reference's ``lax.while_loop`` on the same inputs.  That read goes through
+:func:`repro_torch.analysis.markers.loop_float`, which an analyzer capture
+(:mod:`repro_torch.analysis.capture`) uses to run the loop body without
+reading anything.  Under
 :func:`repro_torch.telemetry.watch` the health probes classify that same
 float (no further read); while a telemetry session is active the solve
 is counted (:mod:`repro_torch.telemetry.counters`), its loop bodies
@@ -46,6 +49,8 @@ import torch
 
 from .. import telemetry as tele
 from .._device import synchronize
+from ..analysis import capture as _cap
+from ..analysis import markers as _mk
 from ..core import locations as _loc
 from ..telemetry import health as _health
 from ..telemetry.flight import note_solve as _note_solve
@@ -155,7 +160,7 @@ def cg_local(grid, apply_A: Callable, b, x, *, tol: float = 1e-6, maxiter: int =
             return t
 
     bnorm = red.tree_rhs_norm(grid, b, red_masks)
-    bnormf = float(bnorm)
+    bnormf = _mk.host(bnorm)
     # the health probe of a watched loop, made from its first residual
     watch = None if cfg is None else (lambda res0: _health.Probe(
         cfg, name, res0, bnormf, ranks=grid.topo.block_ranks()))
@@ -168,6 +173,11 @@ def cg_local(grid, apply_A: Callable, b, x, *, tol: float = 1e-6, maxiter: int =
                                                  replace_every=replace_every, **common)
     # the mean-zero representative of a singular solve, halo-fresh
     x = _tmap(grid.update_halo, project(x))
+    if _mk.TRACE is not None:
+        # callers that feed x straight into a halo-updating operator (a
+        # warm start) legitimately re-exchange it: an analyzer contract
+        x = _tmap(lambda a: _mk.exchange_out(a, width=grid.halo, site="solvers.cg.tail.contract",
+                                             contract=True), x)
     hist = torch.stack(hist) if hist else torch.zeros(0, dtype=torch.float64)
     if cfg is None:
         return x, k, res / bnorm, hist
@@ -195,7 +205,8 @@ def _classic_loop(apply_A, M, b, x, thresh, *, maxiter, project, masked, mdot, m
     p = z
     rz = mdot(r, z)
     res = torch.sqrt(mdot(r, r))
-    resf = float(res)            # the one host read of each iteration's test
+    # the one host read of each iteration's test
+    resf = _mk.loop_float(res, site="solvers.cg", first=True)
     probe = None if watch is None else watch(resf)
     hist, k, ok = [], 0, True
     while k < maxiter and resf > thresh and ok:
@@ -217,7 +228,7 @@ def _classic_loop(apply_A, M, b, x, thresh, *, maxiter, project, masked, mdot, m
             rz = rz_new
             hist.append(res / bnorm)
         k += 1
-        resf = float(res)
+        resf = _mk.loop_float(res, site="solvers.cg")
         if probe is not None:
             ok = probe.step(k, resf)
     return x, res, k, hist, probe
@@ -247,7 +258,8 @@ def _pipelined_loop(apply_A, M, b, x, thresh, *, maxiter, replace_every, project
 
     r0 = masked(_tmap(torch.sub, b, apply_A(x)))
     res = torch.sqrt(mdot(r0, r0))
-    resf = float(res)            # the one host read of each iteration's test
+    # the one host read of each iteration's test
+    resf = _mk.loop_float(res, site="solvers.cg.pipelined", first=True)
     probe = None if watch is None else watch(resf)
     p = _tmap(torch.zeros_like, b)
     gp = ap = torch.ones((), dtype=res.dtype, device=res.device)
@@ -282,7 +294,7 @@ def _pipelined_loop(apply_A, M, b, x, thresh, *, maxiter, replace_every, project
                 hist.append(res / bnorm)
                 gp, ap = gamma, alpha
             k += 1
-            resf = float(res)
+            resf = _mk.loop_float(res, site="solvers.cg.pipelined")
             if probe is not None:
                 ok = probe.step(k, resf)
     return x, res, k, hist, probe
@@ -317,6 +329,11 @@ def cg(grid, apply_A: Callable, b, x0=None, *, tol: float = 1e-6, maxiter: int =
                          "expected None or 'constant'")
     if variant not in VARIANTS:
         raise ValueError(f"unknown cg variant {variant!r}; expected one of {VARIANTS}")
+    if _cap.capturing():   # an analyzer capture: record this solve, run nothing
+        _cap.maybe_capture("cg", grid, (b, x0, *args), lambda: cg(
+            grid, apply_A, b, x0, tol=tol, maxiter=maxiter, apply_M=apply_M,
+            project_nullspace=project_nullspace, dtype=dtype, args=args, variant=variant,
+            replace_every=replace_every))
     if dtype is not None:
         def cast(t):
             return _tmap(lambda a: a.to(dtype), t)
@@ -333,6 +350,8 @@ def cg(grid, apply_A: Callable, b, x0=None, *, tol: float = 1e-6, maxiter: int =
             grid, lambda u: apply_A(u, *args), b, x, tol=tol, maxiter=maxiter, apply_M=M,
             project_nullspace=project_nullspace, variant=variant, replace_every=replace_every,
             cfg=cfg)
+    if _mk.TRACE is not None:   # a capture stops before the host reads
+        return outs[0], None
     x, k, relres, hist = outs[:4]
     probe = None if cfg is None else outs[4]
     relres, residuals, dstatus = _epilogue(probe, k, relres, hist, tol, maxiter)

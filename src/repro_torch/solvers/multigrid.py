@@ -49,6 +49,8 @@ import torch
 
 from .. import telemetry as tele
 from .._device import synchronize
+from ..analysis import capture as _cap
+from ..analysis import markers as _mk
 from ..core import locations as _loc
 from ..core.hide import hide_apply
 from ..kernels.solver3d import ops
@@ -380,6 +382,11 @@ def multigrid_solve(grid, c, b, spacing, x0=None, *, loc: str | None = None, tol
         raise ValueError("multigrid assumes halo width 1 (overlap=2)")
     if smoother not in SMOOTHERS:
         raise ValueError(f"unknown smoother {smoother!r}; pick from {SMOOTHERS}")
+    if _cap.capturing():   # an analyzer capture: record this solve, run nothing
+        _cap.maybe_capture("mg", grid, (b, c, x0), lambda: multigrid_solve(
+            grid, c, b, spacing, x0, loc=loc, tol=tol, maxiter=maxiter, nu_pre=nu_pre,
+            nu_post=nu_post, omega=omega, coarse_sweeps=coarse_sweeps, max_levels=max_levels,
+            smoother=smoother, use_kernel=use_kernel))
     loc = _loc.loc_of(b) if loc is None else loc
     wrap = b.with_data if _loc.is_field_node(b) else None
     b, c = _loc.data_of(b), _loc.data_of(c)
@@ -406,11 +413,12 @@ def multigrid_solve(grid, c, b, spacing, x0=None, *, loc: str | None = None, tol
         if singular:
             b = demean(b)
         bnorm = red.rhs_norm(grid, b, mask)
-        bnormf = float(bnorm)
+        bnormf = _mk.host(bnorm)
         grid.update_halo(x)
         r = residual(0, x, b)
         res = torch.sqrt(red.dot(grid, r, r, mask))
-        resf = float(res)        # the one host read of each cycle's test
+        # the one host read of each cycle's test
+        resf = _mk.loop_float(res, site="solvers.multigrid_solve", first=True)
         probe = None if cfg is None else _health.Probe(cfg, "mg", resf, bnormf,
                                                        ranks=grid.topo.block_ranks())
         hist, k, ok = [], 0, True
@@ -421,11 +429,13 @@ def multigrid_solve(grid, c, b, spacing, x0=None, *, loc: str | None = None, tol
                 res = torch.sqrt(red.dot(grid, r, r, mask))
                 hist.append(res / bnorm)
             k += 1
-            resf = float(res)
+            resf = _mk.loop_float(res, site="solvers.multigrid_solve")
             if probe is not None:
                 ok = probe.step(k, resf)
         if singular:
             x = grid.update_halo(demean(x))
+    if _mk.TRACE is not None:   # a capture stops before the host reads
+        return x, None
     hist = torch.stack(hist) if hist else torch.zeros(0, dtype=torch.float64)
     relres, residuals, dstatus = _epilogue(probe, k, res / bnorm, hist, tol, maxiter)
     synchronize(x)

@@ -24,6 +24,8 @@ import torch
 
 from .. import telemetry as tele
 from .._device import synchronize
+from ..analysis import capture as _cap
+from ..analysis import markers as _mk
 from ..telemetry import health as _health
 from ..telemetry.flight import note_solve as _note_solve
 from . import reductions as red
@@ -55,6 +57,10 @@ def pseudo_transient(grid, apply_A, b, x0=None, *, lam_min: float, lam_max: floa
     spectrum.  Returns ``(x, PTInfo)`` with ``PTInfo.residuals[k]`` the
     deduplicated global residual L2 norm after iteration ``k + 1``.
     """
+    if _cap.capturing():   # an analyzer capture: record this solve, run nothing
+        _cap.maybe_capture("pt", grid, (b, x0, *args), lambda: pseudo_transient(
+            grid, apply_A, b, x0, lam_min=lam_min, lam_max=lam_max, tol=tol, maxiter=maxiter,
+            args=args))
     x = torch.zeros_like(b) if x0 is None else x0.clone()
     alpha, beta = optimal_parameters(lam_min, lam_max)
     cfg = _health.current()
@@ -63,11 +69,12 @@ def pseudo_transient(grid, apply_A, b, x0=None, *, lam_min: float, lam_max: floa
         mask = red.solve_mask(grid, b.dtype)
         mi = red.interior_mask(grid, dtype=b.dtype)
         bnorm = red.rhs_norm(grid, b, mask)
-        bnormf = float(bnorm)
+        bnormf = _mk.host(bnorm)
         # r (the residual at x) is carried, so the operator runs once per iteration
         r = (b - apply_A(x, *args)) * mi
         res = torch.sqrt(red.dot(grid, r, r, mask))
-        resf = float(res)        # the one host read of each iteration's test
+        # the one host read of each iteration's test
+        resf = _mk.loop_float(res, site="solvers.pseudo_transient", first=True)
         probe = None if cfg is None else _health.Probe(cfg, "pt", resf, bnormf,
                                                        ranks=grid.topo.block_ranks())
         v = torch.zeros_like(x)
@@ -80,10 +87,12 @@ def pseudo_transient(grid, apply_A, b, x0=None, *, lam_min: float, lam_max: floa
                 res = torch.sqrt(red.dot(grid, r, r, mask))
                 hist.append(res.to(b.dtype))
             k += 1
-            resf = float(res)
+            resf = _mk.loop_float(res, site="solvers.pseudo_transient")
             if probe is not None:
                 ok = probe.step(k, resf)
         x = grid.update_halo(x)
+    if _mk.TRACE is not None:   # a capture stops before the host reads
+        return x, None
     hist = torch.stack(hist) if hist else torch.zeros(0, dtype=b.dtype)
     relres, residuals, dstatus = _epilogue(probe, k, res / bnorm, hist, tol, maxiter)
     synchronize(x)

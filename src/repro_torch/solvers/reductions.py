@@ -31,6 +31,7 @@ from typing import Callable
 
 import torch
 
+from ..analysis import markers as _mk
 from ..core import comm
 from ..core import locations as _loc
 from ..telemetry.counters import record_all_reduce as _record_all_reduce
@@ -43,6 +44,11 @@ from ..telemetry.counters import record_all_reduce as _record_all_reduce
 
 def _all_reduce(topo, x: torch.Tensor, op: str) -> torch.Tensor:
     _record_all_reduce(x.numel())
+    if _mk.TRACE is not None:
+        # an analyzer check records every global reduction as the
+        # collective it is on a group (``comm`` records, sends nothing)
+        x = _mk.blessed_reduce(x, op=f"p{op}", site=f"solvers.reductions.p{op}")
+        return comm.all_reduce(x, op)
     return comm.all_reduce(x, op) if topo.nprocs > 1 else x
 
 
@@ -90,7 +96,7 @@ def owned_mask(grid, dtype=None) -> torch.Tensor:
             coord = grid.topo.coord(d, grid.device)
             own = own | ((coord == 0) & (idx < h)) | ((coord == grid.dims[d] - 1) & (idx >= n - h))
         m = m * own.to(dtype)
-    return m
+    return _mk.mask(m, mask_kind="owned", site="solvers.reductions.owned_mask")
 
 
 def interior_mask(grid, width: int | None = None, dtype=None) -> torch.Tensor:
@@ -109,7 +115,7 @@ def interior_mask(grid, width: int | None = None, dtype=None) -> torch.Tensor:
         if grid.topo.periodic[d]:
             continue
         m = m * ((gidx[d] >= w) & (gidx[d] < grid.n_g(d) - w)).to(dtype)
-    return m
+    return _mk.mask(m, mask_kind="interior", site="solvers.reductions.interior_mask")
 
 
 def solve_mask(grid, dtype=None) -> torch.Tensor:

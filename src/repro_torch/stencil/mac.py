@@ -22,6 +22,14 @@ from __future__ import annotations
 
 import torch
 
+from ..analysis import markers as _mk
+
+
+def _consume(xp, a, site: str):
+    """Ghost demand for the analyzer — torch consumers only (the NumPy
+    oracle shares this spelling and is never checked)."""
+    return _mk.consume(a, radius=1, site=site) if xp is torch else a
+
 
 def _xp_roll(xp, a, shift: int, axis: int):
     """``roll`` of numpy or torch: the one place the two spellings differ."""
@@ -60,6 +68,7 @@ def stripped_component(xp, u, eta, spacing, d: int):
     average across dims.  Unmasked; callers zero everything outside the
     component's unknown faces.
     """
+    u = _consume(xp, u, "stencil.mac.stripped_component")
     nd = len(spacing)
     h2 = [float(s) ** 2 for s in spacing]
     acc = None
@@ -115,6 +124,7 @@ def full_stress_apply(xp, V, eta, spacing):
     ``tau_{d,dd}`` on the (d, dd) edges (EDGE-averaged ``eta``).  Returns
     the unmasked result per component.
     """
+    V = [_consume(xp, v, "stencil.mac.full_stress_apply") for v in V]
     nd = len(V)
     h = [float(s) for s in spacing]
     out = []

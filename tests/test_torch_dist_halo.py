@@ -23,8 +23,7 @@ within 1e-14 relative of the one-process value (the partials of the
 processes are added in another order), ``norm_linf``/``field_min``/
 ``field_max`` bitwise, ``gather`` bitwise and ``gather``∘``scatter`` the
 identity.  The guards: a ``dims`` that cannot be split over the processes,
-or a ``procs`` that does not divide it, raises; Stokes3D and
-GrossPitaevskii3D raise under a group of two; and a peer that never joins, or joins and never exchanges, fails within
+or a ``procs`` that does not divide it, raises; and a peer that never joins, or joins and never exchanges, fails within
 the group timeout with a non-zero exit instead of hanging.
 """
 
@@ -43,7 +42,6 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 
 from _dist import SpawnError, spawn  # noqa: E402
 from repro_torch import fields  # noqa: E402
-from repro_torch.apps import GrossPitaevskii3D, Stokes3D  # noqa: E402
 from repro_torch.core import init_global_grid  # noqa: E402
 from repro_torch.core.topology import procs_for  # noqa: E402
 from repro_torch.kernels.stencil3d import heat_step_ref  # noqa: E402
@@ -188,12 +186,6 @@ def guard_cases() -> dict:
             out[name] = None
         except ValueError as e:
             out[name] = str(e)
-    for app in (Stokes3D, GrossPitaevskii3D):
-        try:
-            app(nx=6, ny=6, nz=6, device="cpu")
-            out[app.__name__] = None
-        except NotImplementedError as e:
-            out[app.__name__] = str(e)
     return out
 
 
@@ -287,12 +279,6 @@ def test_layout_guards(runs):
     assert g["default_dims"] == (2, 1, 1)      # dims=None: one block per process
     assert g["dims"] is not None and "cannot be split" in g["dims"]
     assert g["few"] is not None and "cannot be split" in g["few"]
-
-
-def test_unchecked_apps_raise_under_a_group(runs):
-    g = runs["2x1"]["guard"]
-    for name in ("Stokes3D", "GrossPitaevskii3D"):
-        assert g[name] is not None and "spread over processes" in g[name], name
 
 
 @pytest.mark.parametrize("dims,nprocs,want", [
