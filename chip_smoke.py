@@ -6,7 +6,7 @@ Builds the port's CUDA kernels (K1 heat step, K2-K5 solver operators on
 cell centers, with and without a Helmholtz shift, and on faces, K6
 sliding-window attention, K7 SSD intra-chunk block) from the sources in
 this checkout and holds each against its plain PyTorch version on the
-card.  Then it drives six paths through the kernels:
+card.  Then it drives these paths through the kernels:
 
 * the paper's Fig.-1 heat solver (``repro_torch.apps.Heat3D``) at 512^3
   cells on one rank and at 8 x 256^3 on eight virtual ranks, with and
@@ -68,6 +68,22 @@ card.  Then it drives six paths through the kernels:
   mamba2-1.3b through Engine(flight_dir=).  The launches of K1 and K2-K4
   center on these paths join their entries of the kernels line
   (``launches_slice9``);
+* the example twins and MoE serving (slice 12): each
+  ``examples/torch_*.py`` at its default size in a subprocess (the four
+  started together; each must end with ``OK``); K6 at the head widths 64,
+  128 and 112 (padded to 128) and K7 at the state width 16 against their
+  plain versions at the prefill shapes of the models below, timed beside
+  the plain versions (and K6 beside SDPA); then, each after its SMOKE width
+  in f32 against the plain path (the same greedy ids), in bf16 with random
+  weights through ``Engine.generate``: granite-moe-3b-a800m whole (4 x 2048
+  + 32 and 1 x 1000 + 16; 32 K6 launches a call), jamba-v0.1-52b at full
+  width cut to one period of 8 of its 32 layers (4 x 2048 + 32; 7 K7 and
+  1 K6 launch a call) and kimi-k2 at full width cut to its first 2 of 61
+  layers (1 x 1000 + 8; 2 K6 launches a call), every launch on the tensor
+  cores; the expert-capacity drops of one prefill, time to first token and
+  decode ms per token; a granite prefill's and decode step's device time
+  by kind and one MoE layer split into its expert GEMMs and its dispatch;
+  granite's decode with the int8 KV cache against the bf16 cache's;
 * the grid across processes (phase ``dist``): the one-process runs
   here, then 8 processes of a gloo group on this card, one block each
   (Heat3D 8 x 256^3 f32 100 steps with hide and without, every block and
@@ -997,10 +1013,12 @@ K7_REPLACES = "src/repro/kernels/ssd/kernel.py:57"
 K7_TOL = {"float32": {"y_diag": 1e-5, "states": 1e-5, "s": 0.0},
           "bfloat16": {"y_diag": 1e-2, "states": 1e-5, "s": 0.0}}
 # Ba, T, H, P, N, G, L: the main path's prefill (4 x 2048 tokens of mamba2-1.3b),
-# a 1000-token prompt (L = 50), one-token chunks, two groups, the SMOKE width
+# a 1000-token prompt (L = 50), one-token chunks, two groups, the SMOKE width,
+# and jamba-v0.1-52b's Mamba layers at their 4 x 2048 prefill (N 16)
 K7_MAIN = (4, 2048, 64, 64, 128, 1, 64)
+K7_WIDTHS = {"jamba N16 4x2048": (4, 2048, 128, 64, 16, 1, 64)}
 K7_SHAPES = (K7_MAIN, (1, 1000, 64, 64, 128, 1, 50), (2, 7, 64, 64, 128, 1, 1),
-             (2, 64, 8, 16, 16, 2, 8), (2, 20, 8, 16, 16, 1, 5))
+             (2, 64, 8, 16, 16, 2, 8), (2, 20, 8, 16, 16, 1, 5), *K7_WIDTHS.values())
 SERVE_TOL = 1e-4   # f32 logits, normwise: K7 against the chunked plain scan, summation order
 # bf16 logits of the 4-layer full-width model, normwise, K7 against the plain
 # path: the two round the SSD's output at different places (K7's y_diag is
@@ -1046,12 +1064,13 @@ def k7_phase(kssd, dev, gen) -> dict:
     """Phase 18: K7 against its plain version at every listed shape, f32 and
     bf16, each launch checked to have taken the kernel the rule picks (bf16
     on the tensor cores at every listed shape); then the kernel and the plain
-    version timed in turns at the main path's shape (bf16 on the tensor
-    cores, f32 on the CUDA cores).  Returns the max |err| of y_diag at the
-    main path's shapes and the times."""
+    version timed in turns at the main paths' shapes (mamba2-1.3b's in bf16
+    on the tensor cores and f32 on the CUDA cores; jamba's, bf16).  Returns
+    the max |err| of y_diag at the main paths' shapes, each shape's, and
+    the times."""
     from repro_torch.kernels.ssd import ssd_intra_chunk_ref
 
-    main_err = 0.0
+    main_err, max_abs = 0.0, {}
     for shape in K7_SHAPES:
         for dt_name in ("bfloat16", "float32"):
             ins = k7_inputs(shape, getattr(torch, dt_name), gen, dev)
@@ -1077,35 +1096,43 @@ def k7_phase(kssd, dev, gen) -> dict:
                 errs[name] = (norm, d)
             if shape[-1] in (64, 50) and dt_name == "bfloat16":
                 main_err = max(main_err, errs["y_diag"][1])
+                max_abs[shape] = errs["y_diag"][1]
             say("ssd_kernel", shape="Ba,T,H,P,N,G,L=" + ",".join(map(str, shape)), dtype=dt_name,
                 kernel=repr(ran), **{f"{k}_normwise": v[0] for k, v in errs.items()},
                 **{f"{k}_max_abs": v[1] for k, v in errs.items()},
                 tol=json.dumps(K7_TOL[dt_name]).replace(" ", ""))
             del ins, got, want
-    # timed in turns at the main path's shape: plain, kernel, kernel, plain
+    # timed in turns at the main paths' shapes: plain, kernel, kernel, plain
     out = {"main_err": main_err}
-    for dt_name in ("bfloat16", "float32"):
-        ins = k7_inputs(K7_MAIN, getattr(torch, dt_name), gen, dev)
+    cases = [("mamba2", K7_MAIN, dt) for dt in ("bfloat16", "float32")]
+    cases += [(case, shape, "bfloat16") for case, shape in K7_WIDTHS.items()]
+    for case, shape, dt_name in cases:
+        ins = k7_inputs(shape, getattr(torch, dt_name), gen, dev)
+        L = shape[-1]
         k_ms, p_ms = [], []
         for who in ("plain", "kernel", "kernel", "plain"):
             if who == "plain":
-                p_ms.append(cuda_time_ms(lambda: ssd_intra_chunk_ref(*ins, chunk=64), reps=3,
+                p_ms.append(cuda_time_ms(lambda: ssd_intra_chunk_ref(*ins, chunk=L), reps=3,
                                          warm=1))
             else:
-                k_ms.append(cuda_time_ms(lambda: kssd.ssd_intra_chunk_cuda(*ins, chunk=64),
+                k_ms.append(cuda_time_ms(lambda: kssd.ssd_intra_chunk_cuda(*ins, chunk=L),
                                          reps=20))
         item = 2 if dt_name == "bfloat16" else 4
-        bound, bound_by, f32_floor = k7_bound(K7_MAIN, item)
-        per_head, _, _ = k7_bound(K7_MAIN, item, per_head=True)
-        device_ms = graph_ms(lambda: kssd.ssd_intra_chunk_cuda(*ins, chunk=64))
-        say("ssd_kernel_time", shape="Ba,T,H,P,N,G,L=" + ",".join(map(str, K7_MAIN)),
-            dtype=dt_name, kernel=repr(kssd.kernel_for(ins[0].dtype, K7_MAIN[4], K7_MAIN[3])),
+        bound, bound_by, f32_floor = k7_bound(shape, item)
+        per_head, _, _ = k7_bound(shape, item, per_head=True)
+        device_ms = graph_ms(lambda: kssd.ssd_intra_chunk_cuda(*ins, chunk=L))
+        say("ssd_kernel_time", case=case, shape="Ba,T,H,P,N,G,L=" + ",".join(map(str, shape)),
+            dtype=dt_name, kernel=repr(kssd.kernel_for(ins[0].dtype, shape[4], shape[3])),
             bc_form="grouped (G=1), C B^T once per group" if dt_name == "bfloat16" else
             "grouped (G=1), read once per head", ms_runs=k_ms, kernel_graph_ms=device_ms,
             plain_ms_runs=p_ms, bound_ms=bound, bound_by=bound_by,
             bound_ms_per_head_bc=per_head, share_of_bound=bound / min(k_ms),
             share_of_bound_graph=bound / device_ms, f32_cuda_core_floor_ms=f32_floor)
-        out[dt_name] = (min(k_ms), min(p_ms), bound, bound_by)
+        if case == "mamba2":
+            out[dt_name] = (min(k_ms), min(p_ms), bound, bound_by)
+        else:
+            out[case] = {"ms": min(k_ms), "plain_ms": min(p_ms), "library_ms": None,
+                         "bound_ms": bound, "bound_by": bound_by, "max_abs_err": max_abs[shape]}
         del ins
     torch.cuda.empty_cache()
     return out
@@ -1173,6 +1200,34 @@ def generate_metrics(eng, p, n_new: int) -> dict:
             "peak_GB": torch.cuda.max_memory_allocated() / 1e9}
 
 
+def generate_counted(phase: str, engines, prompts, runs, wrappers, vocab: int) -> list:
+    """The main path: ``Engine.generate`` at each of ``runs`` (name, batch,
+    prompt, new), the wrappers' counts zeroed just before and read just
+    after, the ids checked for shape and range.  Returns, per call, each
+    wrapper's (launches, tensor-core launches)."""
+    for w in wrappers:
+        w.launches = w.tc_launches = 0
+    per_call = []
+    for name, b, _, n_new in runs:
+        before = [(w.launches, w.tc_launches) for w in wrappers]
+        ids = engines[name].generate(prompts[name], n_new)
+        torch.cuda.synchronize()
+        per_call.append([(w.launches - n, w.tc_launches - c)
+                         for w, (n, c) in zip(wrappers, before)])
+        if ids.shape != (b, n_new) or int(ids.max()) >= vocab or int(ids.min()) < 0:
+            fail(f"{phase} {name}: ids {tuple(ids.shape)}, range "
+                 f"{int(ids.min())}..{int(ids.max())}")
+    return per_call
+
+
+def generate_times(phase: str, engines, prompts, runs) -> None:
+    """Time to first token and decode ms per token of each run
+    (:func:`generate_metrics`)."""
+    for name, _, t, n_new in runs:
+        say(phase, prompt=name, new_tokens=n_new, cache_len=engines[name].cache_len,
+            **generate_metrics(engines[name], prompts[name], n_new))
+
+
 def mamba_full(kssd, dev) -> tuple[int, int]:
     """Phase 20: mamba2-1.3b at full width and depth, bf16, through
     Engine.generate; returns K7's launches on this (main) path and those of
@@ -1194,24 +1249,17 @@ def mamba_full(kssd, dev) -> tuple[int, int]:
         vocab=f"{cfg.vocab}->{cfg.padded_vocab}", params=sum(p.numel() for p in model.parameters()),
         dtype=cfg.dtype, materialize_s=time.perf_counter() - t0)
     eng = Engine(cfg, model)
-    prompts = {"4x2048": torch.randint(0, cfg.vocab, (4, 2048), generator=gen, device=dev),
-               "1x1000": torch.randint(0, cfg.vocab, (1, 1000), generator=gen, device=dev)}
+    engines = {name: eng for name, *_ in SERVE_RUNS}
+    prompts = {name: torch.randint(0, cfg.vocab, (b, t), generator=gen, device=dev)
+               for name, b, t, _ in SERVE_RUNS}
     # the main path: two generate calls, counts zeroed just before, read just after
-    kssd.ssd_intra_chunk_cuda.launches = kssd.ssd_intra_chunk_cuda.tc_launches = 0
-    per_call, tc_per_call = [], []
-    for name, n_new in (("4x2048", 32), ("1x1000", 16)):
-        before = kssd.ssd_intra_chunk_cuda.launches, kssd.ssd_intra_chunk_cuda.tc_launches
-        ids = eng.generate(prompts[name], n_new)
-        torch.cuda.synchronize()
-        per_call.append(kssd.ssd_intra_chunk_cuda.launches - before[0])
-        tc_per_call.append(kssd.ssd_intra_chunk_cuda.tc_launches - before[1])
-        if ids.shape != (prompts[name].shape[0], n_new) or int(ids.max()) >= cfg.vocab:
-            fail(f"{name}: ids {tuple(ids.shape)}, max {int(ids.max())}")
+    per_call = generate_counted("mamba2_full", engines, prompts, SERVE_RUNS,
+                                (kssd.ssd_intra_chunk_cuda,), cfg.vocab)
     launches = kssd.ssd_intra_chunk_cuda.launches
     tc_launches = kssd.ssd_intra_chunk_cuda.tc_launches
-    if per_call != [cfg.n_layers, cfg.n_layers] or tc_per_call != per_call:
-        fail(f"K7 launches per generate call {per_call}, on the tensor cores {tc_per_call}; "
-             f"expected {cfg.n_layers} each, all bf16 on the tensor cores")
+    if per_call != [[(cfg.n_layers, cfg.n_layers)]] * len(SERVE_RUNS):
+        fail(f"K7 (launches, tensor-core launches) per generate call {per_call}; expected "
+             f"{cfg.n_layers} each, all bf16 on the tensor cores")
     # decode launches no K7; logits finite
     with torch.inference_mode():
         logits, caches = tf.prefill(model, prompts["4x2048"])
@@ -1221,15 +1269,13 @@ def mamba_full(kssd, dev) -> tuple[int, int]:
     if dec_launches or not (torch.isfinite(logits[:, :cfg.vocab]).all()
                             and torch.isfinite(step[:, :cfg.vocab]).all()):
         fail(f"decode launched K7 {dec_launches} times, or non-finite logits")
-    say("mamba2_full", k7_launches_per_generate=per_call,
-        k7_tensor_core_launches_per_generate=tc_per_call, k7_launches_in_decode=dec_launches,
-        logits_finite=True)
+    say("mamba2_full", k7_launches_per_generate=[c[0][0] for c in per_call],
+        k7_tensor_core_launches_per_generate=[c[0][1] for c in per_call],
+        k7_launches_in_decode=dec_launches, logits_finite=True)
     del logits, caches, step
     # timed through Engine.generate: n_new=1 is prefill and the first id (the
     # time to first token); the rest are decode steps
-    for name, n_new in (("4x2048", 32), ("1x1000", 16)):
-        say("mamba2_full", prompt=name, new_tokens=n_new,
-            **generate_metrics(eng, prompts[name], n_new))
+    generate_times("mamba2_full", engines, prompts, SERVE_RUNS)
     # where one prefill's device time goes
     kinds = (("k7", ("ssd_chunk_kernel", "ssd_chunk_kernel_tc")),
              ("matmul", ("gemm", "Gemm", "gemv", "nvjet", "xmma", "cutlass")),
@@ -1252,7 +1298,7 @@ def mamba_full(kssd, dev) -> tuple[int, int]:
         k7_ms = cuda_time_ms(lambda: kssd.ssd_intra_chunk_cuda(*ins, chunk=64), reps=10)
     say("breakdown", config="one layer's SSD at 4x2048", ssd_scan_ms=full_ms, k7_ms=k7_ms,
         inter_chunk_and_y_off_ms=full_ms - k7_ms, per_prefill_ms=cfg.n_layers * full_ms)
-    del model, eng, ins
+    del model, eng, engines, ins
     torch.cuda.empty_cache()
 
     # four layers of the full width in f32: K7 against the plain scan, and the
@@ -1309,7 +1355,7 @@ def serving_phases(dev) -> list:
              "source": "src/repro_torch/kernels/ssd/csrc/ssd.cu", "replaces": K7_REPLACES,
              "launches": launches, "tc_launches": tc_launches, "max_abs_err": k7["main_err"],
              "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
-             "library_ms": None}]
+             "library_ms": None, "widths": {case: k7[case] for case in K7_WIDTHS}}]
 
 
 # ---------------------------------------------------------------------------
@@ -1337,18 +1383,25 @@ K6_KERNEL = {"float32": "CUDA cores", "bfloat16": "tensor cores"}   # chosen by 
 # case), ragged T of 1, 5, 50, 1000 and 1500 at gemma3-4b's heads, the edges
 # of the tensor-core kernel's tile rule (T 5 of S 77 at window 3, T 333 of S
 # 1000 at window 200; each in q tiles of 64 and of 128 rows, the launcher
-# taking 128 when the grid fills the card's SMs), and the main path's prefill
-# shapes: 4 x 2048 (window 1024 and window = S) and 1 x 1000
+# taking 128 when the grid fills the card's SMs), and the main paths' prefill
+# shapes: gemma3-4b's 4 x 2048 (window 1024 and window = S) and 1 x 1000, and
+# those of the MoE models' global layers at their head widths (64, 128, and
+# 112 padded to 128)
 K6_MAIN = (4, 8, 4, 2048, 2048, 256, 1024)
 K6_GLOBAL = (4, 8, 4, 2048, 2048, 256, 2048)
-K6_PATH = (K6_MAIN, K6_GLOBAL, (1, 8, 4, 1000, 1000, 256, 1024), (1, 8, 4, 1000, 1000, 256, 1000))
+K6_WIDTHS = {"granite D64 4x2048": (4, 24, 8, 2048, 2048, 64, 2048),
+             "granite D64 1x1000": (1, 24, 8, 1000, 1000, 64, 1000),
+             "jamba D128 4x2048": (4, 32, 8, 2048, 2048, 128, 2048),
+             "kimi D112 1x1000": (1, 64, 8, 1000, 1000, 112, 1000)}
+K6_PATH = (K6_MAIN, K6_GLOBAL, (1, 8, 4, 1000, 1000, 256, 1024), (1, 8, 4, 1000, 1000, 256, 1000),
+           *K6_WIDTHS.values())
 K6_SHAPES = tuple((2, 4, 2, 64, 64, 32, w) for w in (4, 16, 64, 10000)) + (
     (1, 8, 2, 32, 32, 16, 16), (1, 4, 4, 16, 128, 32, 8), (1, 4, 4, 16, 128, 32, 48),
     (1, 4, 4, 16, 128, 32, 128), (1, 2, 1, 64, 64, 64, 32), (1, 8, 4, 1, 1, 256, 1024),
     (1, 8, 4, 5, 5, 256, 1024), (1, 8, 4, 50, 50, 256, 1024), (2, 8, 4, 1500, 1500, 256, 1024),
     (1, 8, 4, 333, 1000, 256, 200), (6, 8, 4, 333, 1000, 256, 200), (1, 2, 1, 5, 77, 64, 3),
     (17, 8, 4, 5, 77, 64, 3)) + K6_PATH
-GEMMA_RUNS = (("4x2048", 4, 2048, 32), ("1x1000", 1, 1000, 16))   # name, batch, prompt, new
+SERVE_RUNS = (("4x2048", 4, 2048, 32), ("1x1000", 1, 1000, 16))   # name, batch, prompt, new
 
 
 def k6_inputs(shape, dtype, gen, dev):
@@ -1412,12 +1465,14 @@ def k6_phase(kswa, dev, gen) -> dict:
     (the tensor-core kernel; normwise and relative Frobenius) and f32 (the
     CUDA-core kernel), each launch
     checked to have taken the kernel of its dtype; then K6, the plain version
-    and one library call timed in turns at the main path's shapes (4 x 2048
-    at window 1024 and global, bf16 and f32; 1 x 1000, bf16).  Returns the
-    max |err| over the main path's bf16 shapes and the times."""
+    and one library call timed in turns at the main paths' shapes (gemma3's
+    4 x 2048 at window 1024 and global, bf16 and f32; its 1 x 1000 and the
+    MoE models' shapes, bf16).  Returns the max |err| over the main paths'
+    bf16 shapes, each shape's, and the times."""
     from repro_torch.kernels.swa import swa_ref
 
     main_err = main_norm = main_fro = 0.0
+    max_abs = {}
     for shape in K6_SHAPES:
         for dt_name in ("bfloat16", "float32"):
             q, k, v = k6_inputs(shape, getattr(torch, dt_name), gen, dev)
@@ -1440,7 +1495,7 @@ def k6_phase(kswa, dev, gen) -> dict:
                      f"Frobenius {fro} > {K6_FRO_TOL}")
             if shape in K6_PATH and dt_name == "bfloat16":
                 main_err, main_norm = max(main_err, d), max(main_norm, norm)
-                main_fro = max(main_fro, fro)
+                main_fro, max_abs[shape] = max(main_fro, fro), d
             say("swa_kernel", shape="B,H,Hkv,T,S,D,window=" + ",".join(map(str, shape)),
                 dtype=dt_name, kernel=repr(ran), normwise=norm, max_abs=d, frobenius=fro,
                 tol=K6_TOL[dt_name], frobenius_tol=K6_FRO_TOL if dt_name == "bfloat16" else None)
@@ -1450,10 +1505,11 @@ def k6_phase(kswa, dev, gen) -> dict:
     # timed in turns at the main path's shapes: plain, kernel, library, kernel, plain, library
     import torch.nn.functional as F
 
-    out = {"main_err": main_err}
-    for name, shape in (("window", K6_MAIN), ("global", K6_GLOBAL), ("1x1000", K6_PATH[2])):
+    out = {"main_err": main_err, "max_abs": max_abs}
+    for name, shape in (("window", K6_MAIN), ("global", K6_GLOBAL), ("1x1000", K6_PATH[2]),
+                        *K6_WIDTHS.items()):
         B, H, Hkv, T, S, D, w = shape
-        for dt_name in ("bfloat16", "float32") if name != "1x1000" else ("bfloat16",):
+        for dt_name in ("bfloat16", "float32") if name in ("window", "global") else ("bfloat16",):
             q, k, v = k6_inputs(shape, getattr(torch, dt_name), gen, dev)
             if w < T:
                 qpos = torch.arange(T, device=dev)[:, None] + (S - T)
@@ -1494,53 +1550,63 @@ def k6_phase(kswa, dev, gen) -> dict:
     return out
 
 
-def gemma3_small(kswa, dev) -> None:
-    """Phase 22: the SMOKE width in f32 on the card, K6 against the plain
-    path: prefill logits at prompts below, at and above the window (8), every
-    decode step after each against the plain path's, and the same greedy
-    ids."""
+def serve_small(phase: str, smoke, kswa, kssd, dev) -> None:
+    """A config's SMOKE width in f32 on the card, its kernels (K6, and K7 for
+    Mamba layers; in f32 their CUDA-core kernels) against the plain path:
+    train-mode logits; prefill logits at prompts of 5, 8 and 12 tokens
+    (below, at and above gemma3's window of 8), each prefill launching K6
+    once per attention layer and K7 once per Mamba layer; every decode step
+    after each against the plain path's and, where the config has no MoE
+    layer, against the train-mode logits (an MoE layer's capacity follows
+    the tokens of the call, so a decode step may keep pairs that the whole
+    sequence drops); the same greedy ids through Engine.generate."""
     import dataclasses
 
-    from repro_torch.configs.gemma3_4b import SMOKE
     from repro_torch.models import Model
     from repro_torch.models import transformer as tf
     from repro_torch.serve import Engine
 
-    cfg = dataclasses.replace(SMOKE, dtype="float32", max_seq=32)
+    cfg = dataclasses.replace(smoke, dtype="float32", max_seq=32)
     gen = torch.Generator(device=dev).manual_seed(1)
     model = Model(cfg, generator=gen, device=dev)
     tokens = torch.randint(0, cfg.vocab, (2, 21), generator=gen, device=dev)
+    wrappers = (kswa.swa_attention_cuda, kssd.ssd_intra_chunk_cuda)
+    want = [sum(layer.mixer in ("attn", "swa") for layer in cfg.layers_flat),
+            sum(layer.mixer == "mamba" for layer in cfg.layers_flat)]
     h, _, _ = tf.fwd(model, tokens, mode="train", use_kernel="ref")
     full = tf.logits_fn(model, h)
     h, _, _ = tf.fwd(model, tokens, mode="train")
     e_train = logit_err(tf.logits_fn(model, h), full, cfg.vocab)
     e_pre = e_dec = 0.0
-    tc0 = kswa.swa_attention_cuda.tc_launches
+    tc0 = [w.tc_launches for w in wrappers]
     for tp in (5, 8, 12):
-        n0 = kswa.swa_attention_cuda.launches
+        n0 = [w.launches for w in wrappers]
         lk, ck = tf.prefill(model, tokens[:, :tp], cache_len=24)
-        if kswa.swa_attention_cuda.launches - n0 != cfg.n_layers:
-            fail(f"SMOKE prefill launched K6 {kswa.swa_attention_cuda.launches - n0} times")
+        got = [w.launches - n for w, n in zip(wrappers, n0)]
+        if got != want:
+            fail(f"{phase}: a prefill launched K6/K7 {got} times, expected {want}")
         lr, cr = tf.prefill(model, tokens[:, :tp], cache_len=24, use_kernel="ref")
         e_pre = max(e_pre, logit_err(lk, lr, cfg.vocab))
         for t in range(tp, 21):
-            n0 = kswa.swa_attention_cuda.launches
+            n0 = [w.launches for w in wrappers]
             sk, ck = tf.decode_step(model, tokens[:, t:t + 1], t, ck)
-            sr, cr = tf.decode_step(model, tokens[:, t:t + 1], t, cr)
-            if kswa.swa_attention_cuda.launches != n0:
-                fail("a decode step launched K6")
-            e_dec = max(e_dec, logit_err(sk, sr, cfg.vocab), logit_err(sk, full[:, t], cfg.vocab))
-    ids_k = Engine(cfg, model).generate(tokens[:, :12], 8)
-    ids_r = Engine(cfg, model, use_kernel="ref").generate(tokens[:, :12], 8)
-    if kswa.swa_attention_cuda.tc_launches != tc0:
-        fail("an f32 launch of K6 took the tensor-core kernel")
+            sr, cr = tf.decode_step(model, tokens[:, t:t + 1], t, cr, use_kernel="ref")
+            if [w.launches for w in wrappers] != n0:
+                fail(f"{phase}: a decode step launched K6 or K7")
+            e_dec = max(e_dec, logit_err(sk, sr, cfg.vocab))
+            if cfg.moe is None:
+                e_dec = max(e_dec, logit_err(sk, full[:, t], cfg.vocab))
+    ids_k = Engine(cfg, model, cache_len=24).generate(tokens[:, :12], 8)
+    ids_r = Engine(cfg, model, cache_len=24, use_kernel="ref").generate(tokens[:, :12], 8)
+    if [w.tc_launches for w in wrappers] != tc0:
+        fail(f"{phase}: an f32 launch took a tensor-core kernel")
     if not (max(e_train, e_pre, e_dec) <= SERVE_TOL and torch.equal(ids_k, ids_r)):
-        fail(f"gemma3 SMOKE on the card: K6 vs plain train {e_train}, prefill {e_pre}, decode "
+        fail(f"{phase} on the card: kernels vs plain train {e_train}, prefill {e_pre}, decode "
              f"{e_dec}, ids equal {torch.equal(ids_k, ids_r)}")
-    say("gemma3_small", cfg="SMOKE f32", prompts="2x5,2x8,2x12 (window 8)",
-        k6_vs_plain_train_normwise=e_train, k6_vs_plain_prefill_normwise=e_pre,
+    say(phase, cfg=f"{smoke.name} f32", prompts="2x5,2x8,2x12",
+        kernels_vs_plain_train_normwise=e_train, kernels_vs_plain_prefill_normwise=e_pre,
         decode_vs_plain_normwise=e_dec, tol=SERVE_TOL, greedy_ids_equal=True,
-        k6_kernel="'CUDA cores (f32)'", status="ok")
+        kernels="'CUDA cores (f32)'", status="ok")
 
 
 def gemma3_full(kswa, dev) -> int:
@@ -1566,25 +1632,17 @@ def gemma3_full(kswa, dev) -> int:
         params=sum(p.numel() for p in model.parameters()), dtype=cfg.dtype,
         materialize_s=time.perf_counter() - t0)
     prompts = {name: torch.randint(0, cfg.vocab, (b, t), generator=gen, device=dev)
-               for name, b, t, _ in GEMMA_RUNS}
-    engines = {name: Engine(cfg, model, cache_len=t + n) for name, _, t, n in GEMMA_RUNS}
+               for name, b, t, _ in SERVE_RUNS}
+    engines = {name: Engine(cfg, model, cache_len=t + n) for name, _, t, n in SERVE_RUNS}
     # the main path: two generate calls, counts zeroed just before, read just after
-    kswa.swa_attention_cuda.launches = kswa.swa_attention_cuda.tc_launches = 0
-    per_call, tc_per_call = [], []
-    for name, b, t, n_new in GEMMA_RUNS:
-        before = kswa.swa_attention_cuda.launches, kswa.swa_attention_cuda.tc_launches
-        ids = engines[name].generate(prompts[name], n_new)
-        torch.cuda.synchronize()
-        per_call.append(kswa.swa_attention_cuda.launches - before[0])
-        tc_per_call.append(kswa.swa_attention_cuda.tc_launches - before[1])
-        if ids.shape != (b, n_new) or int(ids.max()) >= cfg.vocab or int(ids.min()) < 0:
-            fail(f"{name}: ids {tuple(ids.shape)}, range {int(ids.min())}..{int(ids.max())}")
+    per_call = generate_counted("gemma3_full", engines, prompts, SERVE_RUNS,
+                                (kswa.swa_attention_cuda,), cfg.vocab)
     launches = kswa.swa_attention_cuda.launches
-    if per_call != [cfg.n_layers, cfg.n_layers] or tc_per_call != per_call:
-        fail(f"K6 launches per generate call {per_call}, on the tensor cores {tc_per_call}; "
-             f"expected {cfg.n_layers} each, all bf16 on the tensor cores")
+    if per_call != [[(cfg.n_layers, cfg.n_layers)]] * len(SERVE_RUNS):
+        fail(f"K6 (launches, tensor-core launches) per generate call {per_call}; expected "
+             f"{cfg.n_layers} each, all bf16 on the tensor cores")
     # decode launches no K6; logits finite; the caches' shapes
-    name, b, t, n_new = GEMMA_RUNS[0]
+    name, b, t, n_new = SERVE_RUNS[0]
     p, S = prompts[name], t + n_new
     with torch.inference_mode():
         logits, caches = tf.prefill(model, p, cache_len=S)
@@ -1598,15 +1656,14 @@ def gemma3_full(kswa, dev) -> int:
                                               and torch.isfinite(step).all()):
         fail(f"decode launched K6 {dec_launches} times, cache shapes {shapes} (expected "
              f"{want}), or non-finite logits")
-    say("gemma3_full", k6_launches_per_generate=per_call,
-        k6_tensor_core_launches_per_generate=tc_per_call, k6_launches_in_decode=dec_launches,
-        cache_shapes=repr(shapes).replace(" ", ""), logits_finite=True)
+    say("gemma3_full", k6_launches_per_generate=[c[0][0] for c in per_call],
+        k6_tensor_core_launches_per_generate=[c[0][1] for c in per_call],
+        k6_launches_in_decode=dec_launches, cache_shapes=repr(shapes).replace(" ", ""),
+        logits_finite=True)
     del logits, caches, step
     # timed through Engine.generate: n_new=1 is prefill and the first id (the
     # time to first token); the rest are decode steps
-    for run_name, _, run_t, run_new in GEMMA_RUNS:
-        say("gemma3_full", prompt=run_name, new_tokens=run_new, cache_len=run_t + run_new,
-            **generate_metrics(engines[run_name], prompts[run_name], run_new))
+    generate_times("gemma3_full", engines, prompts, SERVE_RUNS)
     # where one prefill's and one decode step's device time goes
     kinds = (("k6", ("swa_kernel",)),
              ("matmul", ("gemm", "Gemm", "gemv", "nvjet", "xmma", "cutlass")),
@@ -1650,20 +1707,26 @@ def gemma3_full(kswa, dev) -> int:
 def gemma3_phases(dev) -> list:
     import importlib
 
+    from repro_torch.configs.gemma3_4b import SMOKE
+
     kswa = importlib.import_module("repro_torch.kernels.swa.kernel")
+    kssd = importlib.import_module("repro_torch.kernels.ssd.kernel")
     gen = torch.Generator(device=dev).manual_seed(4)
     # ---- 21. K6 against its plain version, then timed -----------------------
     k6 = k6_phase(kswa, dev, gen)
     # ---- 22-23. the attention serving path: the counts zeroed just before ---
     kswa.swa_attention_cuda.launches = kswa.swa_attention_cuda.tc_launches = 0
-    gemma3_small(kswa, dev)
+    serve_small("gemma3_small", SMOKE, kswa, kssd, dev)
     launches = gemma3_full(kswa, dev)
     ms, plain_ms, library_ms, bound, bound_by = k6[("window", "bfloat16")]
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    widths = {case: {**dict(zip(keys, k6[(case, "bfloat16")])),
+                     "max_abs_err": k6["max_abs"][shape]} for case, shape in K6_WIDTHS.items()}
     return [{"name": "swa_attention", "route": "cuda",
              "source": "src/repro_torch/kernels/swa/csrc/swa.cu", "replaces": K6_REPLACES,
              "launches": launches, "max_abs_err": k6["main_err"], "ms": ms,
              "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
-             "library_ms": library_ms}]
+             "library_ms": library_ms, "widths": widths}]
 
 
 # ---------------------------------------------------------------------------
@@ -2520,6 +2583,279 @@ def slice9_phases(sk, full=POISSON_FULL) -> tuple[dict, int]:
 
 
 # ---------------------------------------------------------------------------
+# slice 12: the example twins, and MoE serving (granite, jamba, kimi)
+# ---------------------------------------------------------------------------
+
+EXAMPLES = ("torch_quickstart", "torch_stokes", "torch_twophase", "torch_gross_pitaevskii")
+EXAMPLE_LIMIT_S = 300
+JAMBA_RUNS = (("4x2048", 4, 2048, 32),)
+KIMI_RUNS = (("1x1000", 1, 1000, 8),)
+KV_QUANT_BOUND, KV_QUANT_AGREE = 0.08, 0.9   # tests/test_kv_quant.py's bound
+MOE_KINDS = (("k6", ("swa_kernel",)), ("k7", ("ssd_chunk_kernel",)),
+             ("matmul", ("gemm", "Gemm", "gemv", "nvjet", "xmma", "cutlass")),
+             ("sort", ("sort", "Sort", "radix", "Radix")),
+             ("index_scatter_gather", ("index", "Index", "scatter", "Scatter", "gather",
+                                       "Gather")),
+             ("reduce", ("reduce",)), ("copy", ("copy", "Copy", "Memcpy", "cat")),
+             ("elementwise", ("elementwise", "Elementwise")))
+
+
+def examples_phase() -> None:
+    """Phase 35: each examples/torch_*.py at its default size on the card,
+    the four in subprocesses started together; each must exit 0 with OK as
+    its last line."""
+    import os
+
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen([sys.executable, str(root / "examples" / f"{name}.py")],
+                                    cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True, env=dict(os.environ))
+             for name in EXAMPLES}
+    outs = {}
+    try:
+        for name, p in procs.items():
+            outs[name] = (p.communicate(timeout=max(1.0, EXAMPLE_LIMIT_S
+                                                   - (time.perf_counter() - t0)))[0],
+                          p.returncode, time.perf_counter() - t0)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for name, (text, rc, seconds) in outs.items():
+        lines = text.strip().splitlines()
+        if rc != 0 or not lines or lines[-1] != "OK":
+            fail(f"examples/{name}.py: exit {rc}, output:\n{text[-3000:]}")
+        say("examples", example=f"examples/{name}.py", rc=rc, done_after_s=seconds,
+            printed=json.dumps(lines[1:-1]))
+
+
+def count_drops(model, run) -> dict:
+    """``run()`` with a forward hook on every MoE layer's router: from the
+    logits it sees, ``route`` and ``dispatch`` give the pairs dropped at
+    capacity (``pos >= C``), the pairs routed, and C, summed over the
+    layers."""
+    from repro_torch.models import moe as moe_mod
+
+    cfg = model.cfg
+    E, K = cfg.moe.n_experts, cfg.moe.top_k
+    stats = {"dropped": 0, "pairs": 0, "layers": 0, "capacity": None, "by_layer": []}
+
+    def record(router, args, logits):
+        C = moe_mod.capacity(logits.shape[1], cfg)
+        _, _, eid = moe_mod.route(logits.float(), K)
+        dest, _, _ = moe_mod.dispatch(eid, C, E)
+        dropped = int((dest == E * C).sum())
+        stats["dropped"] += dropped
+        stats["pairs"] += dest.numel()
+        stats["layers"] += 1
+        stats["capacity"] = C
+        stats["by_layer"].append(round(dropped / dest.numel(), 4))
+
+    hooks = [block.ffn.router.register_forward_hook(record)
+             for block, layer in zip(model.layers, cfg.layers_flat) if layer.moe]
+    try:
+        with torch.inference_mode():
+            run()
+    finally:
+        for hook in hooks:
+            hook.remove()
+    return stats
+
+
+def moe_full(name: str, cfg, runs, kswa, kssd, dev, seed: int):
+    """A config at full width (its depth as given) in bf16 with random weights
+    from ``seed``: the main path, ``Engine.generate`` at each of ``runs``
+    (cache_len = prompt + new), K6 and K7 counts zeroed just before and read
+    just after, every launch on the tensor cores; the drop count of one
+    prefill; time to first token and decode ms per token.  Returns (model,
+    prompts, K6 launches, K7 launches)."""
+    from repro_torch.models import Model
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import Engine
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = Model(cfg, generator=gen)
+    torch.cuda.synchronize()
+    n_attn = sum(layer.mixer in ("attn", "swa") for layer in cfg.layers_flat)
+    n_mamba = sum(layer.mixer == "mamba" for layer in cfg.layers_flat)
+    n_moe = sum(bool(layer.moe) for layer in cfg.layers_flat)
+    params = sum(p.numel() for p in model.parameters())
+    say(f"{name}", cfg=cfg.name, layers=cfg.n_layers, attention_layers=n_attn,
+        mamba_layers=n_mamba, moe_layers=n_moe, d_model=cfg.d_model,
+        heads=f"{cfg.n_heads}x{cfg.head_dim}_kv{cfg.n_kv}", d_ff=cfg.d_ff,
+        experts=f"{cfg.moe.n_experts}_top{cfg.moe.top_k}_shared{cfg.moe.n_shared}_ff"
+        f"{cfg.moe.d_ff}", vocab=cfg.vocab, params=params,
+        weights_GB=sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9,
+        dtype=cfg.dtype, materialize_s=time.perf_counter() - t0)
+    prompts = {rn: torch.randint(0, cfg.vocab, (b, t), generator=gen, device=dev)
+               for rn, b, t, _ in runs}
+    engines = {rn: Engine(cfg, model, cache_len=t + n) for rn, _, t, n in runs}
+    # the main path: the counts zeroed just before, read just after
+    per_call = generate_counted(name, engines, prompts, runs,
+                                (kswa.swa_attention_cuda, kssd.ssd_intra_chunk_cuda), cfg.vocab)
+    k6, k7 = kswa.swa_attention_cuda.launches, kssd.ssd_intra_chunk_cuda.launches
+    want = [[(n_attn, n_attn), (n_mamba, n_mamba)]] * len(runs)
+    if per_call != want:
+        fail(f"{name}: (K6, K7) (launches, tensor-core launches) per generate call {per_call}, "
+             f"expected {want}")
+    # one prefill's dispatch: the pairs dropped at capacity; logits finite
+    rn, b, t, n_new = runs[0]
+    holder = {}
+
+    def prefill():
+        holder["logits"], _ = tf.prefill(model, prompts[rn], cache_len=t + n_new)
+
+    drops = count_drops(model, prefill)
+    if not torch.isfinite(holder.pop("logits")[:, :cfg.vocab]).all():
+        fail(f"{name}: non-finite prefill logits")
+    say(f"{name}", k6_per_generate=[c[0][0] for c in per_call],
+        k7_per_generate=[c[1][0] for c in per_call], all_on_tensor_cores=True,
+        prefill=rn, capacity_C=drops["capacity"], pairs_routed=drops["pairs"],
+        pairs_dropped=drops["dropped"], dropped_share=drops["dropped"] / max(drops["pairs"], 1),
+        dropped_share_by_moe_layer=json.dumps(drops["by_layer"]).replace(" ", ""),
+        moe_layers_seen=drops["layers"], logits_finite=True)
+    generate_times(name, engines, prompts, runs)
+    return model, prompts, k6, k7
+
+
+def granite_breakdown(model, prompt, dev) -> None:
+    """Where a granite 4x2048 prefill's and a decode step's device time goes:
+    by kernel kind (profiler) with the idle share, and one MoE layer split
+    into its expert GEMMs and the rest of its dispatch (CUDA events)."""
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import glu
+
+    cfg = model.cfg
+    T = prompt.shape[1]
+    with torch.inference_mode():
+        tf.prefill(model, prompt, cache_len=T + 32)
+        say("breakdown", config=f"granite prefill {prompt.shape[0]}x{T} bf16",
+            **categories(lambda: tf.prefill(model, prompt, cache_len=T + 32), 1, MOE_KINDS))
+        logits, caches = tf.prefill(model, prompt, cache_len=T + 32)
+        cur = logits.argmax(-1, keepdim=True)
+        tf.decode_step(model, cur, T, caches)
+        say("breakdown", config=f"granite decode step, batch {prompt.shape[0]}, bf16",
+            **categories(lambda: tf.decode_step(model, cur, T, caches), 1, MOE_KINDS))
+        del logits, caches
+        m, layer = cfg.moe, model.layers[0].ffn
+        for what, n_tok in (("prefill", T), ("decode", 1)):
+            x = torch.randn(prompt.shape[0], n_tok, cfg.d_model, device=dev,
+                            dtype=torch.bfloat16)
+            C = moe_mod.capacity(n_tok, cfg)
+            xe = torch.randn(m.n_experts, prompt.shape[0] * C, cfg.d_model, device=dev,
+                             dtype=torch.bfloat16)
+            whole = cuda_time_ms(lambda: moe_mod.fwd(layer, cfg, x), reps=10)
+            wi = layer.wi.flatten(2)
+            gemms = cuda_time_ms(lambda: torch.bmm(glu(torch.bmm(xe, wi).unflatten(
+                -1, (2, m.d_ff)), cfg.act), layer.wo), reps=10)
+            wbytes = (layer.wi.numel() + layer.wo.numel()) * 2
+            say("breakdown", config=f"one granite MoE layer, {what}, batch {prompt.shape[0]}",
+                moe_layer_ms=whole, expert_gemms_ms=gemms, dispatch_and_combine_ms=whole - gemms,
+                capacity_C=C, expert_weight_bytes=wbytes,
+                expert_weights_read_ms_at_3p35TBps=wbytes / HBM_BYTES_PER_S * 1e3,
+                per_forward_ms=whole * cfg.n_layers)
+
+
+def kv_quant_check(model, prompt, n_new: int, dev) -> None:
+    """granite 1 x 1000 + n_new with the int8 KV cache: teacher-forced decode
+    logits within tests/test_kv_quant.py's bound of the bf16 cache's, and
+    both caches' bytes."""
+    import dataclasses
+
+    from repro_torch.models import Model
+    from repro_torch.models import transformer as tf
+
+    cfg = model.cfg
+    quant = Model(dataclasses.replace(cfg, kv_quant=True),
+                  {k: v for k, v in model.state_dict().items()})
+    T, S = prompt.shape[1], prompt.shape[1] + n_new
+    outs, nbytes = {}, {}
+    with torch.inference_mode():
+        for name, m in (("bf16", model), ("int8", quant)):
+            logits, caches = tf.prefill(m, prompt, cache_len=S)
+            nbytes[name] = sum(t.numel() * t.element_size() for c in caches
+                               for t in c["mixer"].values())
+            if name == "bf16":
+                ids = [logits.argmax(-1, keepdim=True)]
+            seq = []
+            for i in range(n_new):
+                logits, caches = tf.decode_step(m, ids[i], T + i, caches)
+                seq.append(logits[:, :cfg.vocab].float())
+                if name == "bf16":
+                    ids.append(logits.argmax(-1, keepdim=True))
+            outs[name] = torch.stack(seq)
+    err = ((outs["int8"] - outs["bf16"]).abs().max() / outs["bf16"].abs().max()).item()
+    agree = (outs["int8"].argmax(-1) == outs["bf16"].argmax(-1)).float().mean().item()
+    if not (err < KV_QUANT_BOUND and agree > KV_QUANT_AGREE):
+        fail(f"granite kv_quant: decode logits {err} from the bf16 cache's (bound "
+             f"{KV_QUANT_BOUND}), argmax agreement {agree} (bound {KV_QUANT_AGREE})")
+    say("granite_kv_quant", prompt=f"1x{T}", new_tokens=n_new, cache_len=S,
+        decode_logits_normwise_vs_bf16_cache=err, argmax_agreement=agree,
+        bound=KV_QUANT_BOUND, cache_bytes_bf16=nbytes["bf16"], cache_bytes_int8=nbytes["int8"],
+        int8_over_bf16=nbytes["int8"] / nbytes["bf16"], status="ok")
+    del quant
+
+
+def moe_phases(dev) -> dict:
+    """Phases 35-38: the example twins; granite-moe-3b-a800m whole,
+    jamba-v0.1-52b at full width (one period of 8 of its 32 layers) and
+    kimi-k2 at full width (its first 2 of 61 layers), each after its SMOKE
+    width in f32 against the plain path (K6 and K7 at these models' shapes
+    were held against their plain versions and timed in phases 18 and 21).
+    Returns the launches of each model's main path."""
+    import dataclasses
+    import importlib
+
+    from repro_torch.configs import get
+    from repro_torch.configs.granite_moe_3b import SMOKE as GRANITE
+    from repro_torch.configs.jamba_v01_52b import SMOKE as JAMBA
+    from repro_torch.configs.kimi_k2 import SMOKE as KIMI
+
+    kswa = importlib.import_module("repro_torch.kernels.swa.kernel")
+    kssd = importlib.import_module("repro_torch.kernels.ssd.kernel")
+    t_start = time.perf_counter()
+    examples_phase()
+    t_examples = time.perf_counter() - t_start
+    out = {}
+
+    # granite-moe-3b-a800m, whole
+    serve_small("granite_small", GRANITE, kswa, kssd, dev)
+    model, prompts, k6, _ = moe_full("granite_full", get("granite-moe-3b-a800m"), SERVE_RUNS,
+                                     kswa, kssd, dev, seed=0)
+    out["granite"] = {"k6": k6}
+    granite_breakdown(model, prompts["4x2048"], dev)
+    kv_quant_check(model, prompts["1x1000"], SERVE_RUNS[1][3], dev)
+    del model, prompts
+    torch.cuda.empty_cache()
+
+    # jamba-v0.1-52b at full width, one period of its layers
+    serve_small("jamba_small", JAMBA, kswa, kssd, dev)
+    jamba = get("jamba-v0.1-52b")
+    jamba = dataclasses.replace(jamba, stacks=((jamba.stacks[0][0], 1),))
+    model, _, k6, k7 = moe_full("jamba_width", jamba, JAMBA_RUNS, kswa, kssd, dev, seed=1)
+    out["jamba"] = {"k6": k6, "k7": k7}
+    del model
+    torch.cuda.empty_cache()
+
+    # kimi-k2 at full width, its dense layer 0 and one MoE layer
+    serve_small("kimi_small", KIMI, kswa, kssd, dev)
+    kimi = get("kimi-k2-1t-a32b")
+    kimi = dataclasses.replace(kimi, stacks=tuple((pattern, 1) for pattern, _ in kimi.stacks))
+    model, _, k6, _ = moe_full("kimi_width", kimi, KIMI_RUNS, kswa, kssd, dev, seed=2)
+    out["kimi"] = {"k6": k6}
+    del model
+    torch.cuda.empty_cache()
+    say("slice12", examples_s=t_examples, new_phases_s=time.perf_counter() - t_start,
+        elapsed_s=time.perf_counter() - T_START)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # slice 10: the grid across processes (phase dist)
 # ---------------------------------------------------------------------------
 
@@ -3286,6 +3622,16 @@ def main() -> int:
     for e in solver_entries:
         e["launches"] += center[e["name"]]
         e["launches_slice9"] = center[e["name"]]
+    # the example twins and the MoE serving paths: K6's launches of the three
+    # models' generate calls join its entry, K7's of jamba's join K7's (the
+    # kernels' numbers at these models' shapes stand in their "widths")
+    torch.cuda.empty_cache()
+    moe = moe_phases(dev)
+    swa, ssd = swa_entries[0], ssd_entries[0]
+    swa["launches_moe"] = {m: moe[m]["k6"] for m in ("granite", "jamba", "kimi")}
+    swa["launches"] += sum(swa["launches_moe"].values())
+    ssd["launches_moe"] = {"jamba": moe["jamba"]["k7"]}
+    ssd["launches"] += moe["jamba"]["k7"]
     # the processes of the dist phase: Heat3D's K1, Poisson's K2-K5 and the
     # two-phase step's shifted K2-K5, summed over the processes
     dist = dist_phase(card)

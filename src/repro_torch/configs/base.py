@@ -111,9 +111,6 @@ _REGISTRY: dict[str, ModelCfg] = {}
 # the reference's other configs, and the item of ROADMAP.md's Queue A
 # (item 6, the rest of the LM scaffolding) that brings their layers
 LATER = {
-    "kimi-k2-1t-a32b": "attention and MoE layers",
-    "granite-moe-3b-a800m": "attention and MoE layers",
-    "jamba-v0.1-52b": "attention and MoE layers beside its Mamba layers",
     "llama-3.2-vision-90b": "cross-attention and the vision front end",
     "seamless-m4t-large-v2": "the encoder-decoder and the audio front end",
 }
@@ -142,4 +139,5 @@ def names() -> list[str]:
 
 def _load_all() -> None:
     from . import (  # noqa: F401  (register their configs)
-        gemma3_4b, gemma_2b, llama3_2_1b, mamba2_1p3b, starcoder2_15b)
+        gemma3_4b, gemma_2b, granite_moe_3b, jamba_v01_52b, kimi_k2, llama3_2_1b, mamba2_1p3b,
+        starcoder2_15b)

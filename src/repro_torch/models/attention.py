@@ -8,11 +8,13 @@ global layer ``window = S``, which ``swa_ref`` defines as plain causal
 attention.  The reference computes the same function with the jnp
 ``_attend`` under a band mask, or ``_attend_swa`` for long sequences.
 Decode is the plain :func:`_attend` over the cache, with the reference's
-ring-buffer slots and masks.
+ring-buffer slots and masks.  Under ``cfg.kv_quant`` the cache holds int8
+keys and values with one float32 scale per (token, kv head)
+(:func:`_kv_quantize`), dequantised before :func:`_attend`.
 
-Cross-attention, the int8 KV cache, a sequence axis, non-causal layers and
-a soft cap on the kernel path raise: they come with the rest of the LM
-scaffolding (ROADMAP.md, Queue A item 6).
+Cross-attention, a sequence axis, non-causal layers and a soft cap on the
+kernel path raise: they come with the rest of the LM scaffolding
+(ROADMAP.md, Queue A item 6).
 """
 
 from __future__ import annotations
@@ -46,7 +48,7 @@ def specs(cfg, layer) -> dict:
 
 def check_layer(cfg, layer) -> None:
     """Raise on what the port's attention does not implement yet."""
-    for what, unsupported in (("cross-attention", layer.cross), ("kv_quant", cfg.kv_quant),
+    for what, unsupported in (("cross-attention", layer.cross),
                               ("a non-causal layer", not layer.causal)):
         if unsupported:
             raise NotImplementedError(f"{what}: not in the port yet ({LATER})")
@@ -72,6 +74,22 @@ class Attention(nn.Module):
             for name in ("q_norm", "k_norm"):
                 self.register_parameter(
                     name, nn.Parameter(torch.empty(Dh, device="meta"), requires_grad=False))
+
+
+def _kv_quantize(kv):
+    """Per (token, head) int8 quantization over head_dim.
+
+    kv: (B, S, Hkv, Dh) -> (int8 kv, float32 scale (B, S, Hkv)): the scale
+    is max |kv| / 127 (1 where that is 0), the values rounded half to even,
+    as ``jnp.round`` does."""
+    kf = kv.float()
+    s = kf.abs().amax(dim=-1) / 127.0
+    s = torch.where(s == 0.0, torch.ones_like(s), s)
+    return torch.round(kf / s[..., None]).to(torch.int8), s
+
+
+def _kv_dequantize(q, s, dtype):
+    return (q.float() * s[..., None]).to(dtype)
 
 
 def _expand_kv(kv, H):
@@ -130,12 +148,22 @@ def fwd(attn: Attention, cfg, layer, x, *, mode, positions, cache=None, cache_le
         S = cache["k"].shape[1]
         pos = positions[0]
         slot = torch.remainder(pos, S) if window else torch.clamp(pos, max=S - 1)
-        knew = cache["k"].index_copy(1, slot.reshape(1), k.to(cache["k"].dtype))
-        vnew = cache["v"].index_copy(1, slot.reshape(1), v.to(cache["v"].dtype))
-        new_cache = dict(cache, k=knew, v=vnew)
+        slot = slot.reshape(1)
+        if cfg.kv_quant:
+            (kq, ks), (vq, vs) = _kv_quantize(k), _kv_quantize(v)
+            knew, vnew = cache["k"].index_copy(1, slot, kq), cache["v"].index_copy(1, slot, vq)
+            ksn = cache["k_s"].index_copy(1, slot, ks)
+            vsn = cache["v_s"].index_copy(1, slot, vs)
+            new_cache = dict(cache, k=knew, v=vnew, k_s=ksn, v_s=vsn)
+            kf, vf = _kv_dequantize(knew, ksn, k.dtype), _kv_dequantize(vnew, vsn, v.dtype)
+        else:
+            knew = cache["k"].index_copy(1, slot, k.to(cache["k"].dtype))
+            vnew = cache["v"].index_copy(1, slot, v.to(cache["v"].dtype))
+            new_cache = dict(cache, k=knew, v=vnew)
+            kf, vf = knew, vnew
         sl = torch.arange(S, device=x.device)
         valid = (sl <= pos) | (pos >= S) if window else sl <= pos  # a full ring: every slot
-        out = _attend(q, _expand_kv(knew, H), _expand_kv(vnew, H), valid[None, :],
+        out = _attend(q, _expand_kv(kf, H), _expand_kv(vf, H), valid[None, :],
                       attn_softcap=cfg.attn_softcap)
     else:  # train / prefill: K6's dispatch point, window = T for a global layer
         if cfg.attn_softcap:
@@ -157,7 +185,11 @@ def fwd(attn: Attention, cfg, layer, x, *, mode, positions, cache=None, cache_le
                 pad = max(0, S_target - T)
                 ks = F.pad(k, (0, 0, 0, 0, 0, pad))
                 vs = F.pad(v, (0, 0, 0, 0, 0, pad))
-            new_cache = {"k": ks, "v": vs}
+            if cfg.kv_quant:
+                (kq, kss), (vq, vss) = _kv_quantize(ks), _kv_quantize(vs)
+                new_cache = {"k": kq, "v": vq, "k_s": kss, "v_s": vss}
+            else:
+                new_cache = {"k": ks, "v": vs}
 
     out = F.linear(out.reshape(B, T, H * Dh), attn.wo.weight)
     return out, new_cache
@@ -172,5 +204,9 @@ def init_cache_specs(cfg, layer, batch: int, cache_len: int, dtype) -> dict:
     check_layer(cfg, layer)
     Hkv, Dh = cfg.n_kv, cfg.head_dim
     S = min(layer.window, cache_len) if (layer.mixer == "swa" and layer.window) else cache_len
+    if cfg.kv_quant:
+        kv = torch.empty((batch, S, Hkv, Dh), dtype=torch.int8, device="meta")
+        sc = torch.empty((batch, S, Hkv), dtype=torch.float32, device="meta")
+        return {"k": kv, "v": kv.clone(), "k_s": sc, "v_s": sc.clone()}
     return {"k": torch.empty((batch, S, Hkv, Dh), dtype=dtype, device="meta"),
             "v": torch.empty((batch, S, Hkv, Dh), dtype=dtype, device="meta")}

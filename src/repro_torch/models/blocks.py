@@ -1,11 +1,13 @@
 """Residual blocks: pre-norm (mixer | ffn) wiring per Layer spec.
 
 The port's twin of the JAX package's ``models/blocks.py`` for the layers it
-runs: a Mamba mixer with no FFN (``Layer(mixer="mamba", ffn=False)``), and
-causal self-attention, global (``"attn"``) or sliding-window (``"swa"``),
-with a dense FFN (gated ``swiglu``/``geglu`` or a plain activation).
-Cross-attention and MoE come with the rest of the LM scaffolding
-(ROADMAP.md, Queue A item 6) and raise until then.
+runs: a mixer, either a Mamba block or causal self-attention, global
+(``"attn"``) or sliding-window (``"swa"``), then, where the layer has one,
+an FFN behind its own pre-norm ``ln2``: an MoE FFN (``layer.moe``, which
+takes precedence over ``layer.ffn``, as in the reference) or a dense one
+(gated ``swiglu``/``geglu`` or a plain activation).  Cross-attention comes
+with the rest of the LM scaffolding (ROADMAP.md, Queue A item 6) and raises
+until then.
 """
 
 from __future__ import annotations
@@ -15,24 +17,25 @@ import torch.nn.functional as F
 from torch import nn
 
 from . import attention
+from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .layers import act_fn, glu, rms_norm
 from .params import ParamSpec
 
-LATER = "ROADMAP.md, Queue A item 6 (cross-attention and MoE layers)"
+LATER = "ROADMAP.md, Queue A item 6 (cross-attention)"
 GATED = ("swiglu", "geglu")
 
 
 def check_layer(layer) -> None:
     """Raise on a layer the port does not implement yet."""
-    if layer.mixer == "mamba":
-        ok = not layer.ffn
-    else:
-        ok = layer.mixer in ("attn", "swa") and layer.ffn
-    if not ok or layer.cross or layer.moe:
+    if layer.mixer not in ("attn", "swa", "mamba") or layer.cross:
         raise NotImplementedError(
-            f"mixer={layer.mixer!r}, cross={layer.cross}, moe={layer.moe}, ffn={layer.ffn}: "
-            f"not in the port yet ({LATER})")
+            f"mixer={layer.mixer!r}, cross={layer.cross}: not in the port yet ({LATER})")
+
+
+def has_ffn(layer) -> bool:
+    """An MoE or a dense FFN follows the mixer (behind ``ln2``)."""
+    return layer.moe or layer.ffn
 
 
 def _norm_spec(cfg) -> ParamSpec:
@@ -77,14 +80,15 @@ def layer_specs(cfg, layer) -> dict:
         out["mixer"] = ssm_mod.specs(cfg)
     else:
         out["mixer"] = attention.specs(cfg, layer)
+    if has_ffn(layer):
         out["ln2"] = _norm_spec(cfg)
-        out["ffn"] = ffn_specs(cfg)
+        out["ffn"] = moe_mod.specs(cfg) if layer.moe else ffn_specs(cfg)
     return out
 
 
 class Block(nn.Module):
-    """One layer's parameters: ``ln1``, the mixer and, for an attention
-    layer, ``ln2`` and the FFN (meta until loaded)."""
+    """One layer's parameters: ``ln1``, the mixer and, where the layer has
+    an FFN, ``ln2`` and the FFN, dense or MoE (meta until loaded)."""
 
     def __init__(self, cfg, layer):
         super().__init__()
@@ -95,8 +99,9 @@ class Block(nn.Module):
             self.mixer = ssm_mod.Mamba2(cfg)
         else:
             self.mixer = attention.Attention(cfg, layer)
+        if has_ffn(layer):
             self.ln2 = nn.Parameter(torch.empty(cfg.d_model, **meta), requires_grad=False)
-            self.ffn = FFN(cfg)
+            self.ffn = moe_mod.MoE(cfg) if layer.moe else FFN(cfg)
 
 
 def layer_fwd(block: Block, cfg, layer, x, *, mode, positions=None, cache=None,
@@ -124,8 +129,14 @@ def layer_fwd(block: Block, cfg, layer, x, *, mode, positions=None, cache=None,
     x = x + h
     if new_cache is not None and c is not None:
         new_cache["mixer"] = c
-    if layer.ffn:
-        x = x + ffn_fwd(block.ffn, cfg, norm(x, block.ln2))
+    if has_ffn(layer):
+        h = norm(x, block.ln2)
+        if layer.moe:
+            h, a = moe_mod.fwd(block.ffn, cfg, h)
+            aux = aux + a
+        else:
+            h = ffn_fwd(block.ffn, cfg, h)
+        x = x + h
     return x, new_cache, aux
 
 

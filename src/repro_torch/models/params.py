@@ -17,6 +17,7 @@ import torch
 from .._device import resolve_device
 
 STD = {"normal": 0.02, "small_normal": 0.006}
+DRAW_CHUNK = 1 << 30   # values drawn at once by materialize (4 GiB in float32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,7 +65,8 @@ def n_params(tree) -> int:
 def materialize(tree, generator: torch.Generator, dtype, device=None):
     """Random tensors for every spec, drawn from ``generator`` in the tree's
     order: normal (std 0.02 or the spec's), small_normal (std 0.006) drawn
-    in float32 and cast to ``dtype``; zeros and ones.  ``generator`` must
+    in float32 pieces of at most ``DRAW_CHUNK`` values and cast to
+    ``dtype``; zeros and ones.  ``generator`` must
     live on ``device`` (``None``: the CUDA card)."""
     device = resolve_device(device)
     if not isinstance(generator, torch.Generator):
@@ -79,7 +81,16 @@ def materialize(tree, generator: torch.Generator, dtype, device=None):
         if s.init == "ones":
             return torch.ones(s.shape, dtype=dtype, device=device)
         std = s.std if s.std is not None else STD[s.init]
-        r = torch.randn(s.shape, generator=generator, dtype=torch.float32, device=device)
-        return (r.mul_(std)).to(dtype)
+        # drawn in float32 pieces of DRAW_CHUNK values, each cast into place,
+        # so that no float32 copy of a leaf larger than one piece (an MoE
+        # layer's experts) is ever held
+        n = math.prod(s.shape)
+        out = torch.empty(s.shape, dtype=dtype, device=device)
+        flat = out.view(-1)
+        for i in range(0, n, DRAW_CHUNK):
+            m = min(DRAW_CHUNK, n - i)
+            flat[i:i + m] = torch.randn(m, generator=generator, dtype=torch.float32,
+                                        device=device).mul_(std)
+        return out
 
     return tree_map(init_one, tree)

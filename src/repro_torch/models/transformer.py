@@ -33,10 +33,15 @@ MIXER_LEAVES = {"in_proj": ("in_proj.weight", 1), "out_proj": ("out_proj.weight"
                 "wq": ("wq.weight", 1), "wk": ("wk.weight", 1), "wv": ("wv.weight", 1),
                 "wo": ("wo.weight", 2), "q_norm": ("q_norm", 0), "k_norm": ("k_norm", 0)}
 FFN_LEAVES = {"wi": ("wi.weight", 1), "wo": ("wo.weight", 1)}
+# an MoE FFN: the router and the shared experts as nn.Linear, the experts'
+# wi (E, d, 2, f) and wo (E, f, d) as they are
+MOE_LEAVES = {"router": ("router.weight", 1), "wi": ("wi", 0), "wo": ("wo", 0),
+              "shared_wi": ("shared_wi.weight", 1), "shared_wo": ("shared_wo.weight", 1)}
 
 
 def _to_port(arr, n_in: int):
-    """One layer's reference leaf -> the port's parameter (see MIXER_LEAVES)."""
+    """One layer's reference leaf -> the port's parameter (see MIXER_LEAVES
+    and MOE_LEAVES)."""
     if not n_in:
         return arr
     return arr.reshape(math.prod(arr.shape[:n_in]), -1).T.contiguous()
@@ -88,8 +93,9 @@ def state_from_tree(cfg, tree) -> dict:
         for j, leaf in enumerate(layers):
             leaf = dict(leaf)
             norms = {n: leaf.pop(n) for n in ("ln1", "ln2") if n in leaf}
+            ffn_table = MOE_LEAVES if pattern[j].moe else FFN_LEAVES
             groups = {g: (dict(leaf.pop(g, {})), table)
-                      for g, table in (("mixer", MIXER_LEAVES), ("ffn", FFN_LEAVES))}
+                      for g, table in (("mixer", MIXER_LEAVES), ("ffn", ffn_table))}
             if leaf:
                 raise ValueError(f"layer leaves left over: {sorted(leaf)}")
             for g, (sub, table) in groups.items():

@@ -27,6 +27,7 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src"))
 
 from _mp import run  # noqa: E402
+from _torch_lm import SAVE_PARAMS, unflatten  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.configs import base as cb  # noqa: E402
 from repro_torch.configs.base import Layer  # noqa: E402
@@ -42,7 +43,7 @@ PROMPTS = (5, 8, 12)
 TOL = 2e-5
 CFG32 = dataclasses.replace(SMOKE, dtype="float32", max_seq=CACHE)
 
-REFERENCE = ALIAS + """
+REFERENCE = ALIAS + SAVE_PARAMS + """
 import dataclasses
 from repro.configs.gemma3_4b import SMOKE
 from repro.models import layers, params as pm, transformer as tf
@@ -51,18 +52,7 @@ from repro.serve import Engine
 TMP = {tmp!r}
 cfg = dataclasses.replace(SMOKE, dtype="float32", max_seq={cache})
 params = pm.materialize(tf.param_specs(cfg), jax.random.PRNGKey(1), jnp.float32)
-flat = {{}}
-def walk(t, path):
-    if isinstance(t, dict):
-        for k, v in t.items():
-            walk(v, path + (k,))
-    elif isinstance(t, (list, tuple)):
-        for i, v in enumerate(t):
-            walk(v, path + (str(i),))
-    else:
-        flat["/".join(path)] = np.asarray(t)
-walk(params, ())
-np.savez(TMP + "/params.npz", **flat)
+save_params(params, TMP + "/params.npz")
 
 tokens = jnp.asarray(np.load(TMP + "/tokens.npy"), jnp.int32)
 h, _, _ = tf.fwd(params, cfg, tokens, mode="train", remat="none")
@@ -104,26 +94,6 @@ print("OK")
 """
 
 
-def _unflatten(flat) -> dict:
-    """``{"stacks/0/layers/0/mixer/wq": a, ...}`` -> the nested tree."""
-    tree: dict = {}
-    for key in flat.files:
-        *path, leaf = key.split("/")
-        node = tree
-        for p in path:
-            node = node.setdefault(p, {})
-        node[leaf] = flat[key]
-
-    def lists(n):
-        if not isinstance(n, dict):
-            return n
-        if n and all(k.isdigit() for k in n):
-            return [lists(n[str(i)]) for i in range(len(n))]
-        return {k: lists(v) for k, v in n.items()}
-
-    return lists(tree)
-
-
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("torch_gemma3")
@@ -134,7 +104,7 @@ def reference(tmp_path_factory):
     np.save(tmp / "xr.npy", rng.randn(2, 6, 3, 16).astype(np.float32))
     run(REFERENCE.format(tmp=str(tmp), t=T, tg=TG, new=NEW, cache=CACHE, prompts=PROMPTS),
         ndev=1)
-    tree = _unflatten(np.load(tmp / "params.npz"))
+    tree = unflatten(np.load(tmp / "params.npz"))
     model = Model(CFG32, convert.params_from_reference(CFG32, tree), device="cpu")
     return tmp, tree, model
 
@@ -282,15 +252,27 @@ def test_convert_maps_the_attention_and_ffn_leaves(reference):
 
 
 def test_what_the_attention_does_not_take_raises(reference):
+    """Cross-attention and non-causal layers raise; an MoE layer needs a
+    MoECfg (gemma3's SMOKE has none) and builds with one; an attention layer
+    without an FFN and the int8 KV cache build."""
     _, _, model = reference
     tokens = torch.zeros(1, 4, dtype=torch.long)
-    for layer in (Layer(mixer="attn", cross=True), Layer(mixer="swa", window=4, moe=True),
-                  Layer(mixer="attn", causal=False), Layer(mixer="attn", ffn=False)):
+    for layer in (Layer(mixer="attn", cross=True), Layer(mixer="attn", causal=False)):
         cfg = dataclasses.replace(CFG32, stacks=(((layer,), 1),))
         with pytest.raises(NotImplementedError, match="Queue A"):
             tf.param_specs(cfg)
-    with pytest.raises(NotImplementedError, match="kv_quant"):
-        tf.param_specs(dataclasses.replace(CFG32, kv_quant=True))
+    moe_cfg = dataclasses.replace(CFG32, stacks=(((Layer(mixer="swa", window=4, moe=True),), 1),))
+    with pytest.raises(ValueError, match="MoECfg"):
+        tf.param_specs(moe_cfg)
+    moe_cfg = dataclasses.replace(moe_cfg, moe=cb.MoECfg(n_experts=4, top_k=2, d_ff=32))
+    assert set(tf.param_specs(moe_cfg)["stacks"][0]["layers"][0]["ffn"]) == {"router", "wi", "wo"}
+    moe_model = Model(moe_cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    assert torch.isfinite(tf.prefill(moe_model, tokens)[0]).all()
+    bare = dataclasses.replace(CFG32, stacks=(((Layer(mixer="attn", ffn=False),), 1),))
+    assert set(tf.param_specs(bare)["stacks"][0]["layers"][0]) == {"ln1", "mixer"}
+    quant = dataclasses.replace(CFG32, kv_quant=True)
+    assert tf.parameter_shapes(quant) == tf.parameter_shapes(CFG32)
+    assert tf.cache_specs(quant, 1, 8)[0]["mixer"]["k"].dtype == torch.int8
     capped = dataclasses.replace(CFG32, attn_softcap=50.0)
     m = Model(capped, {k: v for k, v in model.state_dict().items()}, device="cpu")
     with pytest.raises(NotImplementedError, match="attn_softcap"):

@@ -32,6 +32,7 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src"))
 
 from _mp import run  # noqa: E402
+from _torch_lm import SAVE_PARAMS, unflatten  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.configs import base as cb  # noqa: E402
 from repro_torch.configs.mamba2_1p3b import CFG, SMOKE  # noqa: E402
@@ -46,7 +47,7 @@ B, T, TP, TG, NEW = 2, 12, 8, 20, 6
 TOL = 2e-5
 CFG32 = dataclasses.replace(SMOKE, dtype="float32", max_seq=24)
 
-REFERENCE = ALIAS + """
+REFERENCE = ALIAS + SAVE_PARAMS + """
 import dataclasses
 from repro.configs.mamba2_1p3b import SMOKE
 from repro.models import params as pm, transformer as tf
@@ -55,18 +56,7 @@ from repro.serve import Engine
 TMP = {tmp!r}
 cfg = dataclasses.replace(SMOKE, dtype="float32", max_seq=24)
 params = pm.materialize(tf.param_specs(cfg), jax.random.PRNGKey(1), jnp.float32)
-flat = {{}}
-def walk(t, path):
-    if isinstance(t, dict):
-        for k, v in t.items():
-            walk(v, path + (k,))
-    elif isinstance(t, (list, tuple)):
-        for i, v in enumerate(t):
-            walk(v, path + (str(i),))
-    else:
-        flat["/".join(path)] = np.asarray(t)
-walk(params, ())
-np.savez(TMP + "/params.npz", **flat)
+save_params(params, TMP + "/params.npz")
 
 tokens = jnp.asarray(np.load(TMP + "/tokens.npy"), jnp.int32)
 h, _, _ = tf.fwd(params, cfg, tokens, mode="train", remat="none")
@@ -99,26 +89,6 @@ print("OK")
 """
 
 
-def _unflatten(flat) -> dict:
-    """``{"stacks/0/layers/0/mixer/in_proj": a, ...}`` -> the nested tree."""
-    tree: dict = {}
-    for key in flat.files:
-        *path, leaf = key.split("/")
-        node = tree
-        for p in path:
-            node = node.setdefault(p, {})
-        node[leaf] = flat[key]
-
-    def lists(n):
-        if not isinstance(n, dict):
-            return n
-        if n and all(k.isdigit() for k in n):
-            return [lists(n[str(i)]) for i in range(len(n))]
-        return {k: lists(v) for k, v in n.items()}
-
-    return lists(tree)
-
-
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("torch_mamba2")
@@ -126,7 +96,7 @@ def reference(tmp_path_factory):
     np.save(tmp / "tokens.npy", rng.randint(0, SMOKE.vocab, (B, T)))
     np.save(tmp / "prompt.npy", rng.randint(0, SMOKE.vocab, (B, TG)))
     run(REFERENCE.format(tmp=str(tmp), tp=TP, t=T, tg=TG, new=NEW), ndev=1)
-    tree = _unflatten(np.load(tmp / "params.npz"))
+    tree = unflatten(np.load(tmp / "params.npz"))
     model = Model(CFG32, convert.params_from_reference(CFG32, tree), device="cpu")
     return tmp, tree, model
 
@@ -240,12 +210,14 @@ def test_generate_sampling_uses_the_generator(reference, tmp_path):
 def test_param_count_from_specs():
     assert CFG.param_count() == 1_344_576_512
     assert cb.get("mamba2-1.3b") is CFG and cb.names() == [
-        "gemma-2b", "gemma3-4b", "llama3.2-1b", "mamba2-1.3b", "starcoder2-15b"]
+        "gemma-2b", "gemma3-4b", "granite-moe-3b-a800m", "jamba-v0.1-52b", "kimi-k2-1t-a32b",
+        "llama3.2-1b", "mamba2-1.3b", "starcoder2-15b"]
     shapes = tf.parameter_shapes(CFG)   # the module skeleton, on the meta device
     assert sum(int(np.prod(s)) for s in shapes.values()) == CFG.param_count()
     assert len(shapes) == 2 + 48 * 9 and CFG.padded_vocab == 50688
+    assert cb.get("jamba-v0.1-52b").name == "jamba-v0.1-52b"
     with pytest.raises(KeyError, match="later slice"):
-        cb.get("jamba-v0.1-52b")
+        cb.get("llama-3.2-vision-90b")
     with pytest.raises(KeyError, match="unknown"):
         cb.get("no-such-model")
 
@@ -288,9 +260,20 @@ def test_materialize_init_laws_and_generator():
 
 
 def test_layers_the_port_lacks_raise():
-    from repro_torch.configs.base import Layer
-    for layer in (Layer(mixer="attn", cross=True), Layer(mixer="mamba", ffn=True),
-                  Layer(mixer="mamba", ffn=False, moe=True)):
-        cfg = dataclasses.replace(CFG32, stacks=(((layer,), 1),))
-        with pytest.raises(NotImplementedError, match="Queue A"):
-            tf.param_specs(cfg)
+    """Cross-attention raises; Mamba layers carry a dense FFN, or an MoE FFN
+    once the config has a MoECfg (mamba2's SMOKE has none: ValueError)."""
+    from repro_torch.configs.base import Layer, MoECfg
+    cfg = dataclasses.replace(CFG32, stacks=(((Layer(mixer="attn", cross=True),), 1),))
+    with pytest.raises(NotImplementedError, match="Queue A"):
+        tf.param_specs(cfg)
+    dense = dataclasses.replace(CFG32, stacks=(((Layer(mixer="mamba", ffn=True),), 1),),
+                                d_ff=32)   # mamba2's SMOKE has d_ff 0
+    assert set(tf.param_specs(dense)["stacks"][0]["layers"][0]) == {"ln1", "mixer", "ln2", "ffn"}
+    moe = dataclasses.replace(CFG32, stacks=(((Layer(mixer="mamba", ffn=False, moe=True),), 1),))
+    with pytest.raises(ValueError, match="MoECfg"):
+        tf.param_specs(moe)
+    moe = dataclasses.replace(moe, moe=MoECfg(n_experts=4, top_k=2, d_ff=16))
+    tokens = torch.zeros(1, 5, dtype=torch.long)
+    for c in (dense, moe):
+        m = Model(c, generator=torch.Generator().manual_seed(0), device="cpu")
+        assert torch.isfinite(tf.prefill(m, tokens)[0]).all()
