@@ -14,7 +14,8 @@ card.  Then it drives these paths through the kernels:
 * the variable-coefficient Poisson solve (``repro_torch.apps.Poisson3D``):
   every method at 18^3 global cells against the reference's iteration
   counts and the NumPy oracle, then mgcg, pipemgcg, Chebyshev multigrid
-  and 100 CG iterations at 514^3 f64 on one rank and on 8 x 258^3;
+  (to 1e-8 on one rank, 20 cycles on 8 x 258^3) and 100 CG iterations at
+  514^3 f64 on one rank and on 8 x 258^3;
 * the staggered Stokes flagship (``repro_torch.apps.Stokes3D``): every
   velocity preconditioner, Schur-CG and Uzawa at 14^3 global cells against
   the reference's iteration counts, the NumPy oracle and the face-kernel
@@ -69,8 +70,9 @@ card.  Then it drives these paths through the kernels:
   center on these paths join their entries of the kernels line
   (``launches_slice9``);
 * the example twins and MoE serving (slice 12): each
-  ``examples/torch_*.py`` at its default size in a subprocess (the four
-  started together; each must end with ``OK``); K6 at the head widths 64,
+  ``examples/torch_*.py`` at its default size in a subprocess (the five,
+  the training twin among them, started together; each must end with
+  ``OK``); K6 at the head widths 64,
   128 and 112 (padded to 128) and K7 at the state width 16 against their
   plain versions at the prefill shapes of the models below, timed beside
   the plain versions (and K6 beside SDPA); then, each after its SMOKE width
@@ -84,18 +86,34 @@ card.  Then it drives these paths through the kernels:
   decode ms per token; a granite prefill's and decode step's device time
   by kind and one MoE layer split into its expert GEMMs and its dispatch;
   granite's decode with the int8 KV cache against the bf16 cache's;
+* training (slice 13, phases ``k6_backward`` to ``train_mamba``): K6's
+  float32 backward (``swa_bwd.cu``) against its plain version at
+  llama3.2-1b's training shape, gemma3's window shape, the two example
+  models' shapes and a ragged SMOKE shape (two runs bitwise; K6's output
+  bitwise with and without its LSE), timed beside the plain version and
+  SDPA's backward (a yardstick only); llama3.2-1b whole in float32 set up
+  by ``repro_torch.launch.train`` at 4 x 2048 tokens, its first step's
+  loss, grad_norm and every gradient held against ``use_kernel="ref"``,
+  then 6 steps through ``Trainer.run`` (falling loss, ms a step, tokens/s,
+  peak memory, share of the float32 peak, K6's launches per step against
+  the prediction); a checkpoint restart of the model of
+  ``examples/torch_train_lm.py`` (which runs at its default size with the
+  other twins, phase ``examples``) against an uninterrupted run; a Mamba
+  training step on the card raising (K7 has no backward);
 * the grid across processes (phase ``dist``): the one-process runs
   here, then 8 processes of a gloo group on this card, one block each
   (Heat3D 8 x 256^3 f32 100 steps with hide and without, every block and
   the gathered field bitwise the one-process run, 7 / 1 K1 launches a
-  step per process; Poisson3D mgcg at 8 x 130^3 f64 with the one-process
-  iteration count), 2 gloo processes of 4 blocks (Heat3D bitwise, one
+  step per process; Poisson3D mgcg at 8 x 130^3 f64, its first 8 of 18
+  iterations, against the one-process run), 2 gloo processes of 4 blocks (Heat3D bitwise, one
   TwoPhase3D mgcg step with the one-process count), NCCL with one process
   (Heat3D bitwise), and NCCL across min(cards, 4) cards where the host has
   several.  gloo stages the halos through the host: its times measure no
-  link.  Stokes3D at 14^3 (the ``"stress"`` velocity solve on 8 gloo
-  processes, a Schur solve on 2 gloo processes of 4 blocks, the velocity
-  and Schur solves on the NCCL process) with the reference's counts, and
+  link.  Stokes3D at 14^3 (the ``"stress"`` velocity solve cut to 3 of
+  its 7 iterations on 8 gloo processes, a Schur solve cut to 2 of its 10
+  outer iterations on 2 gloo processes of 4 blocks and on the NCCL process,
+  each against the same cut in one process; the ``"face"`` velocity solve
+  on the NCCL process with the reference's count), and
   Gross-Pitaevskii at 18^3 bitwise on 8, 2 and the NCCL process.  The
   processes' launches join the kernels line (``launches_dist``);
 * last, alone, the port's analyzer (phase ``analysis``): a Poisson3D mgcg
@@ -237,6 +255,13 @@ SOLVER_TOL = {torch.float32: 1e-6, torch.float64: 1e-12}   # normwise: |k - p| <
 OMEGA = 6.0 / 7.0
 # the reference's iteration counts at Poisson3D(nx=10, dims=(2,2,2)) f64, tol 1e-8
 # (tests/test_convergence_regression.py pins cg/mgcg/pipecg/pipemgcg)
+MG_CUT_CYCLES = 20   # mg-Chebyshev cycles at 8 x 258^3 (to 1e-8 it takes 876)
+# what those cycles give on an H100 (bitwise across runs): the relres after
+# them, and the mean contraction a cycle over the last 10 of them, at which
+# the solve would reach 1e-8 in 875.5 cycles; the check allows reductions in
+# another order and no other change of the V-cycle
+MG_CUT_RELRES, MG_CUT_RELRES_RTOL = 1.7597633625760127, 1e-6
+MG_CUT_RATE = (0.975, 0.981)   # read: 0.97805
 PATH_ITERATIONS = {
     "dirichlet": {"cg": 54, "mgcg": 12, "pipecg": 55, "pipemgcg": 13, "pt": 167, "mg": 20,
                   "mg-chebyshev": 18},
@@ -448,10 +473,14 @@ def solver_phases(dev, rand) -> list:
             fail(f"{name}: global shape {app.grid.global_shape}")
         # the standalone V-cycle is not grid-independent (1 rank: 24 cycles at
         # 130^3, 44 at 258^3, ~200 at 514^3; slower still on 8 blocks), so mg
-        # gets room for the cycles it takes to reach 1e-8
+        # gets room for the cycles it takes to reach 1e-8 on one block; on 8
+        # blocks (host-bound: 85 s for its 876 cycles) it runs MG_CUT_CYCLES
+        # cycles, to keep the whole script in its budget, held to their
+        # reading (MG_CUT_RELRES, MG_CUT_RATE)
+        mg_kw = (dict(tol=1e-8, maxiter=2000) if cfg["dims"] == (1, 1, 1)
+                 else dict(tol=0.0, maxiter=MG_CUT_CYCLES))
         for method, kw in (("mgcg", dict(tol=1e-8)), ("pipemgcg", dict(tol=1e-8)),
-                           ("mg-chebyshev", dict(tol=1e-8, maxiter=2000)),
-                           ("cg", dict(tol=0.0, maxiter=100))):
+                           ("mg-chebyshev", mg_kw), ("cg", dict(tol=0.0, maxiter=100))):
             torch.cuda.synchronize()
             n0 = launch_counts(sk)
             u, info = solve(app, method, **kw)
@@ -462,10 +491,22 @@ def solver_phases(dev, rand) -> list:
                 fail(f"{name} {method}: relres {info.relres}, recomputed {rn} > {tol}")
             if not math.isfinite(rn):
                 fail(f"{name} {method}: non-finite residual")
+            cut = {}
+            if tol == 0 and method == "mg-chebyshev":
+                h = info.residuals
+                rate = (h[-1] / h[-11]) ** 0.1
+                cut = {"contraction": rate,
+                       "predicted_cycles_to_1e-8": len(h) + math.log(1e-8 / h[-1]) / math.log(rate)}
+                if (info.iterations != MG_CUT_CYCLES
+                        or abs(info.relres / MG_CUT_RELRES - 1) > MG_CUT_RELRES_RTOL
+                        or not MG_CUT_RATE[0] <= rate <= MG_CUT_RATE[1]):
+                    fail(f"{name} {method}: {info.iterations} cycles, relres {info.relres} "
+                         f"(want {MG_CUT_RELRES} to rtol {MG_CUT_RELRES_RTOL}), contraction "
+                         f"{rate} a cycle (want {MG_CUT_RATE})")
             per_it = {k: (n1[k] - n0[k]) / info.iterations for k in n1}
             say("poisson_full", config=name, method=method, iterations=info.iterations,
                 seconds=info.wall_s, ms_per_iteration=1e3 * info.s_per_iter(),
-                t_eff_GBps=app.t_eff(info), relres=info.relres, residual_norm=rn,
+                t_eff_GBps=app.t_eff(info), relres=info.relres, residual_norm=rn, **cut,
                 launches_per_iteration=json.dumps(per_it).replace(" ", ""))
             runs.append((name, method, info.iterations))
             del u
@@ -2586,7 +2627,8 @@ def slice9_phases(sk, full=POISSON_FULL) -> tuple[dict, int]:
 # slice 12: the example twins, and MoE serving (granite, jamba, kimi)
 # ---------------------------------------------------------------------------
 
-EXAMPLES = ("torch_quickstart", "torch_stokes", "torch_twophase", "torch_gross_pitaevskii")
+EXAMPLES = ("torch_quickstart", "torch_stokes", "torch_twophase", "torch_gross_pitaevskii",
+            "torch_train_lm")
 EXAMPLE_LIMIT_S = 300
 JAMBA_RUNS = (("4x2048", 4, 2048, 32),)
 KIMI_RUNS = (("1x1000", 1, 1000, 8),)
@@ -2602,13 +2644,19 @@ MOE_KINDS = (("k6", ("swa_kernel",)), ("k7", ("ssd_chunk_kernel",)),
 
 def examples_phase() -> None:
     """Phase 35: each examples/torch_*.py at its default size on the card,
-    the four in subprocesses started together; each must exit 0 with OK as
-    its last line."""
+    the five in subprocesses started together (the training twin with a
+    fresh checkpoint directory); each must exit 0 with OK as its last
+    line."""
     import os
+    import shutil
+    import tempfile
 
     root = Path(__file__).resolve().parent
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_train_lm_")
+    extra = {"torch_train_lm": ["--ckpt-dir", ckpt]}
     t0 = time.perf_counter()
-    procs = {name: subprocess.Popen([sys.executable, str(root / "examples" / f"{name}.py")],
+    procs = {name: subprocess.Popen([sys.executable, str(root / "examples" / f"{name}.py"),
+                                     *extra.get(name, [])],
                                     cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                     text=True, env=dict(os.environ))
              for name in EXAMPLES}
@@ -2623,12 +2671,13 @@ def examples_phase() -> None:
             if p.poll() is None:
                 p.kill()
                 p.wait()
+        shutil.rmtree(ckpt, ignore_errors=True)
     for name, (text, rc, seconds) in outs.items():
         lines = text.strip().splitlines()
         if rc != 0 or not lines or lines[-1] != "OK":
             fail(f"examples/{name}.py: exit {rc}, output:\n{text[-3000:]}")
         say("examples", example=f"examples/{name}.py", rc=rc, done_after_s=seconds,
-            printed=json.dumps(lines[1:-1]))
+            printed=json.dumps([ln for ln in lines[1:-1] if not ln.startswith("[train]")]))
 
 
 def count_drops(model, run) -> dict:
@@ -2856,6 +2905,337 @@ def moe_phases(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# slice 13: training (phase train)
+# ---------------------------------------------------------------------------
+
+# K6's backward checked against its plain version (B, H, Hkv, T, S, D,
+# window): llama3.2-1b's training shape, gemma3's window layers (ragged T),
+# the two models of examples/torch_train_lm.py, the llama SMOKE width
+K6B_SHAPES = ((4, 32, 8, 2048, 2048, 64, 2048), (2, 8, 4, 1500, 1500, 256, 1024),
+              (8, 6, 2, 128, 128, 64, 128), (8, 12, 4, 256, 256, 64, 256),
+              (2, 8, 2, 13, 13, 8, 13))
+K6B_MAIN = K6B_SHAPES[0]
+K6B_TOL = 1e-5          # dq, dk, dv normwise (Frobenius) against swa_backward_ref, float32
+TRAIN_ARGV = ("--arch", "llama3.2-1b", "--scale", "1.0", "--steps", "6", "--batch", "4",
+              "--seq", "2048")
+# the first step on the kernel path against use_kernel="ref" on the card:
+# float32 both, K6's online softmax and its backward's tile sums against the
+# plain softmax and einsums (other summation orders)
+TRAIN_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "leaf": 1e-4}
+TRAIN_SIZE = (1_236_338_688, 16)   # llama3.2-1b's parameters and layers
+RESTART_STEPS = (10, 15)   # stop and checkpoint at 10, resume to 15
+
+
+def k6b_bound(shape) -> tuple[float, str, float]:
+    """Least time (ms) of K6's backward: q, o, dO, the LSE, k and v read once
+    and dq, dk, dv written once over the memory rate, or 10 D FLOP per
+    unmasked (query, key) pair (the five products S, dP, dV, dK, dQ) over
+    the float32 peak.  Also returns the GFLOP."""
+    B, H, Hkv, T, S, D, window = shape
+    pairs = int(np.minimum(np.arange(T) + (S - T) + 1, min(window, S)).sum())
+    flop = 10 * D * pairs * B * H
+    words = 4 * B * H * T * D + B * H * T + 4 * B * Hkv * S * D
+    t_bytes = words * 4 / HBM_BYTES_PER_S * 1e3
+    t_ops = flop / F32_FLOP_PER_S * 1e3
+    bound = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return (*bound, flop / 1e9)
+
+
+def k6b_phase(kswa, dev) -> dict:
+    """Phase 39 (k6_backward): K6's backward against ``swa_backward_ref`` at
+    every K6B_SHAPES entry (float32; normwise dq, dk, dv; two runs bitwise),
+    K6's float32 forward with and without its LSE output bitwise; then at
+    llama3.2-1b's shape the backward, the plain version and SDPA's float32
+    backward through autograd (the yardstick) timed in turns, and the
+    float32 forward with its LSE beside the plain version and SDPA's
+    forward.  Returns the kernels-line numbers."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.swa import swa_backward_ref, swa_ref
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    main_err = None
+    for shape in K6B_SHAPES:
+        B, H, Hkv, T, S, D, w = shape
+        q, k, v = k6_inputs(shape, torch.float32, gen, dev)
+        do = torch.randn(B, T, H * D, generator=gen, device=dev).view(B, T, H, D).transpose(1, 2)
+        o0 = kswa.swa_attention_cuda(q, k, v, window=w)
+        o, lse = kswa.swa_attention_cuda(q, k, v, window=w, return_lse=True)
+        got = kswa.swa_backward_cuda(q, k, v, o, do, lse, window=w)
+        again = kswa.swa_backward_cuda(q, k, v, o, do, lse, window=w)
+        torch.cuda.synchronize()
+        want = swa_backward_ref(q, k, v, do, window=w)
+        errs = {n: frobenius(a, b) for n, a, b in zip(("dq", "dk", "dv"), got, want)}
+        if not torch.equal(o0, o):
+            fail(f"K6 f32 at {shape}: the output changes when the LSE is written")
+        if any(not torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"K6 backward at {shape}: two runs differ")
+        if max(errs.values()) > K6B_TOL or not all(torch.isfinite(a).all() for a in got):
+            fail(f"K6 backward at {shape}: normwise errors {errs} above {K6B_TOL}")
+        if shape == K6B_MAIN:
+            main_err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        say("k6_backward", shape="x".join(map(str, shape)), dtype="float32",
+            normwise=json.dumps(errs).replace(" ", ""), bitwise_rerun=True, o_with_lse="bitwise")
+        del q, k, v, do, o0, o, lse, got, again, want
+    torch.cuda.empty_cache()
+
+    # timed at llama3.2-1b's training shape, in turns
+    B, H, Hkv, T, S, D, w = K6B_MAIN
+    q, k, v = k6_inputs(K6B_MAIN, torch.float32, gen, dev)
+    do = torch.randn(B, T, H * D, generator=gen, device=dev).view(B, T, H, D).transpose(1, 2)
+    o, lse = kswa.swa_attention_cuda(q, k, v, window=w, return_lse=True)
+    lq, lk, lv = (t.detach().requires_grad_(True) for t in (q, k, v))
+    lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True, enable_gqa=True)
+
+    def sdpa_bwd():
+        torch.autograd.grad(lo, (lq, lk, lv), do, retain_graph=True)
+
+    runs = {"kernel": [], "plain": [], "library": []}
+    for name in ("kernel", "plain", "library", "library", "plain", "kernel"):
+        fn = {"kernel": lambda: kswa.swa_backward_cuda(q, k, v, o, do, lse, window=w),
+              "plain": lambda: swa_backward_ref(q, k, v, do, window=w), "library": sdpa_bwd}[name]
+        runs[name].append(cuda_time_ms(fn, reps=5 if name == "plain" else 10, warm=2))
+    fwd = {"kernel": cuda_time_ms(lambda: kswa.swa_attention_cuda(q, k, v, window=w,
+                                                                  return_lse=True), reps=10),
+           "plain": cuda_time_ms(lambda: swa_ref(q, k, v, window=w), reps=5),
+           "library": cuda_time_ms(lambda: F.scaled_dot_product_attention(
+               q, k, v, is_causal=True, enable_gqa=True), reps=10)}
+    bound, bound_by, gflop = k6b_bound(K6B_MAIN)
+    fbound, fbound_by, _ = k6_bound(K6B_MAIN, 4)
+    ms = min(runs["kernel"])
+    say("k6_backward_time", shape="x".join(map(str, K6B_MAIN)), dtype="float32",
+        ms_runs=runs["kernel"], plain_ms_runs=runs["plain"], sdpa_backward_ms_runs=runs["library"],
+        bound_ms=bound, bound_by=bound_by, gflop=gflop, share_of_bound=bound / ms,
+        launches_per_call=3)
+    say("k6_forward_f32_train", shape="x".join(map(str, K6B_MAIN)), with_lse=True,
+        ms=fwd["kernel"], plain_ms=fwd["plain"], sdpa_ms=fwd["library"], bound_ms=fbound,
+        bound_by=fbound_by, share_of_bound=fbound / fwd["kernel"])
+    del q, k, v, do, o, lse, lq, lk, lv, lo
+    torch.cuda.empty_cache()
+    return {"name": "swa_backward", "route": "cuda",
+            "source": "src/repro_torch/kernels/swa/csrc/swa_bwd.cu",
+            "replaces": "src/repro/kernels/swa/kernel.py:129",
+            "pallas_counterpart": "none: the reference differentiates its plain attention; "
+                                  "this is the backward of K6, whose pallas_call is that line",
+            "launches": 0, "max_abs_err": main_err, "ms": ms, "plain_ms": min(runs["plain"]),
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": min(runs["library"]),
+            "f32_forward_train": {"ms": fwd["kernel"], "plain_ms": fwd["plain"],
+                                  "library_ms": fwd["library"], "bound_ms": fbound}}
+
+
+def train_compare(run, kswa) -> dict:
+    """The first step's loss, grad_norm and every gradient leaf on the
+    kernel path against use_kernel="ref" on the card, from the launcher's
+    parameters and its step-0 batch."""
+    import dataclasses
+
+    from repro_torch import optim
+    from repro_torch.train import value_and_grad
+
+    batch = run.data.batch_at(0)
+    out = {}
+    for route in ("auto", "ref"):
+        f0 = kswa.swa_attention_cuda.launches
+        loss, _, grads = value_and_grad(run.params, run.cfg,
+                                        dataclasses.replace(run.tcfg, use_kernel=route), batch)
+        out[route] = (float(loss), float(optim.global_norm(grads)), grads,
+                      kswa.swa_attention_cuda.launches - f0)
+        del grads
+    (lk, nk, gk, fk), (lr, nr, gr, fr) = out["auto"], out["ref"]
+    if fk == 0 or fr != 0:
+        fail(f"train: the kernel path launched K6 {fk} times, the plain path {fr}")
+    leaf = {n: frobenius(gk[n], gr[n]) for n in gr}
+    worst = max(leaf, key=leaf.get)
+    errs = {"loss": abs(lk - lr) / abs(lr), "grad_norm": abs(nk - nr) / nr, "leaf": leaf[worst]}
+    if any(errs[k] > TRAIN_TOL[k] for k in errs) or not (math.isfinite(lk) and nk > 0):
+        fail(f"train: kernel path vs plain path {errs} (worst leaf {worst}), tolerances "
+             f"{TRAIN_TOL}")
+    say("train_vs_plain", model="llama3.2-1b", step=0, loss_kernel=lk, loss_plain=lr,
+        grad_norm_kernel=nk, grad_norm_plain=nr, rel_err=json.dumps(errs).replace(" ", ""),
+        worst_leaf=worst, leaves=len(leaf), tolerances=json.dumps(TRAIN_TOL).replace(" ", ""))
+    del out, gk, gr
+    torch.cuda.empty_cache()
+    return errs
+
+
+TRAIN_KINDS = (("k6_backward", ("swa_bwd",)), ("k6_forward", ("swa_kernel",)),
+               ("matmul", ("gemm", "Gemm", "gemv", "nvjet", "xmma", "cutlass")),
+               ("reduce", ("reduce",)), ("copy", ("copy", "Copy", "Memcpy", "cat")),
+               ("elementwise", ("elementwise", "Elementwise")))
+
+
+def train_split(run, step: int) -> dict:
+    """One more step (after the counted ones) split by the host clock into
+    the loss and its gradients, and the AdamW update (each synchronised),
+    and one step's device time by kind from the profiler."""
+    from repro_torch import optim
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import schedule
+    from repro_torch.train import value_and_grad
+
+    batch = run.data.batch_at(step)
+    t0 = time.perf_counter()
+    _, _, grads = value_and_grad(run.params, run.cfg, run.tcfg, batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    lr = schedule.warmup_cosine(run.opt_state["step"], warmup=run.tcfg.warmup,
+                                total=run.tcfg.total_steps)
+    optim.update(grads, run.opt_state, run.params, run.tcfg.opt, lr_scale=lr,
+                 layout=tf.reference_layout(run.cfg))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    del grads
+    kinds = categories(lambda: run.trainer.train_step(run.params, run.opt_state, batch), 1,
+                       TRAIN_KINDS)
+    return {"loss_and_grad_ms": (t1 - t0) * 1e3, "adamw_update_ms": (t2 - t1) * 1e3,
+            **{k.replace("iteration", "step"): v for k, v in kinds.items()}}
+
+
+def train_llama(kswa) -> dict:
+    """Phase 40 (train_llama): llama3.2-1b whole (16 layers, d 2048,
+    1,236,338,688 parameters, float32) set up by the launcher at batch
+    4 x 2048 (AdamW lr 5e-4, remat "full", float32 moments), its first
+    step held against the plain path, then 6 steps through ``Trainer.run``.
+    K6's launches per step must be the prediction: every layer's forward
+    twice (once more when "full" recomputes it in the backward), its
+    backward once."""
+    from repro_torch.launch import train as launch
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = launch.build(list(TRAIN_ARGV))
+    n_params, layers = run.cfg.param_count(), run.cfg.n_layers
+    if (n_params, layers) != TRAIN_SIZE:
+        fail(f"train: llama3.2-1b has {n_params} parameters in {layers} layers")
+    setup_s = time.perf_counter() - t0
+    errs = train_compare(run, kswa)
+    steps, B, T = run.args.steps, run.args.batch, run.args.seq
+    kswa.swa_attention_cuda.launches = kswa.swa_backward_cuda.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run.params, run.opt_state, hist = run.trainer.run(run.params, run.opt_state, steps)
+    torch.cuda.synchronize()
+    fwd, bwd = kswa.swa_attention_cuda.launches, kswa.swa_backward_cuda.launches
+    predicted = (2 * layers * steps, layers * steps)
+    if (fwd, bwd) != predicted:
+        fail(f"train: K6 forward/backward launched {fwd}/{bwd} times in {steps} steps, "
+             f"predicted {predicted}")
+    if len(hist) != steps or not all(map(math.isfinite, hist)) or not hist[-1] < hist[0]:
+        fail(f"train: losses {hist} (the last must be below the first)")
+    step_ms = float(np.median(run.trainer.step_s[1:5])) * 1e3
+    split = train_split(run, steps)
+    pairs = T * (T + 1) // 2
+    flop = 6 * n_params * B * T + 12 * run.cfg.head_dim * run.cfg.n_heads * pairs * B * layers
+    say("train_llama", model="llama3.2-1b", params=n_params, layers=layers, batch=B, seq=T,
+        dtype="float32", remat=run.tcfg.remat, moments=run.tcfg.opt.moments, losses=hist,
+        step_ms_median_2_5=step_ms, step_ms=[s * 1e3 for s in run.trainer.step_s],
+        tokens_per_s=B * T / (step_ms / 1e3),
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+        model_tflop_per_step=flop / 1e12, share_of_f32_peak=flop / (step_ms / 1e3) / F32_FLOP_PER_S,
+        k6_forward_launches=fwd, k6_backward_launches=bwd,
+        k6_launches_per_step=f"{fwd // steps}/{bwd // steps}", predicted_per_step=
+        f"{predicted[0] // steps}/{predicted[1] // steps}", setup_s=setup_s, **split)
+    del run
+    torch.cuda.empty_cache()
+    return {"forward": fwd, "backward": bwd, **errs}
+
+
+def train_restart(dev) -> tuple[int, int]:
+    """Phase 41 (train_restart): examples/torch_train_lm.py's quick model
+    (its own run, which must end with OK, is phase 35's): 10 steps and a
+    checkpoint, a new Trainer that resumes to 15, against 15 steps without
+    a stop.  Returns K6's forward and backward launches of these runs."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch_train_lm as ex
+
+    from repro_torch import optim
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.kernels.swa import kernel as kswa
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import Trainer, make_train_step
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    stop, total = RESTART_STEPS
+    cfg, tcfg = ex.model_cfg(False), ex.train_cfg(total)
+    f0, b0 = kswa.swa_attention_cuda.launches, kswa.swa_backward_cuda.launches
+
+    def trainer(ckpt):
+        data = SyntheticLMData(vocab=cfg.vocab, batch=16, seq=128, seed=0, device=dev.type)
+        return Trainer(cfg=cfg, train_step=make_train_step(cfg, tcfg), data=data,
+                       ckpt_dir=ckpt, log_every=1000)
+
+    def start():
+        params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0), torch.float32,
+                                dev)
+        return params, optim.init(params, tcfg.opt, layout=tf.reference_layout(cfg))
+
+    t0 = time.perf_counter()
+    p_full, _, h_full = trainer(None).run(*start(), total)
+    ckpt = os.path.join(tmp, "restart")
+    _, _, h1 = trainer(ckpt).run(*start(), stop)
+    tr = trainer(ckpt)
+    params, opt, s0 = tr.restore_or_init(*start())
+    p_res, _, h2 = tr.run(params, opt, total - s0, step0=s0)
+    got, want = np.asarray(h1 + h2), np.asarray(h_full)
+    bitwise = bool(np.array_equal(got, want)) and all(torch.equal(p_res[k], p_full[k])
+                                                      for k in p_full)
+    rel = float(np.abs(got - want).max() / np.abs(want).max()) if len(got) == len(want) else 1.0
+    if s0 != stop or len(got) != total or rel > 1e-6:
+        fail(f"train restart: resumed at {s0}, losses {got} against {want}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    launches = (kswa.swa_attention_cuda.launches - f0, kswa.swa_backward_cuda.launches - b0)
+    say("train_restart", model=cfg.name, stop=stop, total=total, resumed_at=s0,
+        losses_bitwise=bitwise, max_rel_diff=rel, seconds=time.perf_counter() - t0,
+        k6_launches=f"{launches[0]}/{launches[1]}")
+    return launches
+
+
+def mamba_train_refused(dev) -> None:
+    """Phase 42 (train_mamba): a loss-and-backward step of the mamba2 SMOKE
+    config on the card raises: K7 has no backward kernel yet."""
+    import dataclasses
+
+    from repro_torch.configs.mamba2_1p3b import SMOKE
+    from repro_torch.models import transformer as tf
+
+    cfg = dataclasses.replace(SMOKE, dtype="float32")
+    params = {k: v.requires_grad_(True) for k, v in tf.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), torch.float32, dev).items()}
+    tokens = torch.randint(0, cfg.vocab, (2, 16), device=dev)
+    try:
+        loss, _ = tf.loss_fn(params, cfg, {"tokens": tokens, "labels": tokens})
+        torch.autograd.grad(loss, list(params.values()))
+    except NotImplementedError as e:
+        say("train_mamba", model=cfg.name, status="raised", message=repr(str(e)[:80]))
+        return
+    fail("train: mamba2 SMOKE trained on the card, where K7 has no backward kernel")
+
+
+def train_phases(dev) -> dict:
+    """Phases 39-42 (slice 13: training).  Returns the K6 backward's entry of
+    the kernels line, its launches those of llama3.2-1b's 6 steps, and the
+    forward launches of training (llama and the restart check)."""
+    from repro_torch.kernels.swa import kernel as kswa
+
+    examples = str(Path(__file__).resolve().parent / "examples")
+    if examples not in sys.path:
+        sys.path.insert(0, examples)
+    t0 = time.perf_counter()
+    entry = k6b_phase(kswa, dev)
+    llama = train_llama(kswa)
+    restart = train_restart(dev)
+    mamba_train_refused(dev)
+    entry["launches"] = llama["backward"]
+    entry["launches_restart_check"] = restart[1]
+    say("slice13", seconds=time.perf_counter() - t0, k6_forward_launches_train=llama["forward"],
+        k6_backward_launches_train=llama["backward"], elapsed_s=time.perf_counter() - T_START)
+    return {"entry": entry, "k6_forward": llama["forward"] + restart[0]}
+
+
+# ---------------------------------------------------------------------------
 # slice 10: the grid across processes (phase dist)
 # ---------------------------------------------------------------------------
 
@@ -2915,8 +3295,9 @@ def dist_heat(hide, gather: bool = False) -> dict:
 
 
 def dist_poisson() -> dict:
-    """Poisson3D mgcg at 8 x 130^3 f64 to 1e-8: iterations, history, the
-    K2-K5 launches of this process and ms per iteration."""
+    """Poisson3D mgcg at 8 x 130^3 f64, its first DIST_MGCG_CUT iterations
+    (of the 18 it takes to 1e-8): iterations, history, the K2-K5 launches
+    of this process and ms per iteration."""
     from repro_torch.apps import Poisson3D
     from repro_torch.core import comm
     from repro_torch.kernels import solver3d as sk
@@ -2924,7 +3305,7 @@ def dist_poisson() -> dict:
     app = Poisson3D(**DIST_POISSON)
     comm.barrier()
     zero_counts(sk)
-    u, info = app.solve("mgcg", tol=1e-8)
+    u, info = app.solve("mgcg", tol=0.0, maxiter=DIST_MGCG_CUT)
     comm.barrier()
     return {"iterations": info.iterations, "residuals": [float(v) for v in info.residuals],
             "relres": info.relres, "launches": launch_counts(sk),
@@ -2952,17 +3333,23 @@ def dist_twophase() -> dict:
 
 
 DIST_STOKES = dict(nx=8, ny=8, nz=8, dims=(2, 2, 2))            # 14^3 f64, 2x2x2 blocks
-DIST_STOKES_VELOCITY = {"stress": 7, "face": 17}    # the reference's iterations at 14^3
-DIST_STOKES_SCHUR = (10, 84)                        # Schur-CG "stress": outer, inner
+# iterations of the dist phase's velocity solves at 14^3: "face" to 1e-8 (the
+# reference's 17), "stress" cut to the first 3 of its 7, and of its mgcg
+# solve at 8 x 130^3, cut to the first 8 of its 18 (the group runs are
+# host-bound: 17.8 s and 14 s on 8 gloo processes in run B of PR 27)
+DIST_STOKES_VELOCITY = {"stress": 3, "face": 17}
+DIST_MGCG_CUT = 8
+DIST_SCHUR_CUT = 2   # the group runs' Schur solve stops after 2 of its 10 outer iterations
 DIST_GP = dict(nx=10, ny=10, nz=10, dims=(2, 2, 2))                # 18^3 complex64
 DIST_GP_STEPS = 10
 DIST_F5 = 1e-10   # fields relative to their largest value (F5: partial sums in another order)
 
 
 def dist_stokes_velocity(precond: str) -> dict:
-    """A Stokes3D velocity solve at 14^3 f64 (tol 1e-8): iterations,
-    history, the gathered velocity and this process's face K2-K5
-    launches."""
+    """A Stokes3D velocity solve at 14^3 f64 (tol 1e-8, or the first
+    DIST_STOKES_VELOCITY iterations where that is fewer than the
+    reference's): iterations, history, the gathered velocity and this
+    process's face K2-K5 launches."""
     from repro_torch import fields
     from repro_torch.apps import Stokes3D
     from repro_torch.kernels import solver3d as sk
@@ -2970,7 +3357,9 @@ def dist_stokes_velocity(precond: str) -> dict:
     app = Stokes3D(**DIST_STOKES)
     before = face_counts(sk)
     t0 = time.perf_counter()
-    V, info = app.velocity_solve(precond=precond, tol=1e-8)
+    cut = precond == "stress"
+    V, info = app.velocity_solve(precond=precond, tol=0.0 if cut else 1e-8,
+                                 maxiter=DIST_STOKES_VELOCITY[precond] if cut else 2000)
     return {"precond": precond, "iterations": info.iterations,
             "ms": (time.perf_counter() - t0) * 1e3,
             "residuals": [float(v) for v in info.residuals],
@@ -2979,14 +3368,16 @@ def dist_stokes_velocity(precond: str) -> dict:
 
 
 def dist_stokes_schur() -> dict:
-    """A Stokes3D Schur-CG solve (compiled schedule, "stress") at 14^3:
-    counts, the divergence residual and the gathered pressure."""
+    """A Stokes3D Schur-CG solve (compiled schedule, "stress") at 14^3, tol
+    1e-6, cut to its first DIST_SCHUR_CUT outer iterations: counts, the
+    divergence residual and the gathered pressure."""
     from repro_torch import fields
     from repro_torch.apps import Stokes3D
 
     app = Stokes3D(**DIST_STOKES)
     t0 = time.perf_counter()
-    V, P, info = app.solve(tol=1e-6, method="schur", precond="stress")
+    V, P, info = app.solve(tol=1e-6, method="schur", precond="stress",
+                           outer_maxiter=DIST_SCHUR_CUT)
     return {"outer": info.outer_iterations, "inner": info.inner_iterations,
             "relres_div": info.relres_div, "relres_momentum": info.relres_momentum,
             "ms": (time.perf_counter() - t0) * 1e3, "P": fields.gather(P).tolist()}
@@ -3017,7 +3408,7 @@ DIST_CHECKS = {
     "twophase": dist_twophase,
     "stokes_stress": lambda: dist_stokes_velocity("stress"),
     "stokes_face": lambda: dist_stokes_velocity("face"),
-    "stokes_schur": dist_stokes_schur,
+    "stokes_schur_cut": dist_stokes_schur,
     "gp": dist_gp,
 }
 
@@ -3104,13 +3495,15 @@ def dist_phase(card: str) -> dict:
     """Phase 33 (dist): the grid across processes on this host.  The
     one-process runs first, in this process (no group); then 8 gloo
     processes of one block each (Heat3D hide and plain bitwise, the
-    gathered field bitwise, mgcg counts, the Stokes3D "stress" velocity
-    solve with the reference's count and F5's tolerance, GP bitwise), NCCL
-    with one process of 8 blocks (Heat3D, the Stokes3D velocity solves and
-    GP bitwise against this process; the Stokes3D Schur solve with the
-    reference's counts), 2 gloo processes of 4 blocks (Heat3D bitwise, a
-    TwoPhase3D mgcg step's counts, the Schur solve's counts and pressure
-    within F5's tolerance of the NCCL process's, GP bitwise), and NCCL
+    gathered field bitwise, the first DIST_MGCG_CUT mgcg iterations' counts,
+    the Stokes3D "stress" velocity solve's first DIST_STOKES_VELOCITY
+    iterations within F5's tolerance, GP bitwise), NCCL
+    with one process of 8 blocks (Heat3D, the Stokes3D velocity solves,
+    the Schur solve cut to its first DIST_SCHUR_CUT outer iterations and GP
+    bitwise against this process), 2 gloo processes of 4 blocks (Heat3D
+    bitwise, a TwoPhase3D mgcg step's counts, the cut Schur solve's counts
+    and pressure within F5's tolerance of this process's, GP bitwise), and
+    NCCL
     across min(cards, 4)
     cards where there are several.  Returns K1's, K2-K5's, shifted and
     face K2-K5's launches in the group runs (summed over the processes;
@@ -3119,11 +3512,9 @@ def dist_phase(card: str) -> dict:
     import tempfile
 
     t_phase = time.perf_counter()
-    # the Schur solve's one-process run is the NCCL process's (a group of
-    # one process is this process's arithmetic: checked bitwise below)
-    one = {name: fn() for name, fn in DIST_CHECKS.items() if name != "stokes_schur"}
+    one = {name: fn() for name, fn in DIST_CHECKS.items()}
     for name, precond in (("stokes_stress", "stress"), ("stokes_face", "face")):
-        if one[name]["iterations"] != DIST_STOKES_VELOCITY[precond]:
+        if one[name]["iterations"] != DIST_STOKES_VELOCITY[precond]:   # "face": the reference's
             fail(f"dist one process: Stokes velocity {precond} took {one[name]['iterations']} "
                  f"iterations, the reference {DIST_STOKES_VELOCITY[precond]}")
     torch.cuda.synchronize()
@@ -3185,13 +3576,14 @@ def dist_phase(card: str) -> dict:
                     if not close(g["fields"][k], w, bitwise):
                         fail(f"dist {where}: Stokes {name} {k} of rank {r} differs from one "
                              "process")
-            if "stokes_schur" in res:
-                g = res["stokes_schur"]
-                if (g["outer"], g["inner"]) != DIST_STOKES_SCHUR:
-                    fail(f"dist {where}: Schur counts of rank {r} {g['outer']}/{g['inner']}, "
-                         f"the reference {DIST_STOKES_SCHUR}")
-                if "stokes_schur" in one and not close(g["P"], one["stokes_schur"]["P"], False):
-                    fail(f"dist {where}: Schur pressure of rank {r} differs from one process")
+            if "stokes_schur_cut" in res:   # the first DIST_SCHUR_CUT outer iterations
+                g, want = res["stokes_schur_cut"], one["stokes_schur_cut"]
+                if (g["outer"], g["inner"]) != (want["outer"], want["inner"]) \
+                        or g["outer"] != DIST_SCHUR_CUT:
+                    fail(f"dist {where}: cut Schur counts of rank {r} {g['outer']}/{g['inner']}, "
+                         f"one process {want['outer']}/{want['inner']}")
+                if not close(g["P"], want["P"], bitwise):
+                    fail(f"dist {where}: cut Schur pressure of rank {r} differs from one process")
             if "gp" in res and {k: res["gp"][k] for k in ("psi", "V")} \
                     != {k: one["gp"][k] for k in ("psi", "V")}:
                 fail(f"dist {where}: GP of rank {r} differs from one process (bitwise)")
@@ -3250,23 +3642,23 @@ def dist_phase(card: str) -> dict:
             spawn_s=time.perf_counter() - t0)
         # ---- NCCL, one process of 8 blocks --------------------------------
         t0 = time.perf_counter()
-        n1 = dist_spawn(1, "nccl", ("heat_hide", "stokes_stress", "stokes_face", "stokes_schur",
-                                    "gp"), tmp)
+        n1 = dist_spawn(1, "nccl", ("heat_hide", "stokes_stress", "stokes_face",
+                                    "stokes_schur_cut", "gp"), tmp)
         same_heat("heat_hide", n1, "1 nccl")
         same_stokes(n1, "1 nccl", bitwise=True)
-        one["stokes_schur"] = n1[0]["stokes_schur"]
         tally(n1)
         say("dist", config="1 nccl process x 8 blocks", card=repr(card), heat="bitwise",
             stokes_velocity="bitwise", gp="bitwise",
             heat_hide_ms_per_step=n1[0]["heat_hide"]["ms_per_step"],
             heat_hide_ms_per_step_one_process=one["heat_hide"]["ms_per_step"],
-            stokes_schur=f"{n1[0]['stokes_schur']['outer']}/{n1[0]['stokes_schur']['inner']}",
-            stokes_schur_ms=n1[0]["stokes_schur"]["ms"],
+            stokes_schur_cut=f"{n1[0]['stokes_schur_cut']['outer']}/"
+                             f"{n1[0]['stokes_schur_cut']['inner']}",
+            stokes_schur_cut_ms=n1[0]["stokes_schur_cut"]["ms"],
             face_launches=json.dumps(n1[0]["stokes_face"]["face_launches"]).replace(" ", ""),
             spawn_s=time.perf_counter() - t0)
         # ---- 2 gloo processes, 4 blocks each --------------------------------
         t0 = time.perf_counter()
-        g2 = dist_spawn(2, "gloo", ("heat_hide", "twophase", "stokes_schur", "gp"), tmp)
+        g2 = dist_spawn(2, "gloo", ("heat_hide", "twophase", "stokes_schur_cut", "gp"), tmp)
         same_heat("heat_hide", g2, "2 gloo")
         same_counts("twophase", g2, "2 gloo")
         same_stokes(g2, "2 gloo")
@@ -3282,9 +3674,10 @@ def dist_phase(card: str) -> dict:
             twophase_ms_per_step=max(r["twophase"]["ms_per_step"] for r in g2),
             twophase_ms_per_step_one_process=one["twophase"]["ms_per_step"],
             k2_k5_launches_per_process=json.dumps(g2[0]["twophase"]["launches"]).replace(" ", ""),
-            stokes_schur=f"{g2[0]['stokes_schur']['outer']}/{g2[0]['stokes_schur']['inner']}",
-            stokes_schur_ms=max(r["stokes_schur"]["ms"] for r in g2),
-            stokes_schur_ms_one_process=one["stokes_schur"]["ms"], gp="bitwise",
+            stokes_schur_cut=f"{g2[0]['stokes_schur_cut']['outer']}/"
+                             f"{g2[0]['stokes_schur_cut']['inner']}",
+            stokes_schur_cut_ms=max(r["stokes_schur_cut"]["ms"] for r in g2),
+            stokes_schur_cut_ms_one_process=one["stokes_schur_cut"]["ms"], gp="bitwise",
             spawn_s=time.perf_counter() - t0)
         # ---- NCCL across cards -------------------------------------------
         cards = torch.cuda.device_count()
@@ -3316,6 +3709,7 @@ ANALYSIS_POISSON = dict(nx=130, ny=130, nz=130, dims=(2, 2, 2))    # 8 x 130^3 f
 CELL_LAUNCHES: set = set()   # (kernel, nb, nx, ny, nz) of every K1-K5 launch of this process
 SWA_LAUNCHES: set = set()    # (dtype code, B, H, T) of every K6 launch of this process
 SSD_LAUNCHES: set = set()    # (dtype code, Ba, T, H, G, N, P, L) of every K7 launch
+SWA_BWD_LAUNCHES: set = set()   # (B, H, Hkv, T, S, D) of every launch of K6's backward
 
 
 def record_launch_shapes() -> None:
@@ -3335,8 +3729,8 @@ def record_launch_shapes() -> None:
 
     sk3.cell_plan = hk.cell_plan = recording
 
-    def record_entry(module, shapes: set, shape):
-        entry = module._entry
+    def record_entry(module, shapes: set, shape, attr: str = "_entry"):
+        entry = getattr(module, attr)
 
         def recorded():
             fn = entry()
@@ -3347,12 +3741,14 @@ def record_launch_shapes() -> None:
                     shapes.add(shape(args))
                 return err
             return launch
-        module._entry = recorded
+        setattr(module, attr, recorded)
 
     # the C entry points' arguments: K6 (code, q, k, v, o, B, H, Hkv, T, ...),
-    # K7 (code, x, B, C, dt, s, y, states, Ba, T, H, G, N, P, L, ...)
+    # K7 (code, x, B, C, dt, s, y, states, Ba, T, H, G, N, P, L, ...), K6's
+    # backward (q, k, v, o, dO, lse, drow, dq, dk, dv, B, H, Hkv, T, S, D, ...)
     record_entry(kswa, SWA_LAUNCHES, lambda a: (a[0], a[5], a[6], a[8]))
     record_entry(kssd, SSD_LAUNCHES, lambda a: (a[0], *a[8:15]))
+    record_entry(kswa, SWA_BWD_LAUNCHES, lambda a: tuple(a[10:16]), attr="_bwd_entry")
 
 
 def kernel_counters() -> dict:
@@ -3368,6 +3764,7 @@ def kernel_counters() -> dict:
     for w in (kswa.swa_attention_cuda, kssd.ssd_intra_chunk_cuda):
         out[w.__name__] = w.launches
         out[f"{w.__name__}.tc"] = w.tc_launches
+    out["swa_backward_cuda"] = kswa.swa_backward_cuda.launches
     return out
 
 
@@ -3377,9 +3774,10 @@ def analysis_phase(card: str) -> dict:
     solve: the same iterate (SHA-256), iterations and K2-K5 launches.  The
     sweep's 21 one-process targets with the apps on the card (every kernel
     route "cuda": launch plans recorded, nothing launched): every target
-    clean and every launch counter unchanged.  Then the launch plans of K1-K7 at every shape
-    this process launched: each covers its output once, and K6's and K7's
-    equal their C entry points' own.  Returns the phase's numbers."""
+    clean and every launch counter unchanged.  Then the launch plans of K1-K7 and K6's
+    backward at every shape this process launched: each covers its output
+    once, and K6's, its backward's and K7's equal their C entry points'
+    own.  Returns the phase's numbers."""
     import hashlib
 
     from repro_torch.analysis import driver, launchgrid
@@ -3433,6 +3831,14 @@ def analysis_phase(card: str) -> dict:
             fail(f"analysis: K6 plan at {(code, B, H, T)}: python {py.grid, py.block, py.tile}, "
                  f"C {c}")
         n_plans += 1
+    for shape in sorted(SWA_BWD_LAUNCHES):
+        py = plans.swa_bwd_plans(*shape)
+        c = kswa.bwd_c_plan(*shape)
+        if (tuple((p.grid[0], p.grid[1], p.block[0], p.tile[2]) for p in py) != c
+                or any(launchgrid.check_plan(p) for p in py)):
+            fail(f"analysis: K6 backward plans at {shape}: python "
+                 f"{[(p.grid, p.block, p.tile) for p in py]}, C {c}")
+        n_plans += len(py)
     codes = {v: k for k, v in kssd.DTYPE_CODES.items()}
     for code, Ba, T, H, G, N, P, L in sorted(SSD_LAUNCHES):
         tc = kssd.kernel_for(codes[code], N, P) == kssd.KERNELS[1]
@@ -3632,6 +4038,12 @@ def main() -> int:
     swa["launches"] += sum(swa["launches_moe"].values())
     ssd["launches_moe"] = {"jamba": moe["jamba"]["k7"]}
     ssd["launches"] += moe["jamba"]["k7"]
+    # training (slice 13): K6's float32 forward launches of llama3.2-1b's
+    # steps and the restart check join its entry; its backward has its own
+    torch.cuda.empty_cache()
+    train = train_phases(dev)
+    swa["launches_train"] = train["k6_forward"]
+    swa["launches"] += train["k6_forward"]
     # the processes of the dist phase: Heat3D's K1, Poisson's K2-K5 and the
     # two-phase step's shifted K2-K5, summed over the processes
     dist = dist_phase(card)
@@ -3654,7 +4066,7 @@ def main() -> int:
         e["launches_dist"] = dist["face"][op]
 
     print(json.dumps({"kernels": [k1] + solver_entries + face_entries + ssd_entries
-                      + swa_entries + shift_entries}))
+                      + swa_entries + shift_entries + [train["entry"]]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

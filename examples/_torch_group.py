@@ -31,12 +31,17 @@ def say(*args) -> None:
         print(*args, flush=True)
 
 
-def add_common(ap) -> None:
-    """The twins' shared options: device, kernel path, group backend."""
+def add_device(ap) -> None:
+    """The options every twin takes: device and kernel path."""
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cuda: the card (the kernels); cpu: the plain PyTorch path")
     ap.add_argument("--kernel", default="auto", choices=["auto", "cuda", "ref"],
                     help="auto: the kernel on a CUDA tensor, the plain version on the CPU")
+
+
+def add_common(ap) -> None:
+    """The grid twins' shared options: device, kernel path, group backend."""
+    add_device(ap)
     ap.add_argument("--backend", default=None, choices=["gloo", "nccl"],
                     help="process-group backend under torchrun (default gloo)")
     ap.add_argument("--dims", default=None, metavar="X,Y,Z",

@@ -1,0 +1,5 @@
+"""Synthetic language-model data (the JAX package's ``data/``)."""
+
+from .pipeline import SyntheticLMData, batch_logical_axes, batch_specs, synthetic_batch
+
+__all__ = ["SyntheticLMData", "synthetic_batch", "batch_specs", "batch_logical_axes"]

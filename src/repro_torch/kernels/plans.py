@@ -6,11 +6,12 @@
   tiles, z over (x tiles) x blocks of the field.  The wrappers pass
   ``plan.grid`` and ``plan.block`` to the C entry points, which launch
   that grid and refuse a block they were not compiled for.
-* K6 (``swa.cu``) and K7 (``ssd.cu``): the C entry points choose the plan
-  themselves (from the SM count); these functions mirror that choice and
-  the kernels' block -> tile arithmetic, and ``chip_smoke.py`` holds them
-  against the C entry points' ``repro_swa_plan`` / ``repro_ssd_plan`` at
-  every shape it launches.
+* K6 (``swa.cu``), its backward (``swa_bwd.cu``) and K7 (``ssd.cu``): the
+  C entry points choose the plan themselves (from the SM count); these
+  functions mirror that choice and the kernels' block -> tile arithmetic,
+  and ``chip_smoke.py`` holds them against the C entry points'
+  ``repro_swa_plan`` / ``repro_swa_bwd_plan`` / ``repro_ssd_plan`` at every
+  shape it launches.
 """
 
 from __future__ import annotations
@@ -57,6 +58,29 @@ def swa_plan(tensor_cores: bool, B: int, H: int, T: int, sms: int = H100_SMS) ->
                       out_map=out_map)
 
 
+def swa_bwd_plans(B: int, H: int, Hkv: int, T: int, S: int, D: int) -> tuple:
+    """K6's backward over its three outputs: Drow (one warp per row, 8 rows
+    a block), dK/dV (one block per 64 keys of one (batch, kv head)) and dQ
+    (one block per q tile of 64 rows, 32 where D > 128, of one (batch,
+    head))."""
+    bq = 64 if D <= 128 else 32
+
+    def rows_of(heads):
+        return lambda gx, gy, gz: (gy // heads, gy % heads, gx)
+
+    return (
+        LaunchPlan("K6b swa_bwd_drow", grid=(-(-T // 8), B * H, 1), block=(256, 1, 1),
+                   shape=(B, H, T), tile=(1, 1, 8), guard=(False, False, True),
+                   out_map=rows_of(H)),
+        LaunchPlan("K6b swa_bwd_dkdv", grid=(-(-S // 64), B * Hkv, 1), block=(256, 1, 1),
+                   shape=(B, Hkv, S), tile=(1, 1, 64), guard=(False, False, True),
+                   out_map=rows_of(Hkv)),
+        LaunchPlan("K6b swa_bwd_dq", grid=(-(-T // bq), B * H, 1), block=(256, 1, 1),
+                   shape=(B, H, T), tile=(1, 1, bq), guard=(False, False, True),
+                   out_map=rows_of(H)),
+    )
+
+
 def ssd_plan(tensor_cores: bool, Ba: int, T: int, H: int, G: int, L: int,
              sms: int = H100_SMS) -> LaunchPlan:
     """K7 over (batch, chunk, head): the CUDA-core kernel one head of one
@@ -91,6 +115,9 @@ _CELL_SHAPES = ((1, 10, 10, 10), (8, 10, 10, 10), (1, 18, 18, 18), (8, 6, 6, 6),
 # K6 (B, H, T) and K7 (Ba, T, H, G, L): the tests' and the serving paths' shapes
 _SWA_SHAPES = ((2, 4, 64), (1, 8, 32), (1, 4, 16), (1, 2, 64), (1, 8, 1), (1, 8, 5), (1, 8, 50),
                (2, 8, 1500), (1, 8, 333), (6, 8, 333), (17, 8, 5), (4, 8, 2048), (1, 8, 1000))
+# K6's backward (B, H, Hkv, T, S, D): the training paths' shapes
+_SWA_BWD_SHAPES = ((4, 32, 8, 2048, 2048, 64), (2, 8, 4, 1500, 1500, 256), (8, 6, 2, 128, 128, 64),
+                   (8, 12, 4, 256, 256, 64), (2, 8, 2, 13, 13, 8))
 _SSD_SHAPES = ((4, 2048, 64, 1, 64), (1, 1000, 64, 1, 50), (2, 7, 64, 1, 1), (2, 64, 8, 2, 8),
                (2, 20, 8, 1, 5))
 
@@ -108,4 +135,7 @@ def library_plans(sms: int = H100_SMS) -> list[tuple[str, LaunchPlan]]:
         for Ba, T, H, G, L in _SSD_SHAPES:
             out.append((f"K7[{Ba}x{T}x{H},G={G},L={L},tc={tc}]",
                         ssd_plan(tc, Ba, T, H, G, L, sms)))
+    for shape in _SWA_BWD_SHAPES:
+        for plan in swa_bwd_plans(*shape):
+            out.append((f"{plan.kernel}[{'x'.join(map(str, shape))}]", plan))
     return out

@@ -154,7 +154,8 @@ __host__ __device__ inline size_t smem_floats(int D) {
 template <int NC>
 __global__ void __launch_bounds__(kThreads, 1)
 swa_kernel(const float* __restrict__ q, const float* __restrict__ k,
-           const float* __restrict__ v, float* __restrict__ o, Dims d) {
+           const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+           Dims d) {
   extern __shared__ __align__(16) float sm[];
   const int D = d.D, LD = D + 4, LP = kBK + 4;
   float* qs = sm;              // [kBQ][LD]
@@ -289,10 +290,13 @@ swa_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   // ---- out = acc / l (l == 0 divides by 1); rows past T are not written --
+  // lse (when given, for the backward swa_bwd.cu): m + log l per row, (B, H, T)
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     const int i = i0 + ti + 16 * a;
     if (i >= d.T) continue;
+    if (lse != nullptr && tj == 0) lse[static_cast<long long>(blockIdx.y) * d.T + i] =
+        m[a] + logf(l[a]);
     const float den = l[a] == 0.f ? 1.f : l[a];
     float* og = o + b * d.ob + h * d.oh + i * d.ot;
 #pragma unroll
@@ -307,8 +311,8 @@ swa_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int NC>
-int launch(const void* q, const void* k, const void* v, void* o, int B, const Dims& d,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+           const Dims& d, cudaStream_t stream) {
   const size_t bytes = smem_floats(d.D) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(swa_kernel<NC>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -318,21 +322,21 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, const Di
   const dim3 grid(static_cast<unsigned>(pl.gx), static_cast<unsigned>(pl.gy));
   swa_kernel<NC><<<grid, pl.threads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), d);
+      static_cast<float*>(o), lse, d);
   return static_cast<int>(cudaGetLastError());
 }
 
-int run_f32(const void* q, const void* k, const void* v, void* o, int B, const Dims& d,
-        cudaStream_t stream) {
+int run_f32(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+            const Dims& d, cudaStream_t stream) {
   switch ((d.D + 63) / 64) {
     case 1:
-      return launch<1>(q, k, v, o, B, d, stream);
+      return launch<1>(q, k, v, o, lse, B, d, stream);
     case 2:
-      return launch<2>(q, k, v, o, B, d, stream);
+      return launch<2>(q, k, v, o, lse, B, d, stream);
     case 3:
-      return launch<3>(q, k, v, o, B, d, stream);
+      return launch<3>(q, k, v, o, lse, B, d, stream);
     case 4:
-      return launch<4>(q, k, v, o, B, d, stream);
+      return launch<4>(q, k, v, o, lse, B, d, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -741,13 +745,16 @@ int run_tc(const void* q, const void* k, const void* v, void* o, int B, const Di
 // strides of q, k, v and the output, in that order (bfloat16: q, k and v
 // 16-byte aligned, their strides positive multiples of 8 elements, for the
 // TMA tensor maps).  w: the window, at most S.  *kernel
-// is set to the kernel launched (0 CUDA cores, 1 tensor cores).  Returns
+// is set to the kernel launched (0 CUDA cores, 1 tensor cores).  lse: null,
+// or (float32 only) a (B, H, T) float32 buffer that receives each row's
+// log-sum-exp of the scaled logits, for the backward (swa_bwd.cu).  Returns
 // the CUDA error code of the launch (0: launched).
 extern "C" int repro_swa_attention(int dtype, const void* q, const void* k, const void* v,
                                    void* o, int B, int H, int Hkv, int T, int S, int D, int w,
                                    float scale, const long long* strides, void* stream,
-                                   int* kernel) {
-  if (D <= 0 || D > kMaxD || D % 4 != 0 || H % Hkv != 0 || T < 1 || S < T || w < 1)
+                                   int* kernel, void* lse) {
+  if (D <= 0 || D > kMaxD || D % 4 != 0 || H % Hkv != 0 || T < 1 || S < T || w < 1 ||
+      (lse != nullptr && dtype != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   const Dims d{H, Hkv, T, S, D, w, scale,
                strides[0], strides[1], strides[2], strides[3], strides[4], strides[5],
@@ -756,7 +763,7 @@ extern "C" int repro_swa_attention(int dtype, const void* q, const void* k, cons
   switch (dtype) {
     case 0:
       *kernel = 0;
-      return run_f32(q, k, v, o, B, d, st);
+      return run_f32(q, k, v, o, static_cast<float*>(lse), B, d, st);
     case 1:
       *kernel = 1;
       return run_tc(q, k, v, o, B, d, st);

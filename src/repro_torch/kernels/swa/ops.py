@@ -6,7 +6,12 @@ version on a CPU tensor.
 dispatch point; the model's attention calls it for every causal
 self-attention in train and prefill, at any T.  On a CUDA tensor the
 dtype alone then picks K6's kernel: bfloat16 runs on the tensor cores,
-float32 on the CUDA cores.
+float32 on the CUDA cores.  Where grad mode is on and q, k or v requires
+grad (training), the CUDA route is a ``torch.autograd.Function``: K6's
+float32 forward, which also writes the rows' log-sum-exp, and K6's
+backward kernel (``swa_backward_cuda``); bfloat16 raises there (the
+backward kernel is float32).  A CPU tensor keeps ``swa_ref`` and plain
+autograd.
 :func:`sliding_window_attention` is the JAX package's op: the same
 function under the reference op's contract, which raises where its
 Pallas kernel's tiles do not divide T and S.
@@ -14,9 +19,28 @@ Pallas kernel's tiles do not divide T and S.
 
 from __future__ import annotations
 
+import torch
+
 from .. import dispatch
-from .kernel import swa_attention_cuda
+from .kernel import swa_attention_cuda, swa_backward_cuda
 from .ref import swa_ref
+
+
+class _SwaCuda(torch.autograd.Function):
+    """K6 forward and K6 backward, float32 (saves q, k, v, o and the LSE)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window, scale):
+        o, lse = swa_attention_cuda(q, k, v, window=window, scale=scale, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.window, ctx.scale = window, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = swa_backward_cuda(q, k, v, o, do, lse, window=ctx.window, scale=ctx.scale)
+        return dq, dk, dv, None, None
 
 
 def swa_attention(q, k, v, *, window: int, scale: float | None = None,
@@ -25,6 +49,12 @@ def swa_attention(q, k, v, *, window: int, scale: float | None = None,
     (B, Hkv, S, D), the queries the last T of S; see ``ref.swa_ref``."""
     if dispatch.resolve(use_kernel, q, where="swa.swa_attention") == "ref":
         return swa_ref(q, k, v, window=window, scale=scale)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        if q.dtype != torch.float32:
+            raise NotImplementedError(
+                f"swa.swa_attention: K6's backward kernel takes float32, got {q.dtype} with "
+                "gradients required (train in float32, or use_kernel='ref')")
+        return _SwaCuda.apply(q, k, v, window, scale)
     return swa_attention_cuda(q, k, v, window=window, scale=scale)
 
 

@@ -1,0 +1,2 @@
+"""Launchers of the port (the JAX package's ``launch/``): ``train``, the
+training launcher (``python -m repro_torch.launch.train``)."""

@@ -103,6 +103,13 @@ class Block(nn.Module):
             self.ln2 = nn.Parameter(torch.empty(cfg.d_model, **meta), requires_grad=False)
             self.ffn = moe_mod.MoE(cfg) if layer.moe else FFN(cfg)
 
+    def forward(self, x, *, cfg, layer, positions, use_kernel: str = "auto"):
+        """The layer in train mode: (x, aux), what a checkpointed layer of
+        training returns."""
+        x, _, aux = layer_fwd(self, cfg, layer, x, mode="train", positions=positions,
+                              use_kernel=use_kernel)
+        return x, aux
+
 
 def layer_fwd(block: Block, cfg, layer, x, *, mode, positions=None, cache=None,
               cache_len=None, use_kernel: str = "auto"):

@@ -21,6 +21,37 @@ DRAW_CHUNK = 1 << 30   # values drawn at once by materialize (4 GiB in float32)
 
 
 @dataclasses.dataclass(frozen=True)
+class RefLeaf:
+    """Where one of the port's parameters sits in the reference's parameter
+    tree: ``path`` of the leaf (dict keys and list indices), ``r`` the
+    index along its leading repeat axis (None: a leaf without one),
+    ``shape`` one repeat's shape, ``n_in`` how many leading axes of it are
+    the input of the port's ``nn.Linear`` (0: the port keeps the leaf's own
+    layout; otherwise the port's weight is the leaf flattened to
+    ``(in, out)`` and transposed)."""
+
+    path: tuple
+    r: int | None
+    shape: tuple[int, ...]
+    n_in: int = 0
+
+    @property
+    def ndim(self) -> int:
+        """The reference leaf's number of axes, its repeat axis included."""
+        return len(self.shape) + (self.r is not None)
+
+    def to_ref(self, t: torch.Tensor) -> torch.Tensor:
+        """The port's tensor -> one repeat of the reference leaf."""
+        return t.T.reshape(self.shape) if self.n_in else t
+
+    def from_ref(self, a: torch.Tensor) -> torch.Tensor:
+        """One repeat of the reference leaf -> the port's tensor."""
+        if not self.n_in:
+            return a
+        return a.reshape(math.prod(self.shape[:self.n_in]), -1).T.contiguous()
+
+
+@dataclasses.dataclass(frozen=True)
 class ParamSpec:
     shape: tuple[int, ...]
     axes: tuple[str | None, ...]

@@ -1,4 +1,4 @@
-"""Full model: embeddings, the layers, logits, prefill/decode.
+"""Full model: embeddings, the layers, logits, the loss, prefill/decode.
 
 The port's twin of the JAX package's ``models/transformer.py``.  The
 reference scans homogeneous stacks of layers (``lax.scan`` over a leading
@@ -7,26 +7,39 @@ layers one by one in an ``nn.ModuleList``, in ``cfg.layers_flat`` order,
 and loops over them.  Its decode caches are a list with one entry per
 layer.  The parameter tree of :func:`param_specs` keeps the reference's
 stacked shape, so that the same tree is counted, materialized and
-converted; :func:`state_from_tree` maps it onto the modules.
+converted; :func:`state_from_tree` maps it onto the modules and
+:func:`reference_layout` says where each of the port's parameters sits in
+it.
+
+Serving (:class:`Model`, :func:`prefill`, :func:`decode_step`) builds no
+autograd graph: the model's parameters do not require gradients and
+prefill and decode run under ``torch.inference_mode()``.  Training
+(:func:`loss_fn`) takes the parameters as a ``{name: tensor}`` dict and
+runs the same forward on them through ``torch.func.functional_call``, each
+layer under ``torch.utils.checkpoint`` as ``remat`` says
+(:data:`REMAT_POLICIES`).
 """
 
 from __future__ import annotations
 
-import math
+import functools
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts, noop_context_fn)
 
 from .._device import resolve_device
 from . import blocks
 from . import params as pm
-from .layers import rms_norm
-from .params import ParamSpec, stack_tree
+from .layers import cross_entropy_chunked, rms_norm
+from .params import ParamSpec, RefLeaf, stack_tree
 
 # reference leaf -> port parameter, and how many leading axes of the leaf
 # are the input of the port's nn.Linear (0: kept as it is).  An nn.Linear
 # keeps (out, in) where the reference keeps (in..., out...): the leaf is
-# flattened to (in, out) and transposed.
+# flattened to (in, out) and transposed (RefLeaf.from_ref).
 MIXER_LEAVES = {"in_proj": ("in_proj.weight", 1), "out_proj": ("out_proj.weight", 1),
                 "conv_w": ("conv_w", 0), "conv_b": ("conv_b", 0), "A_log": ("A_log", 0),
                 "D": ("D", 0), "dt_bias": ("dt_bias", 0), "norm_w": ("norm_w", 0),
@@ -39,12 +52,28 @@ MOE_LEAVES = {"router": ("router.weight", 1), "wi": ("wi", 0), "wo": ("wo", 0),
               "shared_wi": ("shared_wi.weight", 1), "shared_wo": ("shared_wo.weight", 1)}
 
 
-def _to_port(arr, n_in: int):
-    """One layer's reference leaf -> the port's parameter (see MIXER_LEAVES
-    and MOE_LEAVES)."""
-    if not n_in:
-        return arr
-    return arr.reshape(math.prod(arr.shape[:n_in]), -1).T.contiguous()
+def _saving(*ops):
+    """A checkpoint ``context_fn`` that saves the outputs of ``ops`` and
+    recomputes everything else."""
+    ops = frozenset(ops)
+
+    def policy(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in ops else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return functools.partial(create_selective_checkpoint_contexts, policy)
+
+
+_aten = torch.ops.aten
+# remat policy -> the ``context_fn`` of each layer's non-reentrant checkpoint
+# (None: no checkpoint).  The reference's jax policies: "full" saves nothing
+# (nothing_saveable), "dots" every matmul output (checkpoint_dots), and
+# "dots_no_batch" those of the products without a batch axis.
+REMAT_POLICIES = {
+    "none": None,
+    "full": noop_context_fn,
+    "dots": _saving(_aten.mm.default, _aten.addmm.default, _aten.bmm.default),
+    "dots_no_batch": _saving(_aten.mm.default, _aten.addmm.default),
+}
 
 
 def param_specs(cfg) -> dict:
@@ -65,56 +94,79 @@ def param_specs(cfg) -> dict:
     return out
 
 
+def _flat(tree, path=()) -> dict:
+    """``{path: leaf}`` of a tree of dicts and lists (paths of keys and list
+    indices, as :class:`RefLeaf` keeps them)."""
+    if isinstance(tree, dict):
+        return {p: v for k, sub in tree.items() for p, v in _flat(sub, path + (k,)).items()}
+    if isinstance(tree, (list, tuple)):
+        return {p: v for i, sub in enumerate(tree) for p, v in _flat(sub, path + (i,)).items()}
+    return {path: tree}
+
+
 def state_from_tree(cfg, tree) -> dict:
     """The reference's parameter tree (tensors in :func:`param_specs`'
     layout: ``stacks[i]["layers"][j][name]`` with a leading repeat axis,
-    ``embed``, ``final_norm``) -> the :class:`Model`'s state dict.
+    ``embed``, ``final_norm``) -> the :class:`Model`'s state dict, as
+    :func:`reference_layout` maps it.
 
     Every leaf maps to one parameter, transposed where the port keeps an
-    ``nn.Linear`` weight; a leaf left over raises (:func:`check_state`
-    raises on a parameter left without a leaf or a shape that disagrees)."""
-    tree = dict(tree)
+    ``nn.Linear`` weight; a leaf left over, or one with another number of
+    repeats, raises (:func:`check_state` raises on a parameter left without
+    a leaf or a shape that disagrees)."""
+    by_path: dict = {}
+    for name, leaf in reference_layout(cfg).items():
+        by_path.setdefault(leaf.path, []).append((name, leaf))
+    flat = _flat(tree)
+    extra = sorted("/".join(map(str, p)) for p in flat if p not in by_path)
+    if extra:
+        raise ValueError(f"leaves of the tree left over: {extra}")
     state: dict = {}
-    for name in ("embed", "final_norm", "head"):
-        if name in tree:
-            state[name] = tree.pop(name)
-    stacks = list(tree.pop("stacks", []))
-    if tree:
-        raise ValueError(f"leaves of the tree left over: {sorted(tree)}")
-    if len(stacks) != len(cfg.stacks):
-        raise ValueError(f"the tree has {len(stacks)} stacks, the config {len(cfg.stacks)}")
+    for path, arr in flat.items():
+        entries = by_path[path]
+        if entries[0][1].r is not None and arr.shape[0] != len(entries):
+            raise ValueError(f"leaf {'/'.join(map(str, path))} has {arr.shape[0]} repeats, "
+                             f"expected {len(entries)}")
+        for name, leaf in entries:
+            state[name] = leaf.from_ref(arr if leaf.r is None else arr[leaf.r])
+    return state
+
+
+def reference_layout(cfg) -> dict:
+    """``{name: RefLeaf}``: for each of the port's parameters, its leaf of
+    the reference's tree (:func:`param_specs`), its repeat index there and
+    how the port's tensor maps onto one repeat of the leaf
+    (:class:`~repro_torch.models.params.RefLeaf`)."""
+    specs = param_specs(cfg)
+    out = {name: RefLeaf((name,), None, specs[name].shape)
+           for name in ("embed", "final_norm", "head") if name in specs}
     base = 0
-    for (pattern, repeat), st in zip(cfg.stacks, stacks):
-        st = dict(st)
-        layers = st.pop("layers", None)
-        if st or layers is None or len(layers) != len(pattern):
-            raise ValueError(f"stack holds {sorted(st)} and {layers and len(layers)} layers, "
-                             f"expected 'layers' with {len(pattern)}")
-        for j, leaf in enumerate(layers):
-            leaf = dict(leaf)
-            norms = {n: leaf.pop(n) for n in ("ln1", "ln2") if n in leaf}
+    for si, (pattern, repeat) in enumerate(cfg.stacks):
+        for j, leaf in enumerate(specs["stacks"][si]["layers"]):
             ffn_table = MOE_LEAVES if pattern[j].moe else FFN_LEAVES
-            groups = {g: (dict(leaf.pop(g, {})), table)
-                      for g, table in (("mixer", MIXER_LEAVES), ("ffn", ffn_table))}
-            if leaf:
-                raise ValueError(f"layer leaves left over: {sorted(leaf)}")
-            for g, (sub, table) in groups.items():
-                for name, arr in sub.items():
-                    if name not in table:
-                        raise ValueError(f"{g} leaf left over: {name!r}")
-                    if arr.shape[0] != repeat:
-                        raise ValueError(f"{g} leaf {name!r} has {arr.shape[0]} repeats, "
-                                         f"expected {repeat}")
             for r in range(repeat):
                 pre = f"layers.{base + r * len(pattern) + j}."
-                for name, arr in norms.items():
-                    state[pre + name] = arr[r]
-                for g, (sub, table) in groups.items():
-                    for name, arr in sub.items():
+                for key, sub in leaf.items():
+                    path = ("stacks", si, "layers", j, key)
+                    if isinstance(sub, ParamSpec):   # ln1, ln2
+                        out[pre + key] = RefLeaf(path, r, sub.shape[1:])
+                        continue
+                    table = MIXER_LEAVES if key == "mixer" else ffn_table
+                    for name, spec in sub.items():
                         target, n_in = table[name]
-                        state[f"{pre}{g}.{target}"] = _to_port(arr[r], n_in)
+                        out[f"{pre}{key}.{target}"] = RefLeaf(path + (name,), r, spec.shape[1:],
+                                                              n_in)
         base += repeat * len(pattern)
-    return state
+    return out
+
+
+def init_params(cfg, generator: torch.Generator, dtype=torch.float32, device=None) -> dict:
+    """Random parameters to train: the reference's init law
+    (:func:`~repro_torch.models.params.materialize` from ``generator``) in
+    the port's ``{name: tensor}`` layout, the dict :func:`loss_fn` and the
+    optimizer take (and a :class:`Model` serves)."""
+    device = resolve_device(device)
+    return state_from_tree(cfg, pm.materialize(param_specs(cfg), generator, dtype, device))
 
 
 def _skeleton(module: nn.Module, cfg) -> None:
@@ -183,32 +235,61 @@ class Model(nn.Module):
 
 
 def embed_tokens(model: Model, cfg, tokens):
-    x = model.embed[tokens]
+    """The token embeddings; ``F.embedding``, whose backward sums the rows
+    of repeated tokens in a fixed order (an index's ``index_put_`` does
+    not on the CPU), so that a training step is deterministic."""
+    x = F.embedding(tokens, model.embed)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
     return x
 
 
+def _checkpointed(block, cfg, layer, x, positions, use_kernel: str, context_fn):
+    """One train-mode layer under a non-reentrant checkpoint.  The layer's
+    parameters go in as inputs of the checkpointed function and reach the
+    block through ``functional_call``, so that the recomputation in the
+    backward sees the same tensors as the forward."""
+    names, vals = zip(*block.named_parameters())
+
+    def run(x, *vals):
+        return torch.func.functional_call(
+            block, dict(zip(names, vals)), (x,),
+            dict(cfg=cfg, layer=layer, positions=positions, use_kernel=use_kernel))
+
+    return checkpoint(run, x, *vals, use_reentrant=False, context_fn=context_fn)
+
+
 def fwd(model: Model, inputs, *, mode, positions=None, caches=None, cache_len=None,
-        use_kernel: str = "auto"):
+        use_kernel: str = "auto", remat: str = "full"):
     """Backbone forward.
 
     inputs: int tokens (B, T) if cfg.vocab else embeddings (B, T, d).
     positions: (T,) absolute positions, an int tensor on the model's device
     (default ``arange(T)``; decode: ``[pos]``).  caches: list (one entry per
     layer) of cache dicts, or None.  cache_len: the attention layers' cache
-    length at prefill (default T).  Returns (hidden (B, T, d), new_caches,
-    aux)."""
+    length at prefill (default T).  remat: a key of :data:`REMAT_POLICIES`;
+    it applies to train mode with grad mode on and parameters that require
+    grad (training), each layer checkpointed alone.  Returns (hidden
+    (B, T, d), new_caches, aux)."""
+    if remat not in REMAT_POLICIES:
+        raise ValueError(f"remat={remat!r}; pick from {tuple(REMAT_POLICIES)}")
     cfg = model.cfg
     x = embed_tokens(model, cfg, inputs) if cfg.vocab else inputs
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
     new_caches = [] if (caches is not None or mode == "prefill") else None
     aux = x.new_zeros((), dtype=torch.float32)
+    training = (mode == "train" and torch.is_grad_enabled()
+                and any(p.requires_grad for p in model.parameters()))
+    context_fn = REMAT_POLICIES[remat] if training else None
     for i, (layer, block) in enumerate(zip(cfg.layers_flat, model.layers)):
-        x, c, a = blocks.layer_fwd(block, cfg, layer, x, mode=mode, positions=positions,
-                                   cache=None if caches is None else caches[i],
-                                   cache_len=cache_len, use_kernel=use_kernel)
+        if context_fn is not None:
+            x, a = _checkpointed(block, cfg, layer, x, positions, use_kernel, context_fn)
+            c = None
+        else:
+            x, c, a = blocks.layer_fwd(block, cfg, layer, x, mode=mode, positions=positions,
+                                       cache=None if caches is None else caches[i],
+                                       cache_len=cache_len, use_kernel=use_kernel)
         aux = aux + a
         if new_caches is not None:
             new_caches.append(c)
@@ -233,6 +314,58 @@ def logits_fn(model: Model, h):
 
 
 # ---------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------
+
+def encode_cross_states(model, cfg, batch, *, remat: str = "full"):
+    """The cross-attention states of a batch: None for the configs the port
+    runs; image and encoder-decoder configs raise (ROADMAP.md, Queue A)."""
+    if cfg.encoder is not None or cfg.cross_source == "image":
+        raise NotImplementedError(
+            "cross-attention states (image and encoder-decoder configs): not in the port yet "
+            "(ROADMAP.md, Queue A item 6)")
+    return None
+
+
+class _Trainable(nn.Module):
+    """The parameters of ``Model(cfg)`` on the meta device (the same names),
+    with the loss as its forward: :func:`loss_fn` calls it through
+    ``torch.func.functional_call`` with the real tensors."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        self.cfg = cfg
+        _skeleton(self, cfg)
+
+    def forward(self, batch, *, remat, aux_weight, loss_chunk, use_kernel):
+        cfg = self.cfg
+        encode_cross_states(self, cfg, batch, remat=remat)
+        h, _, aux = fwd(self, batch["tokens"], mode="train", remat=remat,
+                        use_kernel=use_kernel)
+        loss = cross_entropy_chunked(h, lm_head_matrix(self), batch["labels"], chunk=loss_chunk,
+                                     logit_softcap=cfg.logit_softcap, n_valid=cfg.vocab)
+        return loss + aux_weight * aux, {"xent": loss, "aux": aux}
+
+
+@functools.lru_cache(maxsize=None)
+def _trainable(cfg) -> _Trainable:
+    return _Trainable(cfg)
+
+
+def loss_fn(params: dict, cfg, batch: dict, *, remat: str = "full", aux_weight: float = 0.01,
+            loss_chunk: int = 512, use_kernel: str = "auto"):
+    """The training loss of ``params`` (a ``{name: tensor}`` dict with every
+    parameter of ``Model(cfg)``, e.g. from :func:`init_params`; those that
+    require grad get gradients) on ``batch`` = {"tokens" (B, T), "labels"
+    (B, T), -100 ignored}.  Returns ``(xent + aux_weight * aux, {"xent",
+    "aux"})``, ``aux`` the MoE load-balance loss summed over the layers."""
+    return torch.func.functional_call(
+        _trainable(cfg), params, (batch,),
+        dict(remat=remat, aux_weight=aux_weight, loss_chunk=loss_chunk, use_kernel=use_kernel),
+        strict=True)
+
+
+# ---------------------------------------------------------------------
 # serving
 # ---------------------------------------------------------------------
 
@@ -241,6 +374,7 @@ def cache_specs(cfg, batch: int, cache_len: int, dtype=torch.bfloat16) -> list:
     return [blocks.layer_cache_specs(cfg, l, batch, cache_len, dtype) for l in cfg.layers_flat]
 
 
+@torch.inference_mode()
 def prefill(model: Model, tokens, *, cache_len=None, use_kernel: str = "auto"):
     """Process the prompt; returns (last-token logits (B, V), caches).
     ``cache_len``: the length of the global attention layers' KV caches
@@ -252,6 +386,7 @@ def prefill(model: Model, tokens, *, cache_len=None, use_kernel: str = "auto"):
     return logits[:, 0], caches
 
 
+@torch.inference_mode()
 def decode_step(model: Model, token, pos, caches, *, use_kernel: str = "auto"):
     """One decode step.  token: (B, 1) ids; pos: its position, an int or a
     0-d tensor (unused by the Mamba layers).  Returns (logits (B, V),

@@ -31,6 +31,7 @@ from _mp import run  # noqa: E402
 from repro_torch.configs.granite_moe_3b import SMOKE as GRANITE  # noqa: E402
 from repro_torch.configs.kimi_k2 import SMOKE as KIMI  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
+from repro_torch.models.params import RefLeaf  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 
 ALIAS = "import jax.extend.core\njax.core.Primitive = jax.extend.core.Primitive\n"
@@ -117,7 +118,7 @@ def _port(cfg, leaves):
         if key == "x":
             continue
         target, how = tf.MOE_LEAVES[key]
-        value = tf._to_port(torch.from_numpy(arr), how)
+        value = RefLeaf((key,), None, arr.shape, how).from_ref(torch.from_numpy(arr))
         mod, _, leaf = target.rpartition(".")
         owner = layer.get_submodule(mod) if mod else layer
         setattr(owner, leaf, torch.nn.Parameter(value, requires_grad=False))

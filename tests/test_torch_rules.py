@@ -110,7 +110,7 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()
     assert [p.name for p in _build.sources()] == ["solver3d.cu", "ssd.cu", "heat_step.cu",
-                                                  "swa.cu"]
+                                                  "swa.cu", "swa_bwd.cu"]
     assert _build.library_path().parent == tmp_path / "build"
 
 
