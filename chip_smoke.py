@@ -34,8 +34,9 @@ card.  Then it drives these paths through the kernels:
   the plain path;
 * the gemma3 serving path (global and sliding-window attention, GeGLU
   FFN): K6 against its plain version at the reference tests' cases, ragged
-  prompts and gemma3-4b's prefill shapes, bf16 on its tensor-core kernel and
-  f32 on its CUDA-core kernel, then timed beside the plain version and
+  prompts and gemma3-4b's prefill shapes, bf16 on its wgmma kernel and f32
+  on its 3xTF32 kernel (both on the tensor cores), then timed beside the
+  plain version and
   ``scaled_dot_product_attention`` (a yardstick only); the
   SMOKE width in f32 (K6 against the plain path, every decode step, the
   same greedy ids); gemma3-4b at full width and depth in bf16 with random
@@ -142,6 +143,8 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
 F32_FLOP_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+TF32_FLOP_PER_S = 495e12       # H100 SXM TF32 on the tensor cores, dense
+TF32_PRODUCTS = 3              # a float32 product in 3xTF32 takes three TF32 products
 HEAT_FLOP_PER_CELL = 16        # interior cell of heat_step.cu, see its header
 TOL = {torch.float32: 1e-6, torch.bfloat16: 2e-2, torch.float64: 1e-12}
 COEFS = (1.3, 0.01, 0.7, 0.9, 1.1)   # lam, dt, dx, dy, dz of the kernel checks
@@ -1418,7 +1421,8 @@ K6_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # case of tests/test_torch_swa.py, so 1e-2 is twice the most that rounding
 # alone gave there
 K6_FRO_TOL = 1e-2
-K6_KERNEL = {"float32": "CUDA cores", "bfloat16": "tensor cores"}   # chosen by the dtype alone
+# chosen by the dtype alone: bf16 wgmma, f32 3xTF32, both on the tensor cores
+K6_KERNEL = {"float32": "tensor cores", "bfloat16": "tensor cores"}
 # B, H, Hkv, T, S, D, window: the cases of tests/test_kernel_swa.py (windows
 # 4/16/64/10000, GQA 8 -> 2, queries offset into a longer kv sequence, its bf16
 # case), ragged T of 1, 5, 50, 1000 and 1500 at gemma3-4b's heads, the edges
@@ -1458,15 +1462,17 @@ def k6_inputs(shape, dtype, gen, dev):
 def k6_bound(shape, itemsize: int) -> tuple[float, str, float]:
     """Least time (ms) of one K6 launch: q, k, v read once and the output
     written once over the memory rate, or 4 D operations per unmasked
-    (query, key) pair of these shapes over the inputs' type's peak (bf16
-    tensor cores; float32 outside them).  Also returns the float32
-    CUDA-core floor of the same operations."""
+    (query, key) pair of these shapes over the rate of the kernel's
+    products (bf16 on the tensor cores; float32 as three TF32 products on
+    the tensor cores, 3 x FLOP over the TF32 peak).  Also returns the
+    float32 CUDA-core floor of the same operations."""
     B, H, Hkv, T, S, D, window = shape
     w = min(window, S)
     pairs = int(np.minimum(np.arange(T) + (S - T) + 1, w).sum())
     flop = 4 * D * pairs * B * H
     t_bytes = (2 * B * H * T * D + 2 * B * Hkv * S * D) * itemsize / HBM_BYTES_PER_S * 1e3
-    t_ops = flop / (BF16_FLOP_PER_S if itemsize == 2 else F32_FLOP_PER_S) * 1e3
+    t_ops = (flop / BF16_FLOP_PER_S if itemsize == 2
+             else TF32_PRODUCTS * flop / TF32_FLOP_PER_S) * 1e3
     bound = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
     return (*bound, flop / F32_FLOP_PER_S * 1e3)
 
@@ -1503,9 +1509,8 @@ def frobenius(got, want) -> float:
 
 def k6_phase(kswa, dev, gen) -> dict:
     """Phase 21: K6 against its plain version at every listed shape, bf16
-    (the tensor-core kernel; normwise and relative Frobenius) and f32 (the
-    CUDA-core kernel), each launch
-    checked to have taken the kernel of its dtype; then K6, the plain version
+    (the wgmma kernel; normwise and relative Frobenius) and f32 (the 3xTF32
+    kernel), each launch checked to have run on the tensor cores; then K6, the plain version
     and one library call timed in turns at the main paths' shapes (gemma3's
     4 x 2048 at window 1024 and global, bf16 and f32; its 1 x 1000 and the
     MoE models' shapes, bf16).  Returns the max |err| over the main paths'
@@ -1520,7 +1525,7 @@ def k6_phase(kswa, dev, gen) -> dict:
             n0 = kswa.swa_attention_cuda.tc_launches
             got = kswa.swa_attention_cuda(q, k, v, window=shape[-1])
             torch.cuda.synchronize()
-            ran = "tensor cores" if kswa.swa_attention_cuda.tc_launches > n0 else "CUDA cores"
+            ran = "tensor cores" if kswa.swa_attention_cuda.tc_launches == n0 + 1 else "CUDA cores"
             if ran != K6_KERNEL[dt_name]:
                 fail(f"K6 {shape} {dt_name}: ran on the {ran}, expected the {K6_KERNEL[dt_name]}")
             want = swa_ref(q, k, v, window=shape[-1])
@@ -1592,8 +1597,9 @@ def k6_phase(kswa, dev, gen) -> dict:
 
 
 def serve_small(phase: str, smoke, kswa, kssd, dev) -> None:
-    """A config's SMOKE width in f32 on the card, its kernels (K6, and K7 for
-    Mamba layers; in f32 their CUDA-core kernels) against the plain path:
+    """A config's SMOKE width in f32 on the card, its kernels (K6 in 3xTF32 on
+    the tensor cores, and K7 for Mamba layers on the CUDA cores) against the
+    plain path:
     train-mode logits; prefill logits at prompts of 5, 8 and 12 tokens
     (below, at and above gemma3's window of 8), each prefill launching K6
     once per attention layer and K7 once per Mamba layer; every decode step
@@ -1619,7 +1625,7 @@ def serve_small(phase: str, smoke, kswa, kssd, dev) -> None:
     h, _, _ = tf.fwd(model, tokens, mode="train")
     e_train = logit_err(tf.logits_fn(model, h), full, cfg.vocab)
     e_pre = e_dec = 0.0
-    tc0 = [w.tc_launches for w in wrappers]
+    n_all, tc0 = [w.launches for w in wrappers], [w.tc_launches for w in wrappers]
     for tp in (5, 8, 12):
         n0 = [w.launches for w in wrappers]
         lk, ck = tf.prefill(model, tokens[:, :tp], cache_len=24)
@@ -1639,15 +1645,17 @@ def serve_small(phase: str, smoke, kswa, kssd, dev) -> None:
                 e_dec = max(e_dec, logit_err(sk, full[:, t], cfg.vocab))
     ids_k = Engine(cfg, model, cache_len=24).generate(tokens[:, :12], 8)
     ids_r = Engine(cfg, model, cache_len=24, use_kernel="ref").generate(tokens[:, :12], 8)
-    if [w.tc_launches for w in wrappers] != tc0:
-        fail(f"{phase}: an f32 launch took a tensor-core kernel")
+    ran = [(w.launches - n, w.tc_launches - c) for w, n, c in zip(wrappers, n_all, tc0)]
+    if ran[0][1] != ran[0][0] or ran[1][1] != 0:
+        fail(f"{phase}: (launches, tensor-core launches) of K6 and K7 in f32 {ran}; every K6 "
+             "launch runs on the tensor cores, no K7 launch")
     if not (max(e_train, e_pre, e_dec) <= SERVE_TOL and torch.equal(ids_k, ids_r)):
         fail(f"{phase} on the card: kernels vs plain train {e_train}, prefill {e_pre}, decode "
              f"{e_dec}, ids equal {torch.equal(ids_k, ids_r)}")
     say(phase, cfg=f"{smoke.name} f32", prompts="2x5,2x8,2x12",
         kernels_vs_plain_train_normwise=e_train, kernels_vs_plain_prefill_normwise=e_pre,
         decode_vs_plain_normwise=e_dec, tol=SERVE_TOL, greedy_ids_equal=True,
-        kernels="'CUDA cores (f32)'", status="ok")
+        kernels="'K6 tensor cores (3xTF32), K7 CUDA cores (f32)'", status="ok")
 
 
 def gemma3_full(kswa, dev) -> int:
@@ -2926,29 +2934,32 @@ TRAIN_SIZE = (1_236_338_688, 16)   # llama3.2-1b's parameters and layers
 RESTART_STEPS = (10, 15)   # stop and checkpoint at 10, resume to 15
 
 
-def k6b_bound(shape) -> tuple[float, str, float]:
+def k6b_bound(shape) -> tuple[float, str, float, float]:
     """Least time (ms) of K6's backward: q, o, dO, the LSE, k and v read once
     and dq, dk, dv written once over the memory rate, or 10 D FLOP per
-    unmasked (query, key) pair (the five products S, dP, dV, dK, dQ) over
-    the float32 peak.  Also returns the GFLOP."""
+    unmasked (query, key) pair (the five products S, dP, dV, dK, dQ) as
+    three TF32 products each over the TF32 peak (3xTF32, the kernels'
+    arithmetic).  Also returns the GFLOP and the float32 CUDA-core floor of
+    the same FLOP."""
     B, H, Hkv, T, S, D, window = shape
     pairs = int(np.minimum(np.arange(T) + (S - T) + 1, min(window, S)).sum())
     flop = 10 * D * pairs * B * H
     words = 4 * B * H * T * D + B * H * T + 4 * B * Hkv * S * D
     t_bytes = words * 4 / HBM_BYTES_PER_S * 1e3
-    t_ops = flop / F32_FLOP_PER_S * 1e3
+    t_ops = TF32_PRODUCTS * flop / TF32_FLOP_PER_S * 1e3
     bound = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-    return (*bound, flop / 1e9)
+    return (*bound, flop / 1e9, flop / F32_FLOP_PER_S * 1e3)
 
 
 def k6b_phase(kswa, dev) -> dict:
     """Phase 39 (k6_backward): K6's backward against ``swa_backward_ref`` at
     every K6B_SHAPES entry (float32; normwise dq, dk, dv; two runs bitwise),
     K6's float32 forward with and without its LSE output bitwise; then at
-    llama3.2-1b's shape the backward, the plain version and SDPA's float32
-    backward through autograd (the yardstick) timed in turns, and the
-    float32 forward with its LSE beside the plain version and SDPA's
-    forward.  Returns the kernels-line numbers."""
+    llama3.2-1b's shape, each in turns (kernel, plain, SDPA, SDPA, plain,
+    kernel): the backward, its plain version and SDPA's float32 backward
+    through autograd (the yardstick), and the float32 forward with its LSE,
+    the plain version and SDPA's forward.  Returns the kernels-line
+    numbers."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.swa import swa_backward_ref, swa_ref
@@ -2990,26 +3001,32 @@ def k6b_phase(kswa, dev) -> dict:
     def sdpa_bwd():
         torch.autograd.grad(lo, (lq, lk, lv), do, retain_graph=True)
 
+    bwd = {
+        "kernel": lambda: kswa.swa_backward_cuda(q, k, v, o, do, lse, window=w),
+        "plain": lambda: swa_backward_ref(q, k, v, do, window=w), "library": sdpa_bwd}
+    fwd = {
+        "kernel": lambda: kswa.swa_attention_cuda(q, k, v, window=w, return_lse=True),
+        "plain": lambda: swa_ref(q, k, v, window=w),
+        "library": lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                          enable_gqa=True)}
     runs = {"kernel": [], "plain": [], "library": []}
-    for name in ("kernel", "plain", "library", "library", "plain", "kernel"):
-        fn = {"kernel": lambda: kswa.swa_backward_cuda(q, k, v, o, do, lse, window=w),
-              "plain": lambda: swa_backward_ref(q, k, v, do, window=w), "library": sdpa_bwd}[name]
-        runs[name].append(cuda_time_ms(fn, reps=5 if name == "plain" else 10, warm=2))
-    fwd = {"kernel": cuda_time_ms(lambda: kswa.swa_attention_cuda(q, k, v, window=w,
-                                                                  return_lse=True), reps=10),
-           "plain": cuda_time_ms(lambda: swa_ref(q, k, v, window=w), reps=5),
-           "library": cuda_time_ms(lambda: F.scaled_dot_product_attention(
-               q, k, v, is_causal=True, enable_gqa=True), reps=10)}
-    bound, bound_by, gflop = k6b_bound(K6B_MAIN)
-    fbound, fbound_by, _ = k6_bound(K6B_MAIN, 4)
-    ms = min(runs["kernel"])
+    fwd_runs = {"kernel": [], "plain": [], "library": []}
+    for fns, out in ((bwd, runs), (fwd, fwd_runs)):
+        for name in ("kernel", "plain", "library", "library", "plain", "kernel"):
+            out[name].append(cuda_time_ms(fns[name], reps=5 if name == "plain" else 10, warm=2))
+    bound, bound_by, gflop, floor = k6b_bound(K6B_MAIN)
+    fbound, fbound_by, ffloor = k6_bound(K6B_MAIN, 4)
+    ms, fms = min(runs["kernel"]), min(fwd_runs["kernel"])
     say("k6_backward_time", shape="x".join(map(str, K6B_MAIN)), dtype="float32",
         ms_runs=runs["kernel"], plain_ms_runs=runs["plain"], sdpa_backward_ms_runs=runs["library"],
-        bound_ms=bound, bound_by=bound_by, gflop=gflop, share_of_bound=bound / ms,
+        bound_ms=bound, bound_by=bound_by, bound_kind="3xTF32", gflop=gflop,
+        share_of_bound=bound / ms, f32_cuda_core_floor_ms=floor, share_of_f32_floor=floor / ms,
         launches_per_call=3)
     say("k6_forward_f32_train", shape="x".join(map(str, K6B_MAIN)), with_lse=True,
-        ms=fwd["kernel"], plain_ms=fwd["plain"], sdpa_ms=fwd["library"], bound_ms=fbound,
-        bound_by=fbound_by, share_of_bound=fbound / fwd["kernel"])
+        ms_runs=fwd_runs["kernel"], plain_ms_runs=fwd_runs["plain"],
+        sdpa_ms_runs=fwd_runs["library"], bound_ms=fbound, bound_by=fbound_by,
+        bound_kind="3xTF32", share_of_bound=fbound / fms, f32_cuda_core_floor_ms=ffloor,
+        share_of_f32_floor=ffloor / fms)
     del q, k, v, do, o, lse, lq, lk, lv, lo
     torch.cuda.empty_cache()
     return {"name": "swa_backward", "route": "cuda",
@@ -3019,8 +3036,10 @@ def k6b_phase(kswa, dev) -> dict:
                                   "this is the backward of K6, whose pallas_call is that line",
             "launches": 0, "max_abs_err": main_err, "ms": ms, "plain_ms": min(runs["plain"]),
             "bound_ms": bound, "bound_by": bound_by, "library_ms": min(runs["library"]),
-            "f32_forward_train": {"ms": fwd["kernel"], "plain_ms": fwd["plain"],
-                                  "library_ms": fwd["library"], "bound_ms": fbound}}
+            "f32_cuda_core_floor_ms": floor,
+            "f32_forward_train": {"ms": fms, "plain_ms": min(fwd_runs["plain"]),
+                                  "library_ms": min(fwd_runs["library"]), "bound_ms": fbound,
+                                  "f32_cuda_core_floor_ms": ffloor}}
 
 
 def train_compare(run, kswa) -> dict:
@@ -3707,7 +3726,7 @@ def dist_phase(card: str) -> dict:
 
 ANALYSIS_POISSON = dict(nx=130, ny=130, nz=130, dims=(2, 2, 2))    # 8 x 130^3 f64
 CELL_LAUNCHES: set = set()   # (kernel, nb, nx, ny, nz) of every K1-K5 launch of this process
-SWA_LAUNCHES: set = set()    # (dtype code, B, H, T) of every K6 launch of this process
+SWA_LAUNCHES: set = set()    # (dtype code, B, H, T, D) of every K6 launch of this process
 SSD_LAUNCHES: set = set()    # (dtype code, Ba, T, H, G, N, P, L) of every K7 launch
 SWA_BWD_LAUNCHES: set = set()   # (B, H, Hkv, T, S, D) of every launch of K6's backward
 
@@ -3743,10 +3762,10 @@ def record_launch_shapes() -> None:
             return launch
         setattr(module, attr, recorded)
 
-    # the C entry points' arguments: K6 (code, q, k, v, o, B, H, Hkv, T, ...),
+    # the C entry points' arguments: K6 (code, q, k, v, o, B, H, Hkv, T, S, D, ...),
     # K7 (code, x, B, C, dt, s, y, states, Ba, T, H, G, N, P, L, ...), K6's
     # backward (q, k, v, o, dO, lse, drow, dq, dk, dv, B, H, Hkv, T, S, D, ...)
-    record_entry(kswa, SWA_LAUNCHES, lambda a: (a[0], a[5], a[6], a[8]))
+    record_entry(kswa, SWA_LAUNCHES, lambda a: (a[0], a[5], a[6], a[8], a[10]))
     record_entry(kssd, SSD_LAUNCHES, lambda a: (a[0], *a[8:15]))
     record_entry(kswa, SWA_BWD_LAUNCHES, lambda a: tuple(a[10:16]), attr="_bwd_entry")
 
@@ -3824,12 +3843,12 @@ def analysis_phase(card: str) -> dict:
         if f:
             fail(f"analysis: {kernel} plan at {shape}: {[str(x) for x in f]}")
     codes = {v: k for k, v in kswa.DTYPE_CODES.items()}
-    for code, B, H, T in sorted(SWA_LAUNCHES):
-        py = plans.swa_plan(code == 1, B, H, T, sms)
-        c = kswa.c_plan(codes[code], B, H, T)
+    for code, B, H, T, D in sorted(SWA_LAUNCHES):
+        py = plans.swa_plan(code == 1, B, H, T, D, sms)
+        c = kswa.c_plan(codes[code], B, H, T, D)
         if (py.grid[0], py.grid[1], py.block[0], py.tile[2]) != c or launchgrid.check_plan(py):
-            fail(f"analysis: K6 plan at {(code, B, H, T)}: python {py.grid, py.block, py.tile}, "
-                 f"C {c}")
+            fail(f"analysis: K6 plan at {(code, B, H, T, D)}: python "
+                 f"{py.grid, py.block, py.tile}, C {c}")
         n_plans += 1
     for shape in sorted(SWA_BWD_LAUNCHES):
         py = plans.swa_bwd_plans(*shape)

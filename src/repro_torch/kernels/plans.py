@@ -7,9 +7,9 @@
   ``plan.grid`` and ``plan.block`` to the C entry points, which launch
   that grid and refuse a block they were not compiled for.
 * K6 (``swa.cu``), its backward (``swa_bwd.cu``) and K7 (``ssd.cu``): the
-  C entry points choose the plan themselves (from the SM count); these
-  functions mirror that choice and the kernels' block -> tile arithmetic,
-  and ``chip_smoke.py`` holds them against the C entry points'
+  C entry points choose the plan themselves (from the dtype and the SM
+  count); these functions mirror that choice and the kernels' block -> tile
+  arithmetic, and ``chip_smoke.py`` holds them against the C entry points'
   ``repro_swa_plan`` / ``repro_swa_bwd_plan`` / ``repro_ssd_plan`` at every
   shape it launches.
 """
@@ -35,16 +35,20 @@ def cell_plan(kernel: str, nb: int, nx: int, ny: int, nz: int) -> LaunchPlan:
                       guard=(False, True, True, True), out_map=out_map)
 
 
-def swa_plan(tensor_cores: bool, B: int, H: int, T: int, sms: int = H100_SMS) -> LaunchPlan:
-    """K6 over (B, H, T) query rows: the CUDA-core kernel takes 64 rows of
-    one (batch, head) per block; the tensor-core kernel 64 rows per
-    consumer warpgroup (two when the grid fills the SMs), the last q tiles
-    first."""
+def swa_plan(bf16: bool, B: int, H: int, T: int, D: int, sms: int = H100_SMS) -> LaunchPlan:
+    """K6 over (B, H, T) query rows at head width D; both kernels run on the
+    tensor cores.  The float32 (3xTF32) kernel takes 128 rows (D up to 64)
+    or 64 of one (batch, head) per block of four warps, x over (batch,
+    head) and y over q tiles, the last first; the bfloat16 (wgmma)
+    kernel 64 rows per consumer warpgroup (two when the grid fills the
+    SMs), the last q tiles first."""
     n_bh = B * H
-    if not tensor_cores:
-        return LaunchPlan("K6 swa_kernel", grid=(-(-T // 64), n_bh, 1), block=(256, 1, 1),
-                          shape=(B, H, T), tile=(1, 1, 64), guard=(False, False, True),
-                          out_map=lambda gx, gy, gz: (gy // H, gy % H, gx))
+    if not bf16:
+        bm = 128 if D <= 64 else 64
+        nq = -(-T // bm)
+        return LaunchPlan("K6 swa_kernel_tf32", grid=(n_bh, nq, 1), block=(128, 1, 1),
+                          shape=(B, H, T), tile=(1, 1, bm), guard=(False, False, True),
+                          out_map=lambda gx, gy, gz: (gx // H, gx % H, nq - 1 - gy))
     nwg = 2 if n_bh * -(-T // 128) >= sms else 1
     bm = 64 * nwg
     nq = -(-T // bm)
@@ -60,24 +64,23 @@ def swa_plan(tensor_cores: bool, B: int, H: int, T: int, sms: int = H100_SMS) ->
 
 def swa_bwd_plans(B: int, H: int, Hkv: int, T: int, S: int, D: int) -> tuple:
     """K6's backward over its three outputs: Drow (one warp per row, 8 rows
-    a block), dK/dV (one block per 64 keys of one (batch, kv head)) and dQ
-    (one block per q tile of 64 rows, 32 where D > 128, of one (batch,
-    head))."""
-    bq = 64 if D <= 128 else 32
-
-    def rows_of(heads):
-        return lambda gx, gy, gz: (gy // heads, gy % heads, gx)
-
+    a block), dK/dV (one block of four warps per 64 keys of one (batch, kv
+    head); x over (batch, kv head), y over k tiles, the first first) and dQ
+    (one block of four warps per q tile of one (batch, head), 128 rows at
+    D up to 64 and 64 above; x over (batch, head), y over q tiles, the last
+    first)."""
+    bm = 128 if D <= 64 else 64
+    nq = -(-T // bm)
     return (
         LaunchPlan("K6b swa_bwd_drow", grid=(-(-T // 8), B * H, 1), block=(256, 1, 1),
                    shape=(B, H, T), tile=(1, 1, 8), guard=(False, False, True),
-                   out_map=rows_of(H)),
-        LaunchPlan("K6b swa_bwd_dkdv", grid=(-(-S // 64), B * Hkv, 1), block=(256, 1, 1),
+                   out_map=lambda gx, gy, gz: (gy // H, gy % H, gx)),
+        LaunchPlan("K6b swa_bwd_dkdv", grid=(B * Hkv, -(-S // 64), 1), block=(128, 1, 1),
                    shape=(B, Hkv, S), tile=(1, 1, 64), guard=(False, False, True),
-                   out_map=rows_of(Hkv)),
-        LaunchPlan("K6b swa_bwd_dq", grid=(-(-T // bq), B * H, 1), block=(256, 1, 1),
-                   shape=(B, H, T), tile=(1, 1, bq), guard=(False, False, True),
-                   out_map=rows_of(H)),
+                   out_map=lambda gx, gy, gz: (gx // Hkv, gx % Hkv, gy)),
+        LaunchPlan("K6b swa_bwd_dq", grid=(B * H, nq, 1), block=(128, 1, 1),
+                   shape=(B, H, T), tile=(1, 1, bm), guard=(False, False, True),
+                   out_map=lambda gx, gy, gz: (gx // H, gx % H, nq - 1 - gy)),
     )
 
 
@@ -112,9 +115,12 @@ _CELL_SHAPES = ((1, 10, 10, 10), (8, 10, 10, 10), (1, 18, 18, 18), (8, 6, 6, 6),
                 (1, 512, 512, 512), (8, 256, 256, 256)) + tuple(
     (nb, n, n, n) for nb, top in ((1, 514), (8, 258), (1, 386), (8, 194))
     for n in (top, (top + 2) // 2, (top + 6) // 4, (top + 14) // 8, (top + 30) // 16))
-# K6 (B, H, T) and K7 (Ba, T, H, G, L): the tests' and the serving paths' shapes
-_SWA_SHAPES = ((2, 4, 64), (1, 8, 32), (1, 4, 16), (1, 2, 64), (1, 8, 1), (1, 8, 5), (1, 8, 50),
-               (2, 8, 1500), (1, 8, 333), (6, 8, 333), (17, 8, 5), (4, 8, 2048), (1, 8, 1000))
+# K6 (B, H, T, D) and K7 (Ba, T, H, G, L): the tests', the serving and the
+# training paths' shapes
+_SWA_SHAPES = ((2, 4, 64, 32), (1, 8, 32, 16), (1, 4, 16, 32), (1, 2, 64, 64), (1, 8, 1, 256),
+               (1, 8, 5, 256), (1, 8, 50, 256), (2, 8, 1500, 256), (1, 8, 333, 256),
+               (6, 8, 333, 256), (17, 8, 5, 64), (4, 8, 2048, 256), (1, 8, 1000, 256),
+               (4, 32, 2048, 64), (2, 8, 1500, 128))
 # K6's backward (B, H, Hkv, T, S, D): the training paths' shapes
 _SWA_BWD_SHAPES = ((4, 32, 8, 2048, 2048, 64), (2, 8, 4, 1500, 1500, 256), (8, 6, 2, 128, 128, 64),
                    (8, 12, 4, 256, 256, 64), (2, 8, 2, 13, 13, 8))
@@ -129,9 +135,10 @@ def library_plans(sms: int = H100_SMS) -> list[tuple[str, LaunchPlan]]:
     for nb, nx, ny, nz in _CELL_SHAPES:
         for k in ("K1 heat_step", "K2-K5 solver3d"):
             out.append((f"{k}[{nb}x{nx}x{ny}x{nz}]", cell_plan(k, nb, nx, ny, nz)))
+    for bf16 in (False, True):
+        for B, H, T, D in _SWA_SHAPES:
+            out.append((f"K6[{B}x{H}x{T}x{D},bf16={bf16}]", swa_plan(bf16, B, H, T, D, sms)))
     for tc in (False, True):
-        for B, H, T in _SWA_SHAPES:
-            out.append((f"K6[{B}x{H}x{T},tc={tc}]", swa_plan(tc, B, H, T, sms)))
         for Ba, T, H, G, L in _SSD_SHAPES:
             out.append((f"K7[{Ba}x{T}x{H},G={G},L={L},tc={tc}]",
                         ssd_plan(tc, Ba, T, H, G, L, sms)))

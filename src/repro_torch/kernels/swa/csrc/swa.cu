@@ -12,20 +12,22 @@
 // projections without a copy.  The output is written with the strides the
 // launcher gives (it allocates (B, T, H, D)).
 //
-// The dtype alone picks the kernel, here in the C entry point: bfloat16 runs
-// on the tensor cores (swa_kernel_tc), float32 on the CUDA cores
-// (swa_kernel).  Both keep one rule for the mask: a select, never a
-// product.  A masked logit becomes NEG_INF = -1e30 before the row maximum
-// and weighs 0 after it (a kv tile masked for a whole row adds nothing), and
-// a row whose l stayed 0 divides by 1.  Ragged T and S are masked; rows past
-// T are never written.
+// The dtype alone picks the kernel, here in the C entry point; both run on
+// the tensor cores: bfloat16 on wgmma (swa_kernel_tc), float32 in 3xTF32 on
+// mma.sync (swa_kernel_tf32, float32's accuracy from three TF32 products).
+// Both keep one rule for the mask: a select, never a product.  A masked
+// logit becomes NEG_INF = -1e30 before the row maximum and weighs 0 after it
+// (a kv tile masked for a whole row adds nothing), and a row whose l stayed
+// 0 divides by 1.  Ragged T and S are masked; rows past T are never
+// written.
 //
 // Bound.  At gemma3-4b's prefill (B 4, H 8, Hkv 4, T = S = 2048, D 256,
 // bf16) the bytes (q and o 33.5 MB, k and v 33.5 MB) take 0.020 ms at
 // 3.35 TB/s; the unmasked pairs (1.57 M per head at window 1024, 2.10 M
 // global) need 4 D FLOP each: 51.6 / 68.7 GFLOP, 0.052 / 0.069 ms on the
-// bf16 tensor cores, 0.77 / 1.03 ms on the float32 CUDA cores.  So
-// operations bound it, and bf16 belongs on the tensor cores.
+// bf16 tensor cores, 0.31 / 0.42 ms in float32 as three TF32 products
+// (0.77 / 1.03 ms on the float32 CUDA cores).  So operations bound both
+// dtypes, and both belong on the tensor cores.
 //
 // bfloat16: swa_kernel_tc<DP>, FlashAttention-3's shape on wgmma and TMA.
 //  * Tiles and order.  One block per (q tile of BM = 64 nwg rows, batch x
@@ -81,20 +83,53 @@
 //    Q 64 KB (BM 128) + 2 x (32 + 32) KB of K and V = 192 KB, one block per
 //    SM.
 //
-// float32: swa_kernel<NC>, the first (CUDA-core) form, exact to
-// 8.4e-7 of the plain version.  One block of 256 threads per (q tile of 64
-// rows, batch x head) walks only the kv tiles of 64 keys that meet
-// [q_lo - w + 1, q_hi].  Q (scaled on load), K, V and P live in dynamic
-// shared memory as float32 rows padded to D + 4 (212 KB at D 256, one block
-// per SM).  Thread (ti, tj) = (tid / 16, tid % 16) owns rows ti + 16 a
-// (a < 4): it computes logits of columns tj + 16 c (c < 4) with float4
-// reads (a row of 8 lanes reads 8 distinct K rows, conflict free; Q reads
-// are broadcasts), reduces the row maximum and sum over its 16 lanes with
-// shuffles, and accumulates the output columns of the float4 chunks
-// tj + 16 n (n < NC = ceil(D / 64)) in registers (64 at D 256; ptxas
-// 122-168 registers, no spills).  The products, the online softmax and the
-// final division are float32.
-#include "../../csrc/hopper.cuh"
+// float32: swa_kernel_tf32<DP, BN, MT>, 3xTF32 on the tensor cores
+// (tf32.cuh: mma.sync m16n8k8, each operand split into two TF32 parts,
+// three products summed in float32, about 2^-21 of each product left out).
+//  * Bound.  At llama3.2-1b's training shape (B 4, H 32, Hkv 8, T = S =
+//    2048, D 64, global) the 268.6 M unmasked pairs need 4 D FLOP each:
+//    68.75 GFLOP, 0.139 ms at TF32's 495 TFLOP/s and so 0.417 ms in three
+//    products (1.03 ms on the float32 CUDA cores); the bytes (q, k, v and
+//    o) take 0.04 ms.  So operations bound it, and the design spends its
+//    instructions on keeping the tensor cores fed.
+//  * Tiles and order.  One block of four warps per (batch x head, q tile of
+//    64 MT rows), the last q tiles of every head (the longest of a causal
+//    layer) first, so that short blocks fill the last wave; warp w owns the
+//    tile's rows 16 MT w .. 16 MT (w + 1) - 1 as MT m-tiles of 16 (MT 2 at
+//    DP 64, else 1), which share every K and V fragment it loads and
+//    splits.  The block walks only the kv tiles of BN keys (32 at DP 64 and
+//    256, 64 at DP 128) that meet [q_lo - w + 1, q_hi]; a warp skips a tile
+//    that none of its rows sees.
+//  * Loads.  Q once, K and V through a ring of two stages, all by cp.async
+//    (16-byte pieces where the views allow it, else 4-byte ones; rows past T
+//    and S zero-filled), so that tile n + 1 loads under the products of tile
+//    n.  Shared rows are DP + 4 floats, so no fragment load meets a bank
+//    conflict; the pad columns D .. DP are zero (they add exact zeros) and
+//    the products run over D rounded up to 8 only.
+//  * Products.  S = Q K^T and O += P V, each 3xTF32; every operand is split
+//    in registers right after its load (Q's fragment once per k-step for all
+//    BN keys), and the products go out term by term over groups of four
+//    n-tiles (tf32.cuh, mma3_group), so that no MMA waits on the one before.
+//    S is formed as swa_bwd_dq forms it, fragment for fragment, so that the
+//    backward's P = exp(S - LSE) meets this LSE bit for bit.  P never leaves
+//    the registers: the accumulator of S over 8 keys is the A operand of
+//    P V over those keys under a permuted key order (tf32.cuh, acc_to_a and
+//    load_b_kn_perm), so no shuffle and no shared memory carries it.  A
+//    tensor-core accumulator cuts each sum toward zero, so it holds one
+//    tile's P V only (from zero, in chunks of 64 columns, 32 when MT is 2 or
+//    DP 256): O = O alpha + P V is an fmaf on the CUDA cores, rounded to
+//    nearest.
+//  * Softmax.  Logits scaled into log2 units in float32; a masked one
+//    becomes NEG_INF by a select before the row maximum; m and l per row
+//    (l summed per thread, over the four lanes of a row at the end);
+//    O / l by a float32 division; the LSE, in natural units, is
+//    m ln 2 + log l.  A kv tile inside every row's window of a warp takes
+//    no select.
+//  * Resources.  Shared memory (64 MT + 4 BN)(DP + 4) floats: 70 KB at DP
+//    64 (two blocks per SM), 169 KB at DP 128, 200 KB at DP 256.  ptxas
+//    (-Xptxas -v, sm_90a, nvcc 12.9): 212 / 208 / 225 registers at DP 64 /
+//    128 / 256, no spills.
+#include "tf32.cuh"
 
 #include <algorithm>
 #include <climits>
@@ -102,24 +137,32 @@
 
 namespace {
 
-constexpr int kBQ = 64;
-constexpr int kBK = 64;
-constexpr int kThreads = 256;
+constexpr int kF32Rows = 64;      // q rows per m-tile of all four warps of a float32 block
+constexpr int kF32Threads = 128;
 constexpr int kMaxD = 256;
 
 // The launch plan of either kernel (kernels/plans.py::swa_plan mirrors it):
 // blocks along x and y, threads per block and q rows per block.  The
-// CUDA-core kernel takes kBQ rows of one (batch, head) per block; the
-// tensor-core kernel 64 rows per consumer warpgroup, two warpgroups when
-// the grid fills the SMs.
+// float32 kernel takes 64 rows of one (batch, head) per block, x over
+// (batch, head) and y over q tiles, the last first; the bfloat16
+// kernel 64 rows per consumer warpgroup, two warpgroups when the grid fills
+// the SMs.
 struct Plan {
   long long gx, gy;
   int threads, rows;
 };
 
-Plan plan_for(bool tensor_cores, int B, int H, int T, int sms) {
+// m-tiles of 16 rows a warp of the float32 kernel holds at padded width DP
+// (its registers allow two at DP 64), and so its q rows per block
+constexpr int f32_mt(int DP) { return DP <= 64 ? 2 : 1; }
+inline int f32_rows(int D) { return kF32Rows * f32_mt(D <= 64 ? 64 : D <= 128 ? 128 : 256); }
+
+Plan plan_for(bool bf16, int B, int H, int T, int D, int sms) {
   const long long n_bh = static_cast<long long>(B) * H;
-  if (!tensor_cores) return Plan{(T + kBQ - 1) / kBQ, n_bh, kThreads, kBQ};
+  if (!bf16) {
+    const int bm = f32_rows(D);
+    return Plan{n_bh, (T + bm - 1) / bm, kF32Threads, bm};
+  }
   const int nwg = n_bh * ((T + 127) / 128) >= sms ? 2 : 1;
   return Plan{n_bh * ((T + 64 * nwg - 1) / (64 * nwg)), 1, 128 * nwg + 128, 64 * nwg};
 }
@@ -130,10 +173,9 @@ int sm_count(int* sms) {
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
   return static_cast<int>(err);
 }
-constexpr float kNegInf = -1e30f;
 
 // ===========================================================================
-// float32: the CUDA-core kernel
+// float32: 3xTF32 on the tensor cores
 // ===========================================================================
 
 struct Dims {
@@ -145,201 +187,211 @@ struct Dims {
   long long ob, oh, ot;  // output
 };
 
-// floats of dynamic shared memory: Q, K, V (64 rows of D + 4 each) and P
-// (64 x 68)
-__host__ __device__ inline size_t smem_floats(int D) {
-  return 3 * static_cast<size_t>(kBQ) * (D + 4) + static_cast<size_t>(kBQ) * (kBK + 4);
+// keys per kv tile: 32 at DP 64 and 256, 64 at DP 128
+constexpr int f32_bn(int DP) { return DP == 128 ? 64 : 32; }
+
+// bytes of dynamic shared memory: Q (64 MT rows), K and V (two stages of BN
+// rows each), rows of DP + 4 floats
+inline size_t f32_smem_bytes(int DP) {
+  return static_cast<size_t>(kF32Rows * f32_mt(DP) + 4 * f32_bn(DP)) * (DP + 4) * sizeof(float);
 }
 
-template <int NC>
-__global__ void __launch_bounds__(kThreads, 1)
-swa_kernel(const float* __restrict__ q, const float* __restrict__ k,
-           const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
-           Dims d) {
+// Accumulator fragments (g = lane / 4, t = lane % 4): rows g (entries 0, 1)
+// and g + 8 (2, 3) of each of the warp's MT m-tiles of 16 rows, columns
+// 8 j + 2 t + {0, 1} of n-tile j.  Row statistics are [m][half], half 0 for
+// row g and 1 for row g + 8.
+template <int DP, int BN, int MT>
+__global__ void __launch_bounds__(kF32Threads, DP <= 64 ? 2 : 1)
+swa_kernel_tf32(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                Dims d, int vec) {
+  constexpr int LD = DP + 4, NT = BN / 8, NO = DP / 8, BM = kF32Rows * MT;
+  constexpr int CH = MT == 1 && DP <= 128 ? 8 : 4;
   extern __shared__ __align__(16) float sm[];
-  const int D = d.D, LD = D + 4, LP = kBK + 4;
-  float* qs = sm;              // [kBQ][LD]
-  float* ks = qs + kBQ * LD;   // [kBK][LD]
-  float* vs = ks + kBK * LD;   // [kBK][LD]
-  float* ps = vs + kBK * LD;   // [kBQ][LP]
-  const int b = blockIdx.y / d.H, h = blockIdx.y - (blockIdx.y / d.H) * d.H;
-  const int hk = h / (d.H / d.Hkv);
-  const int i0 = blockIdx.x * kBQ;
-  const int s_off = d.S - d.T;
-  const int tid = threadIdx.x, ti = tid >> 4, tj = tid & 15;
-
-  // ---- the q tile, scaled, float32; rows past T are zero ------------------
-  const float* qg = q + b * d.qb + h * d.qh;
-  for (int e = tid; e < kBQ * D; e += kThreads) {
-    const int r = e / D, c = e - r * D, i = i0 + r;
-    qs[r * LD + c] = i < d.T ? qg[i * d.qt + c] * d.scale : 0.f;
-  }
-
-  // ---- the kv tiles that meet the window of some row of this tile ---------
-  const int q_lo = i0 + s_off;
-  const int q_hi = min(i0 + kBQ, d.T) - 1 + s_off;
-  const int kv_lo = max(0, q_lo - d.w + 1);
+  float* qs = sm;                   // [BM][LD]
+  float* ks = qs + BM * LD;         // [2][BN][LD]
+  float* vs = ks + 2 * BN * LD;     // [2][BN][LD]
+  const int nq = (d.T + BM - 1) / BM;
+  const int bh = blockIdx.x, b = bh / d.H, h = bh - b * d.H, hk = h / (d.H / d.Hkv);
+  const int i0 = (nq - 1 - static_cast<int>(blockIdx.y)) * BM, s_off = d.S - d.T;
+  const int wp = threadIdx.x >> 5, g = (threadIdx.x >> 2) & 7, t = threadIdx.x & 3;
+  const int nk = (d.D + 7) / 8;   // k-steps of S, live n-tiles of O
   const float* kg = k + b * d.kb + hk * d.kh;
   const float* vg = v + b * d.vb + hk * d.vh;
 
-  float m[4], l[4], acc[4][NC][4];
+  // the kv tiles that meet the window of some row of this block
+  const int q_lo = i0 + s_off, q_hi = min(i0 + BM, d.T) - 1 + s_off;
+  const int j_first = (max(0, q_lo - d.w + 1) / BN) * BN;
+  const int ntiles = (q_hi - j_first) / BN + 1;
+
+  zero_pad(sm, BM + 4 * BN, d.D, DP, LD);
+  load_rows_async(qs, q + b * d.qb + h * d.qh, d.qt, i0, BM, d.T, d.D, LD, vec);
+  load_rows_async(ks, kg, d.ks, j_first, BN, d.S, d.D, LD, vec);
+  load_rows_async(vs, vg, d.vs, j_first, BN, d.S, d.D, LD, vec);
+  cp_commit();
+
+  // this warp's rows r0 .. r0 + 16 MT - 1; row g (+ 8) of m-tile m is
+  // r0 + 16 m + g (+ 8)
+  const int r0 = i0 + 16 * MT * wp;
+  const int p_lo = r0 + s_off, p_hi = min(r0 + 16 * MT - 1, d.T - 1) + s_off;
+  const float c = d.scale * kLog2e;
+  const float* qw = qs + 16 * MT * wp * LD;
+
+  float acc[MT][NO][4], m_run[MT][2], l_run[MT][2];   // l: this thread's columns
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    m[a] = kNegInf;
-    l[a] = 0.f;
-#pragma unroll
-    for (int n = 0; n < NC; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[a][n][e] = 0.f;
+  for (int m = 0; m < MT; ++m) {
+    zero(acc[m]);
+    m_run[m][0] = m_run[m][1] = kNegInf;
+    l_run[m][0] = l_run[m][1] = 0.f;
   }
 
-  for (int j0 = (kv_lo / kBK) * kBK; j0 <= q_hi; j0 += kBK) {
-    __syncthreads();  // the previous tile's K, V and P are read
-    for (int e = tid; e < kBK * D; e += kThreads) {
-      const int r = e / D, c = e - r * D, j = j0 + r;
-      const bool in = j < d.S;
-      ks[r * LD + c] = in ? kg[j * d.ks + c] : 0.f;
-      vs[r * LD + c] = in ? vg[j * d.vs + c] : 0.f;
+  for (int n = 0; n < ntiles; ++n) {
+    const int j0 = j_first + n * BN;
+    if (n + 1 < ntiles) {   // tile n + 1 into the other stage, under this tile's products
+      const int st = (n + 1) & 1;
+      load_rows_async(ks + st * BN * LD, kg, d.ks, j0 + BN, BN, d.S, d.D, LD, vec);
+      load_rows_async(vs + st * BN * LD, vg, d.vs, j0 + BN, BN, d.S, d.D, LD, vec);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
     }
     __syncthreads();
-
-    // logits of rows ti + 16 a, columns tj + 16 c
-    float s[4][4];
+    const float* kt = ks + (n & 1) * BN * LD;
+    const float* vt = vs + (n & 1) * BN * LD;
+    if (r0 < d.T && j0 <= p_hi && j0 + BN - 1 > p_lo - d.w) {
+      // S = Q K^T, each K fragment loaded and split once for the MT m-tiles
+      float s[MT][NT][4];
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+      for (int m = 0; m < MT; ++m) zero(s[m]);
 #pragma unroll
-      for (int c = 0; c < 4; ++c) s[a][c] = 0.f;
-    for (int dd = 0; dd < D; dd += 4) {
-      float4 qa[4], kc[4];
+      for (int kk = 0; kk < DP / 8; ++kk) {
+        if (kk >= nk) break;
+        FragA a[MT];
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
-        qa[a] = *reinterpret_cast<const float4*>(qs + (ti + 16 * a) * LD + dd);
+        for (int m = 0; m < MT; ++m) load_a(a[m], qw + 16 * m * LD + 8 * kk, LD, g, t);
 #pragma unroll
-      for (int c = 0; c < 4; ++c)
-        kc[c] = *reinterpret_cast<const float4*>(ks + (tj + 16 * c) * LD + dd);
+        for (int jg = 0; jg < NT; jg += 4) {
+          FragB bf[4];
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
+          for (int j = 0; j < 4; ++j) load_b_nk(bf[j], kt + 8 * (jg + j) * LD + 8 * kk, LD, g, t);
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          float t = s[a][c];
-          t = fmaf(qa[a].x, kc[c].x, t);
-          t = fmaf(qa[a].y, kc[c].y, t);
-          t = fmaf(qa[a].z, kc[c].z, t);
-          s[a][c] = fmaf(qa[a].w, kc[c].w, t);
+          for (int m = 0; m < MT; ++m) mma3_group(s[m], jg, a[m], bf);
         }
-    }
-
-    // online softmax: the mask selects, the row statistics reduce over the
-    // 16 lanes that share a row
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int r = ti + 16 * a;
-      const int qpos = i0 + r + s_off;
-      const bool row_in = i0 + r < d.T;
-      bool mk[4];
-      float mx = kNegInf;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int kpos = j0 + tj + 16 * c;
-        mk[c] = row_in && kpos < d.S && kpos <= qpos && kpos > qpos - d.w;
-        s[a][c] = mk[c] ? s[a][c] : kNegInf;
-        mx = fmaxf(mx, s[a][c]);
       }
+      // the online softmax in log2 units; the mask selects
+      const bool inside = j0 + BN - 1 <= p_lo && j0 > p_hi - d.w;
+      float alpha[MT][2];
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[a], mx);
-      float rs = 0.f;
+      for (int m = 0; m < MT; ++m) {
+        float mx[2] = {m_run[m][0], m_run[m][1]};
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float p = mk[c] ? expf(s[a][c] - m_new) : 0.f;
-        ps[r * LP + tj + 16 * c] = p;
-        rs += p;
-      }
+        for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      const float alpha = expf(m[a] - m_new);
-      l[a] = alpha * l[a] + rs;
-      m[a] = m_new;
-#pragma unroll
-      for (int n = 0; n < NC; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[a][n][e] *= alpha;
-    }
-    __syncthreads();
-
-    // acc += P V on the output chunks tj + 16 n
-    for (int j = 0; j < kBK; ++j) {
-      float pa[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) pa[a] = ps[(ti + 16 * a) * LP + j];
-#pragma unroll
-      for (int n = 0; n < NC; ++n) {
-        const int col = 4 * (tj + 16 * n);
-        if (col < D) {
-          const float4 vv = *reinterpret_cast<const float4*>(vs + j * LD + col);
-#pragma unroll
-          for (int a = 0; a < 4; ++a) {
-            acc[a][n][0] = fmaf(pa[a], vv.x, acc[a][n][0]);
-            acc[a][n][1] = fmaf(pa[a], vv.y, acc[a][n][1]);
-            acc[a][n][2] = fmaf(pa[a], vv.z, acc[a][n][2]);
-            acc[a][n][3] = fmaf(pa[a], vv.w, acc[a][n][3]);
+          for (int e = 0; e < 4; ++e) {
+            float x = s[m][j][e] * c;
+            if (!inside) {
+              const int kpos = j0 + 8 * j + 2 * t + (e & 1);
+              const int qp = r0 + 16 * m + g + ((e & 2) ? 8 : 0) + s_off;
+              x = (kpos <= qp && kpos > qp - d.w) ? x : kNegInf;
+            }
+            s[m][j][e] = x;
+            mx[e >> 1] = fmaxf(mx[e >> 1], x);
           }
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+#pragma unroll
+          for (int off = 1; off < 4; off <<= 1)
+            mx[half] = fmaxf(mx[half], __shfl_xor_sync(0xffffffffu, mx[half], off));
+          alpha[m][half] = exp2f(m_run[m][half] - mx[half]);
+          m_run[m][half] = mx[half];
+        }
+        // a row with no key yet subtracts 0, so its masked logits give exp2(-1e30) = 0
+        const float sub[2] = {mx[0] == kNegInf ? 0.f : mx[0], mx[1] == kNegInf ? 0.f : mx[1]};
+        float rs[2] = {0.f, 0.f};
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float p = exp2f(s[m][j][e] - sub[e >> 1]);
+            s[m][j][e] = p;
+            rs[e >> 1] += p;
+          }
+        l_run[m][0] = alpha[m][0] * l_run[m][0] + rs[0];
+        l_run[m][1] = alpha[m][1] * l_run[m][1] + rs[1];
+      }
+      // O = O alpha + P V, P from the registers that held S; P V of this tile
+      // on the tensor cores from zero, in chunks of CH n-tiles, each V
+      // fragment split once for the MT m-tiles, added by fmaf
+#pragma unroll
+      for (int jc = 0; jc < NO; jc += CH) {
+        if (jc < nk) {
+          float pv[MT][CH][4];
+          tile_product<MT, NT, CH>(pv, s, vt, LD, jc, nk, g, t);
+#pragma unroll
+          for (int m = 0; m < MT; ++m)
+#pragma unroll
+            for (int j = 0; j < CH; ++j)
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                acc[m][jc + j][e] = fmaf(acc[m][jc + j][e], alpha[m][e >> 1], pv[m][j][e]);
         }
       }
     }
+    __syncthreads();   // every warp has read this stage before tile n + 2 refills it
   }
 
   // ---- out = acc / l (l == 0 divides by 1); rows past T are not written --
-  // lse (when given, for the backward swa_bwd.cu): m + log l per row, (B, H, T)
+  // lse (when given, for the backward swa_bwd.cu): (B, H, T), natural units
+  if (r0 >= d.T) return;
+  float* og = o + b * d.ob + h * d.oh;
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int i = i0 + ti + 16 * a;
-    if (i >= d.T) continue;
-    if (lse != nullptr && tj == 0) lse[static_cast<long long>(blockIdx.y) * d.T + i] =
-        m[a] + logf(l[a]);
-    const float den = l[a] == 0.f ? 1.f : l[a];
-    float* og = o + b * d.ob + h * d.oh + i * d.ot;
+  for (int m = 0; m < MT; ++m)
 #pragma unroll
-    for (int n = 0; n < NC; ++n) {
-      const int col = 4 * (tj + 16 * n);
-      if (col < D) {
+    for (int half = 0; half < 2; ++half) {
+      float l = l_run[m][half];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) og[col + e] = acc[a][n][e] / den;
+      for (int off = 1; off < 4; off <<= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
+      const int i = r0 + 16 * m + g + 8 * half;
+      if (i >= d.T) continue;
+      if (lse != nullptr && t == 0)
+        lse[static_cast<long long>(bh) * d.T + i] = m_run[m][half] * kLn2 + logf(l);
+      const float den = l == 0.f ? 1.f : l;
+#pragma unroll
+      for (int j = 0; j < NO; ++j) {
+        const int col = 8 * j + 2 * t;
+        if (col < d.D) {
+          og[i * d.ot + col] = acc[m][j][2 * half] / den;
+          og[i * d.ot + col + 1] = acc[m][j][2 * half + 1] / den;
+        }
       }
     }
-  }
 }
 
-template <int NC>
-int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-           const Dims& d, cudaStream_t stream) {
-  const size_t bytes = smem_floats(d.D) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(swa_kernel<NC>,
+template <int DP>
+int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+               const Dims& d, cudaStream_t stream) {
+  constexpr int BN = f32_bn(DP), MT = f32_mt(DP);
+  const size_t bytes = f32_smem_bytes(DP);
+  cudaError_t err = cudaFuncSetAttribute(swa_kernel_tf32<DP, BN, MT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const Plan pl = plan_for(false, B, d.H, d.T, 0);
+  const Plan pl = plan_for(false, B, d.H, d.T, d.D, 0);
+  const int vec = vec_ok(q, d.qb, d.qh, d.qt) && vec_ok(k, d.kb, d.kh, d.ks) &&
+                  vec_ok(v, d.vb, d.vh, d.vs);
   const dim3 grid(static_cast<unsigned>(pl.gx), static_cast<unsigned>(pl.gy));
-  swa_kernel<NC><<<grid, pl.threads, bytes, stream>>>(
+  swa_kernel_tf32<DP, BN, MT><<<grid, pl.threads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), lse, d);
+      static_cast<float*>(o), lse, d, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
 int run_f32(const void* q, const void* k, const void* v, void* o, float* lse, int B,
             const Dims& d, cudaStream_t stream) {
-  switch ((d.D + 63) / 64) {
-    case 1:
-      return launch<1>(q, k, v, o, lse, B, d, stream);
-    case 2:
-      return launch<2>(q, k, v, o, lse, B, d, stream);
-    case 3:
-      return launch<3>(q, k, v, o, lse, B, d, stream);
-    case 4:
-      return launch<4>(q, k, v, o, lse, B, d, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (d.D <= 64) return launch_f32<64>(q, k, v, o, lse, B, d, stream);
+  if (d.D <= 128) return launch_f32<128>(q, k, v, o, lse, B, d, stream);
+  return launch_f32<256>(q, k, v, o, lse, B, d, stream);
 }
 
 // ===========================================================================
@@ -349,7 +401,6 @@ int run_f32(const void* q, const void* k, const void* v, void* o, float* lse, in
 constexpr int kTcBN = 64;          // keys per kv tile
 constexpr int kTcStages = 2;       // stages of the K ring and of the V ring
 constexpr int kTcThreads = 384;    // two consumer warpgroups and the producer
-constexpr float kLog2e = 1.4426950408889634f;
 
 struct TcDims {
   int H, Hkv, T, S, D, w, nwg, n_bh;
@@ -708,7 +759,7 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B, const
   const int e_sm = sm_count(&sms);
   if (e_sm != 0) return e_sm;
   const long long n_bh = static_cast<long long>(B) * d.H;
-  const Plan pl = plan_for(true, B, d.H, d.T, sms);
+  const Plan pl = plan_for(true, B, d.H, d.T, d.D, sms);
   const int nwg = pl.rows / 64;
   const long long blocks = pl.gx;
   if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
@@ -740,12 +791,12 @@ int run_tc(const void* q, const void* k, const void* v, void* o, int B, const Di
 
 }  // namespace
 
-// dtype 0: float32 (the CUDA-core kernel), 1: bfloat16 (the tensor-core
-// kernel), for q, k, v and the output.  strides: the batch, head and time
+// dtype 0: float32 (the 3xTF32 kernel), 1: bfloat16 (the wgmma kernel), for
+// q, k, v and the output.  strides: the batch, head and time
 // strides of q, k, v and the output, in that order (bfloat16: q, k and v
 // 16-byte aligned, their strides positive multiples of 8 elements, for the
-// TMA tensor maps).  w: the window, at most S.  *kernel
-// is set to the kernel launched (0 CUDA cores, 1 tensor cores).  lse: null,
+// TMA tensor maps).  w: the window, at most S.  *kernel is set to the kind
+// of kernel launched (0 CUDA cores, 1 tensor cores; both dtypes give 1).  lse: null,
 // or (float32 only) a (B, H, T) float32 buffer that receives each row's
 // log-sum-exp of the scaled logits, for the backward (swa_bwd.cu).  Returns
 // the CUDA error code of the launch (0: launched).
@@ -762,7 +813,7 @@ extern "C" int repro_swa_attention(int dtype, const void* q, const void* k, cons
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      *kernel = 0;
+      *kernel = 1;
       return run_f32(q, k, v, o, static_cast<float*>(lse), B, d, st);
     case 1:
       *kernel = 1;
@@ -772,17 +823,18 @@ extern "C" int repro_swa_attention(int dtype, const void* q, const void* k, cons
   }
 }
 
-// The launch plan repro_swa_attention uses for (B, H, T) (dtype picks the
-// kernel as there): out[0..3] = blocks along x and y, threads per block, q
-// rows per block.  Returns a CUDA error code.
-extern "C" int repro_swa_plan(int dtype, int B, int H, int T, long long* out) {
-  if (dtype < 0 || dtype > 1 || T < 1) return static_cast<int>(cudaErrorInvalidValue);
+// The launch plan repro_swa_attention uses for (B, H, T) at head width D
+// (dtype picks the kernel as there): out[0..3] = blocks along x and y,
+// threads per block, q rows per block.  Returns a CUDA error code.
+extern "C" int repro_swa_plan(int dtype, int B, int H, int T, int D, long long* out) {
+  if (dtype < 0 || dtype > 1 || T < 1 || D <= 0 || D > kMaxD)
+    return static_cast<int>(cudaErrorInvalidValue);
   int sms = 0;
   if (dtype == 1) {
     const int e = sm_count(&sms);
     if (e != 0) return e;
   }
-  const Plan p = plan_for(dtype == 1, B, H, T, sms);
+  const Plan p = plan_for(dtype == 1, B, H, T, D, sms);
   out[0] = p.gx;
   out[1] = p.gy;
   out[2] = p.threads;

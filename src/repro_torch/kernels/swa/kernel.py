@@ -10,29 +10,34 @@ D contiguous: the model passes transposed views of its ``(B, T, H, D)``
 projections.  The output is allocated ``(B, T, H, D)`` with
 ``torch.empty`` and returned as its ``(B, H, T, D)`` view.
 
-The dtype alone picks the kernel, inside the C entry point: bfloat16 runs
-on the tensor cores (``wgmma``), float32 on the CUDA cores (the first,
-exact form).  There is no other switch.  The tensor-core kernel loads q, k and v
-through TMA tensor maps, which need 16-byte aligned views with strides of
-16-byte multiples: a bfloat16 view without them is copied first into an
-aligned buffer (the model's views are never copied).
+The dtype alone picks the kernel, inside the C entry point, and both run on
+the tensor cores: bfloat16 on ``wgmma``, float32 in 3xTF32 on ``mma.sync``
+(each operand split into two TF32 parts, three products summed in
+float32: float32's accuracy).  There is no other switch.  The bfloat16
+kernel loads q, k and v through TMA tensor maps, which need 16-byte aligned
+views with strides of 16-byte multiples: a bfloat16 view without them is
+copied first into an aligned buffer (the model's views are never copied).
+The float32 kernels read any view as it is (``cp.async`` in 16-byte pieces
+where it is aligned, else in 4-byte ones).
 
 It checks device, dtype (float32, bfloat16), shapes, strides and the
 kernel's limits (D a multiple of 4, at most 256), raises on anything
 else, launches on the current CUDA stream without synchronising, and
 raises if the launch was refused.  ``swa_attention_cuda.launches`` counts
 the launches, ``swa_attention_cuda.tc_launches`` those the C entry point
-reports as tensor-core launches.  :func:`c_plan` is the C entry point's
-launch plan, which ``chip_smoke.py`` holds against the analyzer's
-(:func:`repro_torch.kernels.plans.swa_plan`) at every shape it launched.
+reports as tensor-core launches (every launch of either dtype).
+:func:`c_plan` is the C entry point's launch plan, which ``chip_smoke.py``
+holds against the analyzer's (:func:`repro_torch.kernels.plans.swa_plan`)
+at every shape it launched.
 Under an analyzer check the wrapper records that plan and launches nothing.
 
 With ``return_lse=True`` (float32 only) the forward also returns each
 row's log-sum-exp of the scaled logits, ``(B, H, T)`` float32, which
 :func:`swa_backward_cuda` takes: the backward of the float32 kernel, three
-launches on the current stream (Drow, dK/dV, dQ; no atomics), counted once
-per call in ``swa_backward_cuda.launches``.  Its plans are
-:func:`bwd_c_plan` and :func:`repro_torch.kernels.plans.swa_bwd_plans`.
+launches on the current stream (Drow; dK/dV and dQ in 3xTF32 on the
+tensor cores; no atomics), counted once per call in
+``swa_backward_cuda.launches``.  Its plans are :func:`bwd_c_plan` and
+:func:`repro_torch.kernels.plans.swa_bwd_plans`.
 """
 
 from __future__ import annotations
@@ -70,14 +75,14 @@ def _bwd_entry():
     return fn
 
 
-def c_plan(dtype: torch.dtype, B: int, H: int, T: int) -> tuple:
-    """The C entry point's launch plan for (B, H, T): blocks along x and y,
-    threads per block, q rows per block."""
+def c_plan(dtype: torch.dtype, B: int, H: int, T: int, D: int) -> tuple:
+    """The C entry point's launch plan for (B, H, T) at head width D: blocks
+    along x and y, threads per block, q rows per block."""
     fn = _build.load().repro_swa_plan
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
     fn.restype = ctypes.c_int
     out = (ctypes.c_longlong * 4)()
-    err = fn(DTYPE_CODES[dtype], B, H, T, out)
+    err = fn(DTYPE_CODES[dtype], B, H, T, D, out)
     if err != 0:
         raise RuntimeError(f"repro_swa_plan failed with CUDA error {err}")
     return tuple(out)
@@ -111,8 +116,8 @@ def swa_attention_cuda(q, k, v, *, window: int, scale: float | None = None,
     ``return_lse``: also return the rows' log-sum-exp (float32 only)."""
     where = "swa_attention_cuda"
     if _mk.TRACE is not None:   # an analyzer check: record the plan, launch nothing
-        B, H, T, _ = q.shape
-        plan = swa_plan(q.dtype == torch.bfloat16, B, H, T, H100_SMS)
+        B, H, T, D = q.shape
+        plan = swa_plan(q.dtype == torch.bfloat16, B, H, T, D, H100_SMS)
         if not return_lse:
             return _mk.TRACE.kernel(plan, (q, k, v))
         o, lse = _mk.TRACE.kernel(plan, (q, k, v), n_out=2)

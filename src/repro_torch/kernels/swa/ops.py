@@ -5,8 +5,8 @@ version on a CPU tensor.
 :mod:`repro_torch.kernels.dispatch`.  :func:`swa_attention` is K6's one
 dispatch point; the model's attention calls it for every causal
 self-attention in train and prefill, at any T.  On a CUDA tensor the
-dtype alone then picks K6's kernel: bfloat16 runs on the tensor cores,
-float32 on the CUDA cores.  Where grad mode is on and q, k or v requires
+dtype alone then picks K6's kernel, both on the tensor cores: bfloat16 on
+``wgmma``, float32 in 3xTF32.  Where grad mode is on and q, k or v requires
 grad (training), the CUDA route is a ``torch.autograd.Function``: K6's
 float32 forward, which also writes the rows' log-sum-exp, and K6's
 backward kernel (``swa_backward_cuda``); bfloat16 raises there (the

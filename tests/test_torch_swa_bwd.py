@@ -42,8 +42,15 @@ TOL = 1e-5
 
 @pytest.mark.parametrize("shape", plans._SWA_BWD_SHAPES + ((1, 4, 1, 50, 77, 128),))
 def test_backward_plans_cover_their_outputs(shape):
-    for plan in plans.swa_bwd_plans(*shape):
+    B, H, Hkv, T, S, D = shape
+    drow, dkdv, dq = plans.swa_bwd_plans(*shape)
+    for plan in (drow, dkdv, dq):
         assert launchgrid.check_plan(plan) == [], plan.kernel
+    # the tensor-core kernels: four warps a block, 64 keys and 128 q rows (64 above D 64)
+    bm = 128 if D <= 64 else 64
+    assert dkdv.block == dq.block == (128, 1, 1)
+    assert dkdv.tile == (1, 1, 64) and dq.tile == (1, 1, bm)
+    assert dkdv.grid == (B * Hkv, -(-S // 64), 1) and dq.grid == (B * H, -(-T // bm), 1)
 
 
 def test_backward_records_its_plans_under_a_check_and_launches_nothing():
@@ -58,8 +65,9 @@ def test_backward_records_its_plans_under_a_check_and_launches_nothing():
     with trace.recording([q, k, v, o, do, lse]):
         o2, lse2 = kswa.swa_attention_cuda(q, k, v, window=16, return_lse=True)
         dq, dk, dv = kswa.swa_backward_cuda(q, k, v, o, do, lse, window=16)
-    assert [p.kernel for p in trace.launches] == ["K6 swa_kernel", "K6b swa_bwd_drow",
+    assert [p.kernel for p in trace.launches] == ["K6 swa_kernel_tf32", "K6b swa_bwd_drow",
                                                   "K6b swa_bwd_dkdv", "K6b swa_bwd_dq"]
+    assert trace.launches[0] == plans.swa_plan(False, B, H, T, D)
     assert trace.launches[1:] == list(plans.swa_bwd_plans(B, H, Hkv, T, S, D))
     assert (o2.shape, lse2.shape) == (q.shape, lse.shape)
     assert (dq.shape, dk.shape, dv.shape) == (q.shape, k.shape, v.shape)
