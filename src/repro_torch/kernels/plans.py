@@ -6,12 +6,12 @@
   tiles, z over (x tiles) x blocks of the field.  The wrappers pass
   ``plan.grid`` and ``plan.block`` to the C entry points, which launch
   that grid and refuse a block they were not compiled for.
-* K6 (``swa.cu``), its backward (``swa_bwd.cu``) and K7 (``ssd.cu``): the
-  C entry points choose the plan themselves (from the dtype and the SM
-  count); these functions mirror that choice and the kernels' block -> tile
-  arithmetic, and ``chip_smoke.py`` holds them against the C entry points'
-  ``repro_swa_plan`` / ``repro_swa_bwd_plan`` / ``repro_ssd_plan`` at every
-  shape it launches.
+* K6 (``swa.cu``), its backward (``swa_bwd.cu``), K7 (``ssd.cu``) and its
+  backward (``ssd_bwd.cu``): the C entry points choose the plan themselves
+  (from the dtype and the SM count); these functions mirror that choice and
+  the kernels' block -> tile arithmetic, and ``chip_smoke.py`` holds them
+  against the C entry points' ``repro_swa_plan`` / ``repro_swa_bwd_plan`` /
+  ``repro_ssd_plan`` / ``repro_ssd_bwd_plan`` at every shape it launches.
 """
 
 from __future__ import annotations
@@ -109,6 +109,15 @@ def ssd_plan(tensor_cores: bool, Ba: int, T: int, H: int, G: int, L: int,
                       shape=(Ba, nc, H), tile=(1, 1, hs), guard=(False,) * 3, out_map=out_map)
 
 
+def ssd_bwd_plan(Ba: int, T: int, H: int, G: int, L: int) -> LaunchPlan:
+    """K7's backward over (batch, chunk, head): one head of one chunk per
+    block of 256 threads, the float32 forward's grid (G only picks the
+    group a head reads)."""
+    return LaunchPlan("K7b ssd_bwd_kernel", grid=(T // L, H, Ba), block=(256, 1, 1),
+                      shape=(Ba, T // L, H), tile=(1, 1, 1), guard=(False,) * 3,
+                      out_map=lambda gx, gy, gz: (gz, gx, gy))
+
+
 # (nb, nx, ny, nz) of K1-K5 launches: the tests' blocks, the main paths'
 # blocks and every level of their multigrid hierarchies
 _CELL_SHAPES = ((1, 10, 10, 10), (8, 10, 10, 10), (1, 18, 18, 18), (8, 6, 6, 6), (1, 5, 7, 33),
@@ -126,6 +135,9 @@ _SWA_BWD_SHAPES = ((4, 32, 8, 2048, 2048, 64), (2, 8, 4, 1500, 1500, 256), (8, 6
                    (8, 12, 4, 256, 256, 64), (2, 8, 2, 13, 13, 8))
 _SSD_SHAPES = ((4, 2048, 64, 1, 64), (1, 1000, 64, 1, 50), (2, 7, 64, 1, 1), (2, 64, 8, 2, 8),
                (2, 20, 8, 1, 5))
+# K7's backward (Ba, T, H, G, L): the training paths' shapes
+_SSD_BWD_SHAPES = ((4, 2048, 64, 1, 64), (4, 2048, 128, 1, 64), (8, 128, 6, 1, 16),
+                   (1, 1000, 64, 1, 50), (2, 64, 8, 2, 8), (2, 16, 8, 1, 8))
 
 
 def library_plans(sms: int = H100_SMS) -> list[tuple[str, LaunchPlan]]:
@@ -145,4 +157,6 @@ def library_plans(sms: int = H100_SMS) -> list[tuple[str, LaunchPlan]]:
     for shape in _SWA_BWD_SHAPES:
         for plan in swa_bwd_plans(*shape):
             out.append((f"{plan.kernel}[{'x'.join(map(str, shape))}]", plan))
+    for Ba, T, H, G, L in _SSD_BWD_SHAPES:
+        out.append((f"K7b[{Ba}x{T}x{H},G={G},L={L}]", ssd_bwd_plan(Ba, T, H, G, L)))
     return out

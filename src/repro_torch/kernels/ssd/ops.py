@@ -4,11 +4,13 @@ CPU tensor.
 ``use_kernel``: ``"auto" | "cuda" | "ref"`` through
 :mod:`repro_torch.kernels.dispatch`, plus ``"naive"`` for the sequential
 scan.  ``"ref"`` is ``ssd_chunked_ref``; ``"auto"`` on a CUDA tensor is
-``ssd_kernel`` (K7), which raises on whatever it does not take.  K7 has no
-backward kernel yet: on the CUDA route with grad mode on and an input that
-requires grad, :func:`ssd_scan` raises ``NotImplementedError`` rather than
-return a result without a gradient (``use_kernel="ref"`` stays the
-caller's explicit choice).
+``ssd_kernel`` (K7), which raises on whatever it does not take.  K7 runs
+there behind a ``torch.autograd.Function`` (``kernel._SsdCuda``): where
+autograd asks for the block's gradient (training), K7's backward kernel
+(``ssd_backward_cuda``, ``csrc/ssd_bwd.cu``, float32) computes it; the
+in-chunk decay ``s``, the inter-chunk recurrence and ``Y_off`` stay in
+PyTorch and its autograd.  bfloat16 with gradients wanted raises here,
+naming float32.  A CPU tensor keeps the plain scan and plain autograd.
 """
 
 from __future__ import annotations
@@ -36,12 +38,11 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 64, use_kernel: str = "auto", h0=No
         return ssd_ref(x, dt, A, B, C, h0=h0)
     if dispatch.resolve(use_kernel, x, where="ssd.ssd_scan") == "ref":
         return ssd_chunked_ref(x, dt, A, B, C, chunk=chunk, h0=h0)
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
-                                       for t in (x, dt, A, B, C, h0)):
+    if x.dtype != torch.float32 and torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, dt, A, B, C, h0)):
         raise NotImplementedError(
-            "ssd.ssd_scan: K7 has no backward kernel yet (ROADMAP.md, Queue A item 6: K7's "
-            "backward comes next), so a Mamba layer does not train on the card; "
-            "use_kernel='ref' takes the plain scan and its autograd")
+            f"ssd.ssd_scan: K7's backward kernel takes float32, got {x.dtype} with "
+            "gradients required (train in float32, or use_kernel='ref')")
     return ssd_kernel(x, dt, A, B, C, chunk=chunk, h0=h0)
 
 

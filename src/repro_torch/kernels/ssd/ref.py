@@ -9,7 +9,10 @@ Op for op the JAX package's ``kernels/ssd/ref.py``: :func:`ssd_ref` is the
 naive sequential scan, :func:`ssd_chunked_ref` the chunk-parallel SSD form,
 :func:`ssd_decode_step` one token of the recurrence.
 :func:`ssd_intra_chunk_ref` is the plain version of the kernel K7 with the
-contract of the reference's ``ssd_intra_chunk_pallas``.  B and C are
+contract of the reference's ``ssd_intra_chunk_pallas``, and
+:func:`ssd_intra_chunk_backward_ref` that of K7's backward (its gradient
+written out as products; the reference has no backward kernel, it
+differentiates its plain scan).  B and C are
 grouped, ``(Ba, T, G, N)`` with ``H % G == 0``; head ``h`` reads group
 ``h // (H // G)``.
 """
@@ -153,3 +156,69 @@ def ssd_intra_chunk_ref(x, dt, A, B, C, *, chunk: int = 64):
     states = bw.transpose(-1, -2) @ xf  # (Ba, nc, H, N, P)
     y_diag = y_diag.permute(0, 1, 3, 2, 4).reshape(Ba, T, H, P)
     return y_diag, states, s
+
+
+def ssd_intra_chunk_backward_ref(x, dt, s, B, C, dy, dstates):
+    """Plain version of K7's backward: the gradient of
+    :func:`ssd_intra_chunk_ref`'s ``(y_diag, states)`` for the cotangents
+    ``dy`` (Ba, T, H, P) and ``dstates`` (Ba, nc, H, N, P), with ``s``
+    (Ba, nc, L, H) an input of its own (``chunk_logdecay`` stays outside,
+    so autograd carries ``ds`` into dt and A).
+
+    Per cell, with ``W = tril(C B^T o e^{s_t - s_j}) o dt_j`` and ``u_j =
+    e^{s_{L-1} - s_j} dt_j``, written out as products (not autograd)::
+
+        dW  = tril(dY X^T)                M = dW o decay o dt_j
+        dX  = W^T dY + (u o B) dS         dC = M B
+        dB  = M^T C + u o (X dS^T)
+        ddt_j = sum_t (dW o C B^T o decay)_tj + e^{s_{L-1} - s_j} R_j
+        ds_t  = sum_j (dW o W)_tj - sum_i (dW o W)_it - E_t (+ sum_j E_j at t = L-1)
+
+    with ``R_j = sum_n B_jn (X dS^T)_jn`` and ``E_j = u_j R_j``; ``ddt`` is
+    the direct part only.  Every product in float32.  Returns ``(dx in x's
+    dtype, ddt (Ba, T, H), ds (Ba, nc, L, H), dB, dC (Ba, T, G, N) in B's
+    dtype)``: dB and dC summed over each group's heads (the adjoint of the
+    per-head repeat)."""
+    Ba, T, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    nc, L = s.shape[1], s.shape[2]
+
+    def cells(a, d):  # (Ba, T, H, d) -> (Ba, nc, H, L, d)
+        return a.reshape(Ba, nc, L, H, d).permute(0, 1, 3, 2, 4).float()
+
+    def tokens(a):  # (Ba, nc, H, L, d) -> (Ba, T, H, d)
+        return a.permute(0, 1, 3, 2, 4).reshape(Ba, T, H, a.shape[-1])
+
+    xf, dyf = cells(x, P), cells(dy, P)
+    Bf, Cf = cells(_per_head(B, H, 2), N), cells(_per_head(C, H, 2), N)
+    dS = dstates.float()  # (Ba, nc, H, N, P)
+    dtf = dt.float().reshape(Ba, nc, L, H).permute(0, 1, 3, 2)  # (Ba, nc, H, L)
+    sc = s.float().permute(0, 1, 3, 2)
+
+    tri = torch.tril(torch.ones(L, L, dtype=torch.bool, device=x.device))
+    zero = xf.new_zeros(())
+    decay = torch.where(tri, torch.exp(sc[..., :, None] - sc[..., None, :]), zero)
+    gd = (Cf @ Bf.transpose(-1, -2)) * decay  # C B^T o decay, lower triangle
+    w = gd * dtf[..., None, :]
+    dw = torch.where(tri, dyf @ xf.transpose(-1, -2), zero)
+    m = dw * decay * dtf[..., None, :]
+    dec_end = torch.exp(sc[..., L - 1:] - sc)  # (.., L)
+    u = dec_end * dtf
+    q = xf @ dS.transpose(-1, -2)  # X dS^T, (.., L, N)
+
+    dx = w.transpose(-1, -2) @ dyf + (Bf * u[..., None]) @ dS
+    dC = m @ Bf
+    dB = m.transpose(-1, -2) @ Cf + u[..., None] * q
+    r = (Bf * q).sum(-1)  # R, (.., L)
+    p1 = dw * gd
+    ddt = p1.sum(-2) + dec_end * r
+    e1 = p1 * dtf[..., None, :]  # dW o W
+    e = u * r
+    ds = e1.sum(-1) - e1.sum(-2) - e
+    ds[..., L - 1] += e.sum(-1)
+
+    def grouped(a):  # per head (Ba, T, H, N) -> per group (Ba, T, G, N)
+        return a.reshape(Ba, T, G, H // G, N).sum(3).to(B.dtype)
+
+    return (tokens(dx).to(x.dtype), ddt.permute(0, 1, 3, 2).reshape(Ba, T, H),
+            ds.permute(0, 1, 3, 2).contiguous(), grouped(tokens(dB)), grouped(tokens(dC)))

@@ -4,14 +4,17 @@ The port's twin of the JAX package's ``launch/train.py``, on one card:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
         --scale 0.05 --steps 50 [--moments int8] [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b \\
+        --scale 1.0 --steps 6 --batch 4 --seq 2048
 
 ``--scale`` shrinks d_model/d_ff/vocab/layers for smoke-scale runs of the
 assigned configs (1.0 = the real architecture), as the reference's does.
 Training runs in float32.  ``--device`` is ``cuda`` (the card; the
-kernels) or ``cpu`` (the plain PyTorch path), ``--kernel`` the kernels'
-route (``auto | cuda | ref``).  ``--devices``, ``--dp`` and ``--tp`` above
-1 raise: sharding comes with the ``distributed/`` slice (ROADMAP.md, Queue
-A item 6).
+kernels: attention through K6 and its backward kernel, Mamba layers
+through K7 and its backward kernel) or ``cpu`` (the plain PyTorch path),
+``--kernel`` the kernels' route (``auto | cuda | ref``).  ``--devices``,
+``--dp`` and ``--tp`` above 1 raise: sharding comes with the
+``distributed/`` slice (ROADMAP.md, Queue A item 6).
 """
 
 from __future__ import annotations

@@ -29,7 +29,7 @@ class TrainCfg:
     total_steps: int = 10000
     aux_weight: float = 0.01
     loss_chunk: int = 512
-    use_kernel: str = "auto"   # K6's route (kernels/dispatch.py): auto | cuda | ref
+    use_kernel: str = "auto"   # K6's and K7's route (kernels/dispatch.py): auto | cuda | ref
 
 
 def _split_micro(batch: dict, n: int) -> list:

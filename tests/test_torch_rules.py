@@ -109,8 +109,8 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()
-    assert [p.name for p in _build.sources()] == ["solver3d.cu", "ssd.cu", "heat_step.cu",
-                                                  "swa.cu", "swa_bwd.cu"]
+    assert [p.name for p in _build.sources()] == ["solver3d.cu", "ssd.cu", "ssd_bwd.cu",
+                                                  "heat_step.cu", "swa.cu", "swa_bwd.cu"]
     assert _build.library_path().parent == tmp_path / "build"
 
 

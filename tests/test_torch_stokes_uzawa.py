@@ -7,6 +7,9 @@ Schur solve against the oracle.
   the reference's own test requires Schur-CG to take at most a third of
   them), pressure and velocity within 1e-8 of the reference's largest
   values;
+* Uzawa cut to ``chip_smoke.UZAWA_CUT`` outer iterations (the card runs that
+  cut): the port's counts and divergence ratio equal the reference's, and
+  so do the constants ``chip_smoke.py`` holds the card to;
 * free slip: ``solve(tol=1e-7, method="schur")`` agrees with the
   independent NumPy oracle to 1e-4 (the reference's
   ``tests/test_stokes_full.py::test_freeslip_schur_matches_oracle``), with
@@ -15,6 +18,7 @@ Schur solve against the oracle.
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import os
 import sys
@@ -22,7 +26,8 @@ import sys
 import numpy as np
 import pytest
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src"))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from _mp import run  # noqa: E402
 from repro_torch import convert, fields  # noqa: E402
@@ -46,17 +51,33 @@ V, P, info = app.solve(tol=1e-6, method="uzawa")
 np.save(TMP + "/P.npy", np.asarray(P.data))
 for k in ("vx", "vy", "vz"):
     np.save(f"{{TMP}}/V_{{k}}.npy", np.asarray(V[k].data))
+_, _, cut = app.solve(tol=1e-6, method="uzawa", outer_maxiter={cut})
 json.dump(dict(outer=info.outer_iterations, inner=info.inner_iterations,
                first=info.first_inner_iterations, converged=info.converged),
           open(TMP + "/meta.json", "w"))
+json.dump(dict(outer=cut.outer_iterations, inner=cut.inner_iterations,
+               first=cut.first_inner_iterations, relres_div=float(cut.relres_div)),
+          open(TMP + "/cut.json", "w"))
 print("OK")
 """
+
+
+def _chip_smoke():
+    """``chip_smoke.py``'s constants (the module defines, it runs nothing on
+    import)."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+CHIP = _chip_smoke()
 
 
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("torch_stokes_uzawa")
-    run(REFERENCE.format(tmp=str(tmp)), ndev=8, timeout=900)
+    run(REFERENCE.format(tmp=str(tmp), cut=CHIP.UZAWA_CUT), ndev=8, timeout=900)
     return tmp, json.loads((tmp / "meta.json").read_text())
 
 
@@ -81,6 +102,22 @@ def test_uzawa_equals_reference(reference):
     for k, loc in zip(COMPS, FACES):
         ref = convert.field_from_reference(g, np.load(tmp / f"V_{k}.npy"), loc)
         assert _rel(fields.gather(V[k]), fields.gather(ref)) < 1e-8, k
+
+
+def test_uzawa_cut_equals_reference(reference):
+    """``chip_smoke.py`` runs Uzawa's first ``UZAWA_CUT`` outer iterations
+    on the card and holds them to the counts and ``||div V|| / ||div V_1||``
+    it states as the reference's: the port here, from its own viscosity and
+    forcing, and those constants against the reference's run."""
+    tmp, _ = reference
+    want = json.loads((tmp / "cut.json").read_text())
+    app = Stokes3D(nx=8, ny=8, nz=8, dims=(2, 2, 2), device="cpu")
+    _, _, info = app.solve(tol=1e-6, method="uzawa", outer_maxiter=CHIP.UZAWA_CUT)
+    got = (info.outer_iterations, info.inner_iterations, info.first_inner_iterations)
+    assert got == (want["outer"], want["inner"], want["first"]) == \
+        CHIP.STOKES_SOLVES["uzawa_cut"][1], (got, want)
+    for value in (float(info.relres_div), CHIP.UZAWA_CUT_RELRES_DIV):
+        assert abs(value / want["relres_div"] - 1) <= CHIP.RELRES_RTOL, (value, want)
 
 
 def test_freeslip_schur_matches_oracle():

@@ -41,7 +41,7 @@ from repro_torch.kernels.swa import ops as swa_ops  # noqa: E402
 from repro_torch.kernels.swa import swa_backward_ref, swa_ref  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
-from repro_torch.train import TrainCfg, Trainer, make_train_step  # noqa: E402
+from repro_torch.train import TrainCfg, Trainer, make_train_step, value_and_grad  # noqa: E402
 
 ALIAS = "import jax.extend.core\njax.core.Primitive = jax.extend.core.Primitive\n"
 CFG = dataclasses.replace(llama3_2_1b.SMOKE, dtype="float32")
@@ -246,17 +246,41 @@ def test_k6_launches_per_step_under_each_remat(cuda_route, remat, per_layer):
 
 
 def test_mamba_training_on_the_cuda_route_raises(monkeypatch):
-    """K7 has no backward kernel: a Mamba layer that would train through it
-    raises rather than lose its gradients; use_kernel="ref" trains."""
+    """K7's autograd route: a Mamba layer that trains on the CUDA route goes
+    through ``_SsdCuda`` (K7's forward and backward, here their counting
+    plain versions), with the gradients of use_kernel="ref"; bfloat16 with
+    gradients wanted raises, naming float32 (the backward kernel's type)."""
+    from repro_torch.kernels.ssd import kernel as kssd
+    from repro_torch.kernels.ssd import ssd_intra_chunk_backward_ref, ssd_intra_chunk_ref
+
     cfg = dataclasses.replace(mamba2_1p3b.SMOKE, dtype="float32")
     params = tf.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    params = {k: v.requires_grad_(True) for k, v in params.items()}
     batch = synthetic_batch(SyntheticLMData(cfg.vocab, 2, 16, device="cpu"), 0)
+    n = {"fwd": 0, "bwd": 0}
+
+    def fwd(*a, s=None, **k):   # the plain version recomputes s
+        n["fwd"] += 1
+        return ssd_intra_chunk_ref(*a, **k)
+
+    def bwd(*a):
+        n["bwd"] += 1
+        return ssd_intra_chunk_backward_ref(*a)
+
     monkeypatch.setattr(dispatch, "resolve", _cuda_resolve)
-    with pytest.raises(NotImplementedError, match="K7 has no backward kernel"):
-        tf.loss_fn(params, cfg, batch)
-    loss, _ = tf.loss_fn(params, cfg, batch, use_kernel="ref")
-    assert np.isfinite(float(loss.detach()))
+    monkeypatch.setattr(kssd, "ssd_intra_chunk_cuda", fwd)
+    monkeypatch.setattr(kssd, "ssd_backward_cuda", bwd)
+    tcfg = TrainCfg(remat="none")
+    loss, _, got = value_and_grad(params, cfg, tcfg, batch)
+    assert n == {"fwd": cfg.n_layers, "bwd": cfg.n_layers}
+    want_loss, _, want = value_and_grad(params, cfg, dataclasses.replace(tcfg, use_kernel="ref"),
+                                        batch)
+    assert n == {"fwd": cfg.n_layers, "bwd": cfg.n_layers}
+    torch.testing.assert_close(loss, want_loss, rtol=1e-6, atol=0)
+    for k in want:
+        _normwise(got[k], want[k].numpy(), 1e-5, k)
+    bf = {k: v.bfloat16().requires_grad_(True) for k, v in params.items()}
+    with pytest.raises(NotImplementedError, match="float32"):
+        tf.loss_fn(bf, dataclasses.replace(cfg, dtype="bfloat16"), batch)
 
 
 # ---------------------------------------------------------------------------
