@@ -26,8 +26,8 @@ plain PyTorch version on the card.  Then it drives these paths through the kerne
   on one rank and on 8 x 194^3, and one Schur-CG solve at 386^3;
 * the Mamba-2 serving path (``repro_torch.serve.Engine``): the SSD
   intra-chunk kernel K7 against its plain version at the prefill shapes
-  of mamba2-1.3b, bf16 on its tensor-core kernel and f32 on its CUDA-core
-  kernel, then timed; the SMOKE width in f32 (K7 against the plain scan,
+  of mamba2-1.3b, bf16 on its wgmma kernel and f32 on its 3xTF32 kernel
+  (both on the tensor cores), then timed; the SMOKE width in f32 (K7 against the plain scan,
   the prefill/decode relation, the same greedy ids), then mamba2-1.3b at
   full width and depth in bf16 with random weights: two ``generate`` calls
   (4 x 2048 prompt tokens + 32 new, 1 x 1000 + 16), 48 K7 launches each,
@@ -103,7 +103,8 @@ plain PyTorch version on the card.  Then it drives these paths through the kerne
   ``examples/torch_train_lm.py`` (which runs at its default size with the
   other twins, phase ``examples``) against an uninterrupted run;
 * Mamba training (slice 15, phases ``k7_backward`` to
-  ``train_jamba_smoke``): K7's float32 backward (``ssd_bwd.cu``) against
+  ``train_jamba_smoke``): K7's float32 backward (``ssd_bwd.cu``, 3xTF32 on
+  the tensor cores) against
   its plain version at mamba2-1.3b's training shape, jamba's N 16, the
   launcher's ``--scale`` cut, a ragged L 50, two groups and the SMOKE
   width (two runs bitwise), timed beside its plain version with K7's
@@ -146,6 +147,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -1118,26 +1120,80 @@ def k7_inputs(shape, dtype, gen, dev):
 
 def k7_bound(shape, itemsize: int, per_head: bool = False) -> tuple[float, str, float]:
     """Least time (ms) of one K7 launch: inputs x, B, C, dt read once and
-    y_diag, states, s written once over the memory rate, or its products
-    (C B^T, W X, B'^T X on full L x L tiles) over the bf16 tensor-core rate.
-    Also returns the float32 CUDA-core floor of the same products."""
+    y_diag, states, s written once over the memory rate, or the products
+    the causal block needs (C B^T once per group and W X on the L (L + 1) / 2
+    entries of the lower triangle, B'^T X whole) over the rate of the
+    kernel's products (bf16 on the tensor cores; float32 as three TF32
+    products on the tensor cores, 3 x FLOP over the TF32 peak, as
+    ``k6_bound`` and ``k7b_bound`` count it).  ``per_head``: B and C read,
+    and C B^T formed, once per head.  Also returns the float32 CUDA-core
+    floor of the same products."""
     Ba, T, H, P, N, G, L = shape
     g = H if per_head else G
+    tri = L * (L + 1) // 2
     nbytes = (Ba * T * H * P * itemsize * 2 + 2 * Ba * T * g * N * itemsize
               + Ba * T * H * 4 * 2 + Ba * (T // L) * H * N * P * 4)
-    flop = Ba * H * (T // L) * (2 * L * L * N + 2 * L * L * P + 2 * N * P * L)
+    flop = Ba * (T // L) * (g * 2 * tri * N + H * (2 * tri * P + 2 * N * P * L))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flop / BF16_FLOP_PER_S * 1e3
+    t_ops = (flop / BF16_FLOP_PER_S if itemsize == 2
+             else TF32_PRODUCTS * flop / TF32_FLOP_PER_S) * 1e3
     bound = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
     return (*bound, flop / F32_FLOP_PER_S * 1e3)
 
 
+def kernel_resources(lib, log) -> dict:
+    """Per kernel of the library: registers and spill bytes from nvcc's
+    ``-Xptxas -v`` log, and the count of TF32 tensor-core instructions
+    (``HMMA`` ... ``TF32``) in its SASS (``cuobjdump -sass``; ``None`` where
+    cuobjdump is missing).  Keys: the kernel's name and template arguments,
+    cut out of the mangled symbol."""
+    from repro_torch.kernels import _build
+
+    def short(sym):
+        m = re.search(r"\d+((?:ssd|swa)_\w+?)(E|I)(.*)", sym)
+        if not m:
+            return None
+        if m.group(2) != "I":
+            return m.group(1)
+        targs = m.group(3).split("EEv")[0] + "E"   # the template arguments
+        args = re.findall(r"Li(\d+)E", targs) or ["bf16" if "bfloat16" in targs else "f32"]
+        return m.group(1) + f"<{','.join(args)}>"
+
+    out, fn = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            fn = short(m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if fn and m:
+            out.setdefault(fn, {})["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if fn and m:
+            out.setdefault(fn, {})["registers"] = int(m.group(1))
+            fn = None
+    tool = Path(_build.find_nvcc()).parent / "cuobjdump"
+    sass = (subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                           timeout=300).stdout if tool.exists() else None)
+    for info in out.values():
+        info["hmma_tf32"] = None if sass is None else 0
+    fn = None
+    for ln in (sass or "").splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            fn = short(m.group(1))
+        elif fn in out and "HMMA" in ln and "TF32" in ln:
+            out[fn]["hmma_tf32"] += 1
+    return out
+
+
 def k7_phase(kssd, dev, gen) -> dict:
     """Phase 18: K7 against its plain version at every listed shape, f32 and
-    bf16, each launch checked to have taken the kernel the rule picks (bf16
-    on the tensor cores at every listed shape); then the kernel and the plain
-    version timed in turns at the main paths' shapes (mamba2-1.3b's in bf16
-    on the tensor cores and f32 on the CUDA cores; jamba's, bf16).  Returns
+    bf16, each launch on the tensor cores and on the kernel the rule picks
+    (bf16 on wgmma at every listed shape, f32 in 3xTF32; the wrapper raises
+    where the C entry point's pick differs from the rule); then the kernel
+    and the plain version timed in turns at the main paths' shapes
+    (mamba2-1.3b's in bf16 and f32; jamba's, bf16).  Returns
     the max |err| of y_diag at the main paths' shapes, each shape's, and
     the times."""
     from repro_torch.kernels.ssd import ssd_intra_chunk_ref
@@ -1146,13 +1202,14 @@ def k7_phase(kssd, dev, gen) -> dict:
     for shape in K7_SHAPES:
         for dt_name in ("bfloat16", "float32"):
             ins = k7_inputs(shape, getattr(torch, dt_name), gen, dev)
-            tc0 = kssd.ssd_intra_chunk_cuda.tc_launches
+            b0 = dict(kssd.ssd_intra_chunk_cuda.by_kernel)
             got = kssd.ssd_intra_chunk_cuda(*ins, chunk=shape[-1])
             torch.cuda.synchronize()
-            ran = kssd.KERNELS[kssd.ssd_intra_chunk_cuda.tc_launches - tc0]
-            rule = kssd.kernel_for(getattr(torch, dt_name), shape[4], shape[3])
-            if ran != rule or (dt_name == "bfloat16") != (ran == "tensor cores"):
-                fail(f"K7 {shape} {dt_name}: ran on the {ran}, the rule says the {rule}")
+            ran = "wgmma" if dt_name == "bfloat16" else "3xTF32"
+            moved = {k: n - b0[k] for k, n in kssd.ssd_intra_chunk_cuda.by_kernel.items()}
+            if moved != {k: int(k == ran) for k in kssd.KERNELS}:
+                fail(f"K7 {shape} {dt_name}: launches by the kernel the C entry point "
+                     f"reported {moved}, expected one on {ran}")
             want = ssd_intra_chunk_ref(*ins, chunk=shape[-1])
             errs = {}
             for name, a, b in zip(("y_diag", "states", "s"), got, want):
@@ -1195,8 +1252,7 @@ def k7_phase(kssd, dev, gen) -> dict:
         device_ms = graph_ms(lambda: kssd.ssd_intra_chunk_cuda(*ins, chunk=L))
         say("ssd_kernel_time", case=case, shape="Ba,T,H,P,N,G,L=" + ",".join(map(str, shape)),
             dtype=dt_name, kernel=repr(kssd.kernel_for(ins[0].dtype, shape[4], shape[3])),
-            bc_form="grouped (G=1), C B^T once per group" if dt_name == "bfloat16" else
-            "grouped (G=1), read once per head", ms_runs=k_ms, kernel_graph_ms=device_ms,
+            bc_form="grouped (G=1), C B^T once per group", ms_runs=k_ms, kernel_graph_ms=device_ms,
             plain_ms_runs=p_ms, bound_ms=bound, bound_by=bound_by,
             bound_ms_per_head_bc=per_head, share_of_bound=bound / min(k_ms),
             share_of_bound_graph=bound / device_ms, f32_cuda_core_floor_ms=f32_floor)
@@ -1231,12 +1287,12 @@ def mamba_small(kssd, dev) -> None:
     gen = torch.Generator(device=dev).manual_seed(1)
     model = Model(cfg, generator=gen, device=dev)
     tokens = torch.randint(0, cfg.vocab, (2, 21), generator=gen, device=dev)
-    n0, tc0 = kssd.ssd_intra_chunk_cuda.launches, kssd.ssd_intra_chunk_cuda.tc_launches
+    n0, t0 = kssd.ssd_intra_chunk_cuda.launches, kssd.ssd_intra_chunk_cuda.by_kernel["3xTF32"]
     lk, _ = tf.prefill(model, tokens[:, :20])
     if kssd.ssd_intra_chunk_cuda.launches - n0 != cfg.n_layers:
         fail(f"SMOKE prefill launched K7 {kssd.ssd_intra_chunk_cuda.launches - n0} times")
-    if kssd.ssd_intra_chunk_cuda.tc_launches != tc0:
-        fail("an f32 launch of K7 took the tensor-core kernel")
+    if kssd.ssd_intra_chunk_cuda.by_kernel["3xTF32"] - t0 != cfg.n_layers:
+        fail("an f32 launch of K7 did not run on the 3xTF32 kernel")
     lr, _ = tf.prefill(model, tokens[:, :20], use_kernel="ref")
     e_ref = logit_err(lk, lr, cfg.vocab)
     full, _ = tf.prefill(model, tokens)
@@ -1272,19 +1328,31 @@ def generate_metrics(eng, p, n_new: int) -> dict:
             "peak_GB": torch.cuda.max_memory_allocated() / 1e9}
 
 
+def on_kernel(w, k7_kernel: str) -> int:
+    """A K6 or K7 wrapper's launches of the kernel its dtype asks for, as
+    the C entry point reported them: K6's on the tensor cores
+    (``tc_launches``), K7's on ``k7_kernel`` (``by_kernel``)."""
+    return w.by_kernel[k7_kernel] if hasattr(w, "by_kernel") else w.tc_launches
+
+
 def generate_counted(phase: str, engines, prompts, runs, wrappers, vocab: int) -> list:
-    """The main path: ``Engine.generate`` at each of ``runs`` (name, batch,
-    prompt, new), the wrappers' counts zeroed just before and read just
-    after, the ids checked for shape and range.  Returns, per call, each
-    wrapper's (launches, tensor-core launches)."""
+    """The main path (bf16): ``Engine.generate`` at each of ``runs`` (name,
+    batch, prompt, new), the wrappers' counts zeroed just before and read
+    just after, the ids checked for shape and range.  Returns, per call,
+    each wrapper's (launches, launches of its bf16 kernel: K6's on the
+    tensor cores, K7's on wgmma)."""
     for w in wrappers:
-        w.launches = w.tc_launches = 0
+        w.launches = 0
+        if hasattr(w, "by_kernel"):
+            w.by_kernel = dict.fromkeys(w.by_kernel, 0)
+        else:
+            w.tc_launches = 0
     per_call = []
     for name, b, _, n_new in runs:
-        before = [(w.launches, w.tc_launches) for w in wrappers]
+        before = [(w.launches, on_kernel(w, "wgmma")) for w in wrappers]
         ids = engines[name].generate(prompts[name], n_new)
         torch.cuda.synchronize()
-        per_call.append([(w.launches - n, w.tc_launches - c)
+        per_call.append([(w.launches - n, on_kernel(w, "wgmma") - c)
                          for w, (n, c) in zip(wrappers, before)])
         if ids.shape != (b, n_new) or int(ids.max()) >= vocab or int(ids.min()) < 0:
             fail(f"{phase} {name}: ids {tuple(ids.shape)}, range "
@@ -1328,10 +1396,10 @@ def mamba_full(kssd, dev) -> tuple[int, int]:
     per_call = generate_counted("mamba2_full", engines, prompts, SERVE_RUNS,
                                 (kssd.ssd_intra_chunk_cuda,), cfg.vocab)
     launches = kssd.ssd_intra_chunk_cuda.launches
-    tc_launches = kssd.ssd_intra_chunk_cuda.tc_launches
+    wgmma_launches = kssd.ssd_intra_chunk_cuda.by_kernel["wgmma"]
     if per_call != [[(cfg.n_layers, cfg.n_layers)]] * len(SERVE_RUNS):
-        fail(f"K7 (launches, tensor-core launches) per generate call {per_call}; expected "
-             f"{cfg.n_layers} each, all bf16 on the tensor cores")
+        fail(f"K7 (launches, wgmma launches) per generate call {per_call}; expected "
+             f"{cfg.n_layers} each, all bf16 on the wgmma kernel")
     # decode launches no K7; logits finite
     with torch.inference_mode():
         logits, caches = tf.prefill(model, prompts["4x2048"])
@@ -1395,20 +1463,20 @@ def mamba_full(kssd, dev) -> tuple[int, int]:
     m4 = Model(dataclasses.replace(cfg4, dtype="bfloat16"),
                generator=torch.Generator(device=dev).manual_seed(2))
     with torch.inference_mode():
-        tc0 = kssd.ssd_intra_chunk_cuda.tc_launches
+        w0 = kssd.ssd_intra_chunk_cuda.by_kernel["wgmma"]
         lk16, _ = tf.prefill(m4, tok[:, :1000])
-        tc_n = kssd.ssd_intra_chunk_cuda.tc_launches - tc0
+        wg_n = kssd.ssd_intra_chunk_cuda.by_kernel["wgmma"] - w0
         lr16, _ = tf.prefill(m4, tok[:, :1000], use_kernel="ref")
     e16, e_round = logit_err(lk16, lr16, cfg.vocab), logit_err(lr16, lr, cfg.vocab)
-    if tc_n != 4 or not e16 <= K7_BF16_LOGIT_TOL:
+    if wg_n != 4 or not e16 <= K7_BF16_LOGIT_TOL:
         fail(f"4 layers bf16: K7 vs plain {e16} (tol {K7_BF16_LOGIT_TOL}), "
-             f"{tc_n} tensor-core launches of 4")
+             f"{wg_n} wgmma launches of 4")
     say("mamba2_full", check="4 layers full width bf16, prompt 2x1000",
         k7_vs_plain_normwise=e16, plain_bf16_vs_plain_f32_normwise=e_round,
-        tol=K7_BF16_LOGIT_TOL, tensor_core_launches=tc_n, status="ok")
+        tol=K7_BF16_LOGIT_TOL, wgmma_launches=wg_n, status="ok")
     del m4
     torch.cuda.empty_cache()
-    return launches, tc_launches
+    return launches, wgmma_launches
 
 
 def serving_phases(dev) -> list:
@@ -1421,11 +1489,11 @@ def serving_phases(dev) -> list:
     # ---- 19-20. the serving path: the count zeroed just before, read after --
     kssd.ssd_intra_chunk_cuda.launches = 0
     mamba_small(kssd, dev)
-    launches, tc_launches = mamba_full(kssd, dev)
+    launches, wgmma_launches = mamba_full(kssd, dev)
     ms, plain_ms, bound, bound_by = k7["bfloat16"]
     return [{"name": "ssd_intra_chunk", "route": "cuda",
              "source": "src/repro_torch/kernels/ssd/csrc/ssd.cu", "replaces": K7_REPLACES,
-             "launches": launches, "tc_launches": tc_launches, "max_abs_err": k7["main_err"],
+             "launches": launches, "wgmma_launches": wgmma_launches, "max_abs_err": k7["main_err"],
              "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
              "library_ms": None, "widths": {case: k7[case] for case in K7_WIDTHS}}]
 
@@ -1626,7 +1694,7 @@ def k6_phase(kswa, dev, gen) -> dict:
 
 def serve_small(phase: str, smoke, kswa, kssd, dev) -> None:
     """A config's SMOKE width in f32 on the card, its kernels (K6 in 3xTF32 on
-    the tensor cores, and K7 for Mamba layers on the CUDA cores) against the
+    the tensor cores, and K7 for Mamba layers, 3xTF32 on the tensor cores) against the
     plain path:
     train-mode logits; prefill logits at prompts of 5, 8 and 12 tokens
     (below, at and above gemma3's window of 8), each prefill launching K6
@@ -1653,7 +1721,8 @@ def serve_small(phase: str, smoke, kswa, kssd, dev) -> None:
     h, _, _ = tf.fwd(model, tokens, mode="train")
     e_train = logit_err(tf.logits_fn(model, h), full, cfg.vocab)
     e_pre = e_dec = 0.0
-    n_all, tc0 = [w.launches for w in wrappers], [w.tc_launches for w in wrappers]
+    n_all = [w.launches for w in wrappers]
+    tc0 = [on_kernel(w, "3xTF32") for w in wrappers]
     for tp in (5, 8, 12):
         n0 = [w.launches for w in wrappers]
         lk, ck = tf.prefill(model, tokens[:, :tp], cache_len=24)
@@ -1673,17 +1742,17 @@ def serve_small(phase: str, smoke, kswa, kssd, dev) -> None:
                 e_dec = max(e_dec, logit_err(sk, full[:, t], cfg.vocab))
     ids_k = Engine(cfg, model, cache_len=24).generate(tokens[:, :12], 8)
     ids_r = Engine(cfg, model, cache_len=24, use_kernel="ref").generate(tokens[:, :12], 8)
-    ran = [(w.launches - n, w.tc_launches - c) for w, n, c in zip(wrappers, n_all, tc0)]
-    if ran[0][1] != ran[0][0] or ran[1][1] != 0:
-        fail(f"{phase}: (launches, tensor-core launches) of K6 and K7 in f32 {ran}; every K6 "
-             "launch runs on the tensor cores, no K7 launch")
+    ran = [(w.launches - n, on_kernel(w, "3xTF32") - c) for w, n, c in zip(wrappers, n_all, tc0)]
+    if ran[0][1] != ran[0][0] or ran[1][1] != ran[1][0]:
+        fail(f"{phase}: (launches, launches on the f32 kernel) of K6 and K7 in f32 {ran}; "
+             "every launch of either runs on the tensor cores, K7's on its 3xTF32 kernel")
     if not (max(e_train, e_pre, e_dec) <= SERVE_TOL and torch.equal(ids_k, ids_r)):
         fail(f"{phase} on the card: kernels vs plain train {e_train}, prefill {e_pre}, decode "
              f"{e_dec}, ids equal {torch.equal(ids_k, ids_r)}")
     say(phase, cfg=f"{smoke.name} f32", prompts="2x5,2x8,2x12",
         kernels_vs_plain_train_normwise=e_train, kernels_vs_plain_prefill_normwise=e_pre,
         decode_vs_plain_normwise=e_dec, tol=SERVE_TOL, greedy_ids_equal=True,
-        kernels="'K6 tensor cores (3xTF32), K7 CUDA cores (f32)'", status="ok")
+        kernels="'K6 and K7 tensor cores (3xTF32)'", status="ok")
 
 
 def gemma3_full(kswa, dev) -> int:
@@ -3282,16 +3351,17 @@ MAMBA_SIZE = (1_344_576_512, 48)   # mamba2-1.3b's parameters and layers
 def k7b_bound(shape) -> tuple[float, str, float, float, float]:
     """Least time (ms) of K7's backward: x, dY, dS, B, C, dt and s read once
     and dx, ddt, ds, dB and dC (grouped) written once over the memory rate,
-    or the products the causal block needs (C B^T, dY X^T, W^T dY, M B and
-    M^T C on the L (L + 1) / 2 entries of the lower triangle, the two dS
-    products on all of them) as three TF32 products each over the TF32 peak
-    (3xTF32: the rate this card offers for products of float32 accuracy,
-    the convention of ``k6b_bound``).  Also returns the GFLOP, the float32
-    CUDA-core floor of the same FLOP (the current kernel's arithmetic) and
-    that floor with the products counted on whole L x L squares."""
+    or the products the causal block needs (C B^T once per group; dY X^T,
+    W^T dY, M B and M^T C per head; all on the L (L + 1) / 2 entries of the
+    lower triangle; the two dS products per head whole) as three TF32
+    products each over the TF32 peak (3xTF32: the rate this card offers for
+    products of float32 accuracy, the convention of ``k6b_bound``).  Also
+    returns the GFLOP, the float32 CUDA-core floor of the same FLOP and
+    that floor with the products counted per head on whole L x L squares
+    (the first, CUDA-core form's arithmetic)."""
     Ba, T, H, P, N, G, L = shape
     cells, tri = Ba * (T // L) * H, L * (L + 1) // 2
-    flop = cells * (2 * tri * (3 * N + 2 * P) + 4 * L * N * P)
+    flop = Ba * (T // L) * G * 2 * tri * N + cells * (2 * tri * (2 * N + 2 * P) + 4 * L * N * P)
     square = cells * (2 * L * L * (3 * N + 2 * P) + 4 * L * N * P)
     words = 3 * Ba * T * H * P + 4 * Ba * T * G * N + 4 * Ba * T * H + Ba * T * H * N * P // L
     t_bytes = words * 4 / HBM_BYTES_PER_S * 1e3
@@ -3317,7 +3387,8 @@ def k7b_phase(kssd, dev) -> dict:
     ``ssd_intra_chunk_backward_ref`` at every K7B_SHAPES entry (float32;
     dx, ddt, ds, dB, dC normwise; two runs bitwise); then at mamba2-1.3b's
     training shape, in turns (kernel, plain, plain, kernel), the backward
-    and its plain version, and K7's float32 forward and its plain version.
+    and its plain version (and the backward's device time by kernel, from
+    the profiler), and K7's float32 forward and its plain version.
     Returns the kernels-line entry."""
     from repro_torch.kernels.ssd import ssd_intra_chunk_backward_ref, ssd_intra_chunk_ref
 
@@ -3365,12 +3436,17 @@ def k7b_phase(kssd, dev) -> dict:
     ms, fms = min(runs["bwd"]), min(runs["fwd"])
     Ba, T, H, P, N, G, _ = K7B_MAIN
     plan = kssd.bwd_c_plan(Ba, T, H, G, N, P, L)
+    # the backward's device time by kernel (its two kernels and the wrapper's
+    # sum of the slices' dB and dC partials), over 5 calls
+    split = categories(lambda: [fns["bwd"]() for _ in range(5)], 5,
+                       (("dc", ("ssd_bwd_dc",)), ("dxdb", ("ssd_bwd_dxdb",))))
     say("k7_backward_time", shape="Ba,T,H,P,N,G,L=" + ",".join(map(str, K7B_MAIN)),
-        dtype="float32", ms_runs=runs["bwd"], plain_ms_runs=runs["bwd_plain"], bound_ms=bound,
+        dtype="float32", ms_runs=runs["bwd"], plain_ms_runs=runs["bwd_plain"],
+        device_ms_by_kernel=split.get("ms_per_iteration_by_kind", "not measured"), bound_ms=bound,
         bound_by=bound_by, bound_kind="3xTF32", gflop=gflop, share_of_bound=bound / ms,
         f32_cuda_core_floor_ms=floor, share_of_f32_floor=floor / ms,
-        f32_floor_whole_squares_ms=square, smem_bytes=plan[4], grid=plan[:3],
-        launches_per_call=1)
+        f32_floor_whole_squares_ms=square, smem_bytes=plan[5], grid=plan[:3],
+        heads_per_block=plan[4], launches_per_call=1)
     say("k7_forward_f32_train", shape="Ba,T,H,P,N,G,L=" + ",".join(map(str, K7B_MAIN)),
         ms_runs=runs["fwd"], plain_ms_runs=runs["fwd_plain"], bound_ms=fbound,
         bound_by=fbound_by, share_of_bound=fbound / fms, f32_cuda_core_floor_ms=ffloor,
@@ -3996,7 +4072,9 @@ def kernel_counters() -> dict:
     out["heat_step_cuda"] = hk.heat_step_cuda.launches
     for w in (kswa.swa_attention_cuda, kssd.ssd_intra_chunk_cuda):
         out[w.__name__] = w.launches
-        out[f"{w.__name__}.tc"] = w.tc_launches
+    out["swa_attention_cuda.tc"] = kswa.swa_attention_cuda.tc_launches
+    out.update({f"ssd_intra_chunk_cuda.{k}": n
+                for k, n in kssd.ssd_intra_chunk_cuda.by_kernel.items()})
     out["swa_backward_cuda"] = kswa.swa_backward_cuda.launches
     out["ssd_backward_cuda"] = kssd.ssd_backward_cuda.launches
     return out
@@ -4083,11 +4161,11 @@ def analysis_phase(card: str) -> dict:
                  f"{py.grid, py.block, py.tile}, C {c}")
         n_plans += 1
     for Ba, T, H, G, N, P, L in sorted(SSD_BWD_LAUNCHES):
-        py = plans.ssd_bwd_plan(Ba, T, H, G, L)
+        py = plans.ssd_bwd_plan(Ba, T, H, G, L, sms)
         c = kssd.bwd_c_plan(Ba, T, H, G, N, P, L)
-        if (*py.grid, py.block[0]) != c[:4] or launchgrid.check_plan(py):
+        if (*py.grid, py.block[0], py.tile[2]) != c[:5] or launchgrid.check_plan(py):
             fail(f"analysis: K7 backward plan at {(Ba, T, H, G, N, P, L)}: python "
-                 f"{py.grid, py.block}, C {c}")
+                 f"{py.grid, py.block, py.tile}, C {c}")
         n_plans += 1
     library = len(plans.library_plans(sms))
     out = {"targets": len(reports), "sweep_s": sweep_s, "capture_s": capture_s,
@@ -4127,9 +4205,13 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = _build.build()
     _build.load()
-    regs = [ln.strip() for ln in _build.log_path().read_text().splitlines() if "registers" in ln]
+    log = _build.log_path().read_text()
+    regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
     say("build", seconds=f"{time.perf_counter() - t0:.2f}", library=lib.name,
         ptxas=repr("; ".join(regs)))
+    say("kernel_resources", **{k.replace("<", "[").replace(">", "]").replace(",", "_"):
+                               json.dumps(v).replace(" ", "")
+                               for k, v in sorted(kernel_resources(lib, log).items())})
 
     # ---- 3. kernels against their plain versions --------------------------
     gen = torch.Generator(device=dev).manual_seed(0)

@@ -1,6 +1,6 @@
-// 3xTF32 building blocks shared by K6's float32 forward (swa.cu) and its
-// backward (swa_bwd.cu): float32 products on the tensor cores with
-// float32's accuracy.
+// 3xTF32 building blocks shared by the float32 kernels of K6 (swa/csrc/
+// swa.cu, swa_bwd.cu) and of K7 (ssd/csrc/ssd.cu, ssd_bwd.cu): float32
+// products on the tensor cores with float32's accuracy.
 //
 // TF32 keeps 10 mantissa bits (unit roundoff 2^-11), too few for the port's
 // 1e-5 float32 tolerances.  Each float32 operand x is split into two TF32
@@ -23,11 +23,13 @@
 // Fragments (g = lane / 4, t = lane % 4): A (16 x 8) holds rows g, g + 8
 // and columns t, t + 4; B (8 x 8) holds k = t, t + 4 of column g; the
 // accumulator C (16 x 8) holds rows g, g + 8 and columns 2t, 2t + 1.
-// Shared tiles are float32 rows of LD = DP + 4 floats (LD = 4 mod 32), so
-// every fragment load below reads 32 distinct banks.
+// Shared tiles are float32 rows of LD floats, LD = 4 mod 8 (K6: DP + 4, K7:
+// its widths rounded up to 32, plus 4), so every fragment load below reads
+// 32 distinct banks but load_a_perm, whose pairs of 8-byte reads meet
+// two-way conflicts.
 #pragma once
 
-#include "../../csrc/hopper.cuh"
+#include "hopper.cuh"
 
 #include <cstdint>
 
@@ -97,6 +99,43 @@ __device__ __forceinline__ void load_b_nk(FragB& b, const float* s, int LD, int 
   split(s[g * LD + t + 4], b.big[1], b.small[1]);
 }
 
+// A from a row-major shared tile at s, row g scaled by r0 and row g + 8 by
+// r1 before the split (u o X of K7's backward: each product u_j x_jp rounded
+// to float32 first)
+__device__ __forceinline__ void load_a_scaled(FragA& a, const float* s, int LD, int g, int t,
+                                              float r0, float r1) {
+  split(s[g * LD + t] * r0, a.big[0], a.small[0]);
+  split(s[(g + 8) * LD + t] * r1, a.big[1], a.small[1]);
+  split(s[g * LD + t + 4] * r0, a.big[2], a.small[2]);
+  split(s[(g + 8) * LD + t + 4] * r1, a.big[3], a.small[3]);
+}
+
+// A from a row-major shared tile [m][k] under the permuted k of
+// load_b_kn_perm (k = t standing for column 2t, k = t + 4 for 2t + 1): the
+// operand of a product whose B is read by load_b_kn_perm (B of B dS in K7's
+// backward)
+__device__ __forceinline__ void load_a_perm(FragA& a, const float* s, int LD, int g, int t) {
+  const float2 r0 = *reinterpret_cast<const float2*>(s + g * LD + 2 * t);
+  const float2 r1 = *reinterpret_cast<const float2*>(s + (g + 8) * LD + 2 * t);
+  split(r0.x, a.big[0], a.small[0]);
+  split(r1.x, a.big[1], a.small[1]);
+  split(r0.y, a.big[2], a.small[2]);
+  split(r1.y, a.big[3], a.small[3]);
+}
+
+// A (rows m, k) from a shared tile stored [k][m] (the transpose of what A
+// is), under the permuted k of load_b_kn_perm, row 2t of the tile scaled by
+// k0 and row 2t + 1 by k1 before the split: (u o B)^T of K7's states, read
+// from B stored [j][n].  Element (m, k) is s[k LD + m]: lanes read 8t + g
+// (mod 32) apart, conflict-free for LD = 4 mod 8.
+__device__ __forceinline__ void load_a_km_perm(FragA& a, const float* s, int LD, int g, int t,
+                                               float k0, float k1) {
+  split(s[2 * t * LD + g] * k0, a.big[0], a.small[0]);
+  split(s[2 * t * LD + g + 8] * k0, a.big[1], a.small[1]);
+  split(s[(2 * t + 1) * LD + g] * k1, a.big[2], a.small[2]);
+  split(s[(2 * t + 1) * LD + g + 8] * k1, a.big[3], a.small[3]);
+}
+
 // The accumulator C of a product over 8 columns as the A operand of the
 // next product over those columns (P of P V), in registers: the next
 // product's k index is permuted, k = t standing for column 2t and k = t + 4
@@ -128,19 +167,21 @@ __device__ __forceinline__ void zero(float (&x)[N][4]) {
 // of A(x[m][kj]) B(kj, j0 + j), A from the accumulator fragments x
 // (acc_to_a), B by load_b_kn_perm from rows 8 kj and columns 8 (j0 + j) of
 // b, loaded and split once for all m-tiles; n-tiles at or past n_live are
-// skipped.  The sum starts from zero: a tensor-core accumulator cuts each
-// sum toward zero as it adds, so a long sum (over every tile of a walk)
-// stays out of it and the caller adds the tile's product in float32 on the
-// CUDA cores.
+// skipped, and so are the k-tiles outside [k_lo, k_hi) (their A is zero:
+// the causal half of K7's products).  The sum starts from zero: a
+// tensor-core accumulator cuts each sum toward zero as it adds, so a long
+// sum (over every tile of a walk) stays out of it and the caller adds the
+// tile's product in float32 on the CUDA cores.
 template <int MT, int NK, int CH>
 __device__ __forceinline__ void tile_product(float (&out)[MT][CH][4], const float (&x)[MT][NK][4],
-                                             const float* b, int LD, int j0, int n_live, int g,
-                                             int t) {
+                                             const float* b, int LD, int j0, int n_live, int k_lo,
+                                             int k_hi, int g, int t) {
   constexpr int G = CH < 4 ? CH : 4;
 #pragma unroll
   for (int m = 0; m < MT; ++m) zero(out[m]);
 #pragma unroll
   for (int kj = 0; kj < NK; ++kj) {
+    if (kj < k_lo || kj >= k_hi) continue;
     FragA a[MT];
 #pragma unroll
     for (int m = 0; m < MT; ++m) acc_to_a(a[m], x[m][kj]);
@@ -158,13 +199,27 @@ __device__ __forceinline__ void tile_product(float (&out)[MT][CH][4], const floa
   }
 }
 
+template <int MT, int NK, int CH>
+__device__ __forceinline__ void tile_product(float (&out)[MT][CH][4], const float (&x)[MT][NK][4],
+                                             const float* b, int LD, int j0, int n_live, int g,
+                                             int t) {
+  tile_product<MT, NK, CH>(out, x, b, LD, j0, n_live, 0, NK, g, t);
+}
+
 // the same for one m-tile
+template <int NK, int CH>
+__device__ __forceinline__ void tile_product(float (&out)[CH][4], const float (&x)[NK][4],
+                                             const float* b, int LD, int j0, int n_live, int k_lo,
+                                             int k_hi, int g, int t) {
+  tile_product<1, NK, CH>(reinterpret_cast<float(&)[1][CH][4]>(out),
+                          reinterpret_cast<const float(&)[1][NK][4]>(x), b, LD, j0, n_live, k_lo,
+                          k_hi, g, t);
+}
 template <int NK, int CH>
 __device__ __forceinline__ void tile_product(float (&out)[CH][4], const float (&x)[NK][4],
                                              const float* b, int LD, int j0, int n_live, int g,
                                              int t) {
-  tile_product<1, NK, CH>(reinterpret_cast<float(&)[1][CH][4]>(out),
-                          reinterpret_cast<const float(&)[1][NK][4]>(x), b, LD, j0, n_live, g, t);
+  tile_product<NK, CH>(out, x, b, LD, j0, n_live, 0, NK, g, t);
 }
 
 // cp.async of 16 or 4 bytes; src_bytes 0 writes zeros and reads nothing
@@ -212,6 +267,26 @@ __device__ __forceinline__ void zero_pad(float* p, int rows, int D, int DP, int 
     const int r = e / w;
     p[r * LD + D + (e - r * w)] = 0.f;
   }
+}
+
+// An accumulator n-tile (rows g and g + 8, columns 2t and 2t + 1) as four
+// consecutive columns a lane, for one 16-byte store: lanes t and t ^ 1
+// trade halves, so that an even t holds row g's columns 4 (t / 2) .. + 3 and
+// an odd t row g + 8's.  Every lane of the warp takes part.  Returns the
+// row half (0: row g, 1: row g + 8); the columns start at 4 (t / 2).
+__device__ __forceinline__ int pair_rows(const float (&c)[4], int t, float (&o)[4]) {
+  const bool odd = t & 1;
+  const float r0 = __shfl_xor_sync(0xffffffffu, odd ? c[0] : c[2], 1);
+  const float r1 = __shfl_xor_sync(0xffffffffu, odd ? c[1] : c[3], 1);
+  o[0] = odd ? r0 : c[0];
+  o[1] = odd ? r1 : c[1];
+  o[2] = odd ? c[2] : r0;
+  o[3] = odd ? c[3] : r1;
+  return odd;
+}
+
+__device__ __forceinline__ void store4(float* p, const float (&o)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(o[0], o[1], o[2], o[3]);
 }
 
 // 16-byte pieces are possible: the pointer is 16-byte aligned and the

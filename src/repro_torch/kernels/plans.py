@@ -84,17 +84,11 @@ def swa_bwd_plans(B: int, H: int, Hkv: int, T: int, S: int, D: int) -> tuple:
     )
 
 
-def ssd_plan(tensor_cores: bool, Ba: int, T: int, H: int, G: int, L: int,
-             sms: int = H100_SMS) -> LaunchPlan:
-    """K7 over (batch, chunk, head): the CUDA-core kernel one head of one
-    chunk per block; the tensor-core kernel ``HS`` heads of one group per
-    block, HS the largest divisor of H / G (at most 8) that leaves two
-    blocks per SM."""
+def _ssd_grid(Ba: int, T: int, H: int, G: int, L: int, sms: int) -> tuple:
+    """K7's (and its backward's) blocks and heads per block: ``HS`` heads of
+    one group per block, HS the largest divisor of H / G (at most 8) that
+    leaves two blocks per SM; the slice of a group's heads fastest."""
     nc = T // L
-    if not tensor_cores:
-        return LaunchPlan("K7 ssd_chunk_kernel", grid=(nc, H, Ba), block=(256, 1, 1),
-                          shape=(Ba, nc, H), tile=(1, 1, 1), guard=(False,) * 3,
-                          out_map=lambda gx, gy, gz: (gz, gx, gy))
     R, groups = H // G, Ba * nc * G
     hs = next((s for s in range(min(R, 8), 1, -1) if R % s == 0 and groups * (R // s) >= 2 * sms),
               1)
@@ -105,17 +99,29 @@ def ssd_plan(tensor_cores: bool, Ba: int, T: int, H: int, G: int, L: int,
         g, r = r % G, r // G
         return r // nc, r % nc, g * ns + gx % ns
 
-    return LaunchPlan("K7 ssd_chunk_kernel_tc", grid=(groups * ns, 1, 1), block=(128, 1, 1),
-                      shape=(Ba, nc, H), tile=(1, 1, hs), guard=(False,) * 3, out_map=out_map)
+    return groups * ns, hs, out_map
 
 
-def ssd_bwd_plan(Ba: int, T: int, H: int, G: int, L: int) -> LaunchPlan:
-    """K7's backward over (batch, chunk, head): one head of one chunk per
-    block of 256 threads, the float32 forward's grid (G only picks the
-    group a head reads)."""
-    return LaunchPlan("K7b ssd_bwd_kernel", grid=(T // L, H, Ba), block=(256, 1, 1),
-                      shape=(Ba, T // L, H), tile=(1, 1, 1), guard=(False,) * 3,
-                      out_map=lambda gx, gy, gz: (gz, gx, gy))
+def ssd_plan(wgmma: bool, Ba: int, T: int, H: int, G: int, L: int,
+             sms: int = H100_SMS) -> LaunchPlan:
+    """K7 over (batch, chunk, head): both kernels take ``HS`` heads of one
+    group per block (:func:`_ssd_grid`), bfloat16 on ``wgmma`` with one
+    warpgroup, the rest in 3xTF32 on ``mma.sync`` with two (one forms Y,
+    the other the states)."""
+    blocks, hs, out_map = _ssd_grid(Ba, T, H, G, L, sms)
+    name = "K7 ssd_chunk_kernel_tc" if wgmma else "K7 ssd_chunk_kernel_tf32"
+    return LaunchPlan(name, grid=(blocks, 1, 1), block=(128 if wgmma else 256, 1, 1),
+                      shape=(Ba, T // L, H),
+                      tile=(1, 1, hs), guard=(False,) * 3, out_map=out_map)
+
+
+def ssd_bwd_plan(Ba: int, T: int, H: int, G: int, L: int, sms: int = H100_SMS) -> LaunchPlan:
+    """K7's backward over (batch, chunk, head): both of its kernels (dC with
+    one warpgroup; dX, ddt, ds and dB with two) take the forward's grid,
+    ``HS`` heads of one group per block; the block is the larger one's."""
+    blocks, hs, out_map = _ssd_grid(Ba, T, H, G, L, sms)
+    return LaunchPlan("K7b ssd_bwd", grid=(blocks, 1, 1), block=(256, 1, 1),
+                      shape=(Ba, T // L, H), tile=(1, 1, hs), guard=(False,) * 3, out_map=out_map)
 
 
 # (nb, nx, ny, nz) of K1-K5 launches: the tests' blocks, the main paths'
@@ -150,13 +156,13 @@ def library_plans(sms: int = H100_SMS) -> list[tuple[str, LaunchPlan]]:
     for bf16 in (False, True):
         for B, H, T, D in _SWA_SHAPES:
             out.append((f"K6[{B}x{H}x{T}x{D},bf16={bf16}]", swa_plan(bf16, B, H, T, D, sms)))
-    for tc in (False, True):
+    for wgmma in (False, True):
         for Ba, T, H, G, L in _SSD_SHAPES:
-            out.append((f"K7[{Ba}x{T}x{H},G={G},L={L},tc={tc}]",
-                        ssd_plan(tc, Ba, T, H, G, L, sms)))
+            out.append((f"K7[{Ba}x{T}x{H},G={G},L={L},wgmma={wgmma}]",
+                        ssd_plan(wgmma, Ba, T, H, G, L, sms)))
     for shape in _SWA_BWD_SHAPES:
         for plan in swa_bwd_plans(*shape):
             out.append((f"{plan.kernel}[{'x'.join(map(str, shape))}]", plan))
     for Ba, T, H, G, L in _SSD_BWD_SHAPES:
-        out.append((f"K7b[{Ba}x{T}x{H},G={G},L={L}]", ssd_bwd_plan(Ba, T, H, G, L)))
+        out.append((f"K7b[{Ba}x{T}x{H},G={G},L={L}]", ssd_bwd_plan(Ba, T, H, G, L, sms)))
     return out

@@ -24,15 +24,75 @@
 // Bound.  Each input is read once and each output written once: at the
 // main path's shape (Ba 4, T 2048, H 64, P 64, N 128, G 1, L 64) in bf16
 // that is ~411 MB (268 MB of it the float32 states), 0.123 ms at
-// 3.35 TB/s; the ~21.5 GFLOP take 0.022 ms on the bf16 tensor cores, so
-// the bytes bound it.  On the float32 CUDA cores (67 TFLOP/s) the same
-// products take 0.32 ms, a floor above the bound.
+// 3.35 TB/s, in float32 549 MB, 0.164 ms; the 10.8 GFLOP the causal block
+// needs (C B^T once per group and W X on the lower triangle, the states
+// whole) take 0.011 ms on the bf16 tensor cores and 0.066 ms as three TF32
+// products, so the bytes bound both kernels.
 //
-// Which kernel runs.  The C entry point picks, and reports its pick: x in
-// bfloat16 with N and P multiples of 8 runs the tensor-core kernel
-// (ssd_chunk_kernel_tc); float32, and bfloat16 with N or P not a multiple
-// of 8, run the CUDA-core kernel (ssd_chunk_kernel).  Both take L <= 64,
-// N <= 128, P <= 64.
+// Which kernel runs.  Both run on the tensor cores; the C entry point
+// picks, and reports its pick: x in bfloat16 with N and P multiples of 8
+// runs ssd_chunk_kernel_tc (wgmma, TMA); float32, and bfloat16 with N or P
+// not a multiple of 8, run ssd_chunk_kernel_tf32 (3xTF32 on mma.sync).  Both
+// take L <= 64, N <= 128, P <= 64, and one grid (plan_for): HS heads of one
+// group per block.
+//
+// float32 (and bfloat16 at the widths wgmma does not take):
+// ssd_chunk_kernel_tf32<T>, 3xTF32 on the tensor cores (csrc/tf32.cuh:
+// mma.sync m16n8k8, each float32 operand split into two TF32 parts, three
+// products summed in float32, about 2^-21 of each product left out).
+//  * Bound.  At mamba2-1.3b's training shape (Ba 4, T 2048, H 64, P 64,
+//    N 128, G 1, L 64) in float32 the bytes (x, B, C, dt read once; y_diag,
+//    the float32 states, s written once) are 549 MB, 0.164 ms at 3.35 TB/s,
+//    half of them the states; the products the causal block needs (C B^T
+//    once per group and W X on the L (L + 1) / 2 entries of the lower
+//    triangle, (u o B)^T X whole) 10.8 GFLOP, 0.066 ms as three TF32
+//    products at 495 TFLOP/s.  The first, CUDA-core form did 21.5 GFLOP
+//    (per head, on whole L x L tiles), 0.32 ms on the float32 CUDA cores,
+//    which is why it could not reach half of its bound.  So the bytes
+//    bound it: the design computes C B^T once per group, not per head,
+//    streams x through a ring and writes y and the states as
+//    16-byte stores; and it keeps enough warps in flight (four a
+//    sub-partition) for mma.sync's latencies.
+//  * Work per block.  Two warpgroups per (batch, chunk, group, slice of HS
+//    heads of that group), the wgmma kernel's grid: C and B are loaded once
+//    and the scores C B^T computed once for the HS heads (a third of the
+//    products at G = 1).  Warpgroup 0 forms the scores and Y, warp w the
+//    rows t = 16 w .. 16 w + 15, over the column tiles j <= 16 w + 15 only
+//    (the causal half); warpgroup 1 forms the states, warp w the rows n =
+//    32 w .. 32 w + 31 (two m-tiles sharing each split fragment of X).
+//    Per head: W = select(j <= t < L, S e^{s_t - s_j} dt_j, 0) on the
+//    accumulator fragments of S, which are the A operand of W X under a
+//    permuted k (tf32.cuh: acc_to_a, load_b_kn_perm); (u o B)^T, u_j =
+//    e^{s_{L-1} - s_j} dt_j, read from B stored [j][n] by load_a_km_perm
+//    (each u_j B_jn rounded to float32, as the plain version does).  Each
+//    warpgroup walks the heads in a loop of its own, so that neither keeps
+//    the other's accumulators live (128 registers, two blocks per SM).
+//  * Loads.  C, B and the first head's x by cp.async (16-byte pieces where
+//    the views allow it, else 4-byte ones; bfloat16 converted to float32
+//    on the way, synchronously), then x through a ring of two stages: head
+//    hl + 1 loads while head hl computes.  Rows past L are zero-filled (no
+//    row of the next chunk is read), as are the pad columns N .. and P ..
+//    (widths rounded up to 32: a group of four n-tiles runs whole).  Shared
+//    rows are the widths plus 4 floats (LD = 4 mod 8), so every fragment
+//    load reads 32 distinct banks.
+//  * Stores.  y_diag (in x's type) and the states go out from the
+//    accumulators, lanes t and t ^ 1 trading halves so that each lane
+//    stores four consecutive columns at once (tf32.cuh, pair_rows): rows
+//    past L and columns past N or P are never written.
+//  * Accumulation.  A tensor-core accumulator cuts each sum toward zero
+//    (tf32.cuh).  C B^T sums N in two halves of 64, each from zero, added
+//    in float32; W X and the states sum the chunk's L <= 64 rows in one
+//    accumulator.  A float64 model of this arithmetic
+//    (tests/test_torch_ssd_tf32.py) puts y_diag and the states within 2e-6
+//    of exact float64 (one TF32 product would leave ~7e-4).  Two runs give
+//    the same bits.
+//  * Resources.  Shared memory (2 x 64 (N32 + 4) + 2 x 64 (P32 + 4) + 3 x 64
+//    HS) floats: 106 KB at N 128, P 64, HS 8, two blocks of 256 threads per
+//    SM.  The k-steps of the scores and of the states stay rolled loops
+//    (their index only moves addresses; unrolled, the kernel took 0.39 ms
+//    at mamba2's training shape, rolled 0.36: by inference, the unrolled
+//    code did not fit the instruction cache).  ptxas (sm_90a, nvcc 12.9):
+//    128 registers, no spills; 288 TF32 HMMA instructions.
 //
 // bfloat16: ssd_chunk_kernel_tc, wgmma and TMA.
 //  * Work per block.  One warpgroup (128 threads) per (batch, chunk,
@@ -80,70 +140,35 @@
 //  * Resources: 88 KB of tiles (C, B, the X ring, the states' staging)
 //    and 768 HS bytes of float32 tables (s, dt, u); two blocks per SM.
 //    ptxas (sm_90a, nvcc 12.9): 212 registers, no spills.
-//
-// float32 (and bfloat16 the tensor-core kernel does not take):
-// ssd_chunk_kernel, the first (CUDA-core) form.  One block of 256 threads
-// per (chunk, head, batch).  Every product is taken in float32 with
-// float32 sums, as the reference casts to float32 before every dot.  The
-// chunk's x (L x P), B and C (transposed, N x L), dt, s and W live in
-// dynamic shared memory as float32 (104 KB at L 64, N 128, P 64; two
-// blocks per SM).  Each thread computes 4 x 4 register tiles: first the
-// lower-triangular tiles of W (an N-long product of a column of C^T and
-// one of B^T, float4 reads), then tiles of Y_diag (the j <= t part of W X)
-// and of S_c, B first scaled by exp(s_{L-1} - s_j) dt_j in place.  Rows
-// past L (a ragged L not a multiple of 4) are zero and never written out.
-#include "../../csrc/hopper.cuh"
+#include "../../csrc/tf32.cuh"
+#include "heads.cuh"
 
 #include <algorithm>
 #include <climits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTcThreads = 128;             // one warpgroup
-constexpr int kTcMaxHS = 8;                 // heads per block, at most
+constexpr int kThreads = 128;               // the wgmma kernel: one warpgroup
+constexpr int kF32Threads = 256;            // the 3xTF32 kernel: two warpgroups
+constexpr int kRows = 64;                   // rows of a chunk's tiles (L <= 64)
+constexpr int kMaxSmem = 232448;            // bytes of shared memory a block may use (H100)
 
-// The launch plan of either kernel (kernels/plans.py::ssd_plan mirrors it):
-// blocks along x, y and z, threads per block and heads per block.  The
-// CUDA-core kernel takes one head of one chunk per block; the tensor-core
-// kernel HS heads of one group, HS the largest divisor of H / G, at most
-// kTcMaxHS, that leaves at least two blocks per SM (else one head).
+// The launch plan of both kernels (kernels/plans.py::ssd_plan mirrors it):
+// blocks along x, y and z, threads per block and heads per block: HS heads
+// of one group per block (heads.cuh); one warpgroup a block on wgmma, two
+// in 3xTF32.
 struct Plan {
   long long gx;
   int gy, gz, threads, heads;
 };
 
-Plan plan_for(bool tensor_cores, int Ba, int H, int G, int nc, int sms) {
-  if (!tensor_cores) return Plan{nc, H, Ba, kThreads, 1};
-  const int R = H / G;
-  const long long groups = static_cast<long long>(Ba) * nc * G;
-  int HS = 1;
-  for (int hs = std::min(R, kTcMaxHS); hs > 1; --hs)
-    if (R % hs == 0 && groups * (R / hs) >= 2LL * sms) {
-      HS = hs;
-      break;
-    }
-  return Plan{groups * (R / HS), 1, 1, kTcThreads, HS};
-}
-
-int sm_count(int* sms) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  return static_cast<int>(err);
-}
-
-template <typename T> __device__ __forceinline__ float up(T x);
-template <> __device__ __forceinline__ float up<float>(float x) { return x; }
-template <> __device__ __forceinline__ float up<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T down(float x);
-template <> __device__ __forceinline__ float down<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 down<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
+Plan plan_for(bool wgmma, int Ba, int H, int G, int nc, int sms) {
+  const int HS = heads_per_block(Ba, H, G, nc, sms);
+  return Plan{static_cast<long long>(Ba) * nc * G * (H / G / HS), 1, 1,
+              wgmma ? kThreads : kF32Threads, HS};
 }
 
 struct Dims {
@@ -153,153 +178,266 @@ struct Dims {
   long long cb, ct, cg;  // C strides
 };
 
-__host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
+// ===========================================================================
+// float32 (and bfloat16 at the widths wgmma does not take): 3xTF32
+// ===========================================================================
 
-// floats of dynamic shared memory: x (L4 x P), B^T and C^T (N x LP),
-// W (L4 x LP), dt, s and the state weights (L4 each); LP = L4 + 4 keeps
-// rows 16-byte aligned and spreads the columns of B^T over the banks
-__host__ __device__ inline size_t smem_floats(int L, int N, int P) {
-  const int L4 = round4(L), LP = L4 + 4;
-  return static_cast<size_t>(L4) * P + 2 * static_cast<size_t>(N) * LP +
-         static_cast<size_t>(L4) * LP + 3 * static_cast<size_t>(L4);
+struct F32Dims {
+  Dims d;
+  int R, HS, n_slices;
+};
+
+__host__ __device__ inline int round32(int n) { return (n + 31) & ~31; }
+
+// floats of dynamic shared memory: C and B (64 rows of N32 + 4), two
+// stages of x (64 rows of P32 + 4), the tables s, dt and u ([HS][64] each)
+__host__ __device__ inline size_t f32_smem_floats(int N, int P, int HS) {
+  return 2 * static_cast<size_t>(kRows) * (round32(N) + 4) +
+         2 * static_cast<size_t>(kRows) * (round32(P) + 4) + 3 * static_cast<size_t>(HS) * kRows;
 }
 
+// rows [0, 64) of a strided (rows, D) tile into shared rows of LD floats,
+// rows at or past `limit` zero: float32 by cp.async (the caller commits and
+// waits), bfloat16 converted to float32 on the way
+__device__ __forceinline__ void load_rows(float* dst, const float* src, long long stride,
+                                          int limit, int D, int LD, bool vec) {
+  load_rows_async(dst, src, stride, 0, kRows, limit, D, LD, vec);
+}
+__device__ __forceinline__ void load_rows(float* dst, const __nv_bfloat16* src, long long stride,
+                                          int limit, int D, int LD, bool) {
+  for (int e = threadIdx.x; e < kRows * D; e += blockDim.x) {
+    const int r = e / D, c = e - r * D;
+    dst[r * LD + c] = r < limit ? __bfloat162float(src[r * stride + c]) : 0.f;
+  }
+}
+
+// four consecutive float32 values out as T: a float4, or four bfloat16
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&o)[4]) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(o[0], o[1]), hi = __floats2bfloat162_rn(o[2], o[3]);
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(*reinterpret_cast<uint32_t*>(&lo), *reinterpret_cast<uint32_t*>(&hi));
+}
+
+// Accumulator fragments (g = lane / 4, t = lane % 4): rows g (entries 0, 1)
+// and g + 8 (2, 3) of an m-tile of 16 rows, columns 8 j + 2 t + {0, 1} of
+// n-tile j.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-ssd_chunk_kernel(const T* __restrict__ x, const T* __restrict__ Bm, const T* __restrict__ Cm,
-                 const float* __restrict__ dt, const float* __restrict__ s,
-                 T* __restrict__ y, float* __restrict__ states, Dims d) {
+__global__ void __launch_bounds__(kF32Threads, 2)
+ssd_chunk_kernel_tf32(const T* __restrict__ x, const T* __restrict__ Bm, const T* __restrict__ Cm,
+                      const float* __restrict__ dt, const float* __restrict__ s,
+                      T* __restrict__ y, float* __restrict__ states, F32Dims f, int vec) {
+  const Dims& d = f.d;
+  const int L = d.L, N = d.N, P = d.P, H = d.H, HS = f.HS;
+  const int ldn = round32(N) + 4, ldp = round32(P) + 4;
   extern __shared__ __align__(16) float sm[];
-  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int L = d.L, N = d.N, P = d.P, H = d.H;
-  const int L4 = round4(L), LP = L4 + 4;
-  const int g = h / (H / d.G);
-  float* xs = sm;                    // [L4][P]
-  float* bt = xs + L4 * P;           // [N][LP]
-  float* ct = bt + N * LP;           // [N][LP]
-  float* w = ct + N * LP;            // [L4][LP]
-  float* dts = w + L4 * LP;          // [L4]
-  float* ss = dts + L4;              // [L4]
-  float* us = ss + L4;               // [L4]
-  const int tid = threadIdx.x;
+  float* sC = sm;                        // [64][ldn]
+  float* sB = sC + kRows * ldn;          // [64][ldn]
+  float* sX = sB + kRows * ldn;          // [2][64][ldp]
+  float* s_tab = sX + 2 * kRows * ldp;   // [HS][64]
+  float* dt_tab = s_tab + HS * kRows;
+  float* u_tab = dt_tab + HS * kRows;
+
+  int r = blockIdx.x;   // slice fastest: the blocks of one (batch, chunk, group) run together
+  const int slice = r % f.n_slices;
+  r /= f.n_slices;
+  const int grp = r % d.G;
+  r /= d.G;
+  const int c = r % d.nc, b = r / d.nc;
+  const int h0 = grp * f.R + slice * HS;
+  const int tid = threadIdx.x, wg = tid >> 7, wp = (tid >> 5) & 3, g = (tid >> 2) & 7, t = tid & 3;
   const long long t0 = static_cast<long long>(c) * L;
 
-  // ---- load the chunk, float32, zero rows past L --------------------------
-  const T* xg = x + b * d.xb + t0 * d.xt + h * d.xh;
-  for (int i = tid; i < L4 * P; i += kThreads) {
-    const int t = i / P, p = i - t * P;
-    xs[i] = t < L ? up(xg[t * d.xt + p]) : 0.f;
+  zero_pad(sC, 2 * kRows, N, ldn - 4, ldn);   // C and B
+  zero_pad(sX, 2 * kRows, P, ldp - 4, ldp);   // both stages of x
+  const T* xg = x + b * d.xb + t0 * d.xt;
+  load_rows(sC, Cm + b * d.cb + t0 * d.ct + grp * d.cg, d.ct, L, N, ldn, vec);
+  load_rows(sB, Bm + b * d.bb + t0 * d.bt + grp * d.bg, d.bt, L, N, ldn, vec);
+  load_rows(sX, xg + h0 * d.xh, d.xt, L, P, ldp, vec);
+  cp_commit();
+  // the tables of the block's heads; rows past L are 0
+  const long long srow = (static_cast<long long>(b) * d.nc + c) * L;
+  const long long trow = static_cast<long long>(b) * d.T + t0;
+  for (int e = tid; e < kRows * HS; e += kF32Threads) {
+    const int tt = e / HS, hl = e - tt * HS;
+    s_tab[hl * kRows + tt] = tt < L ? s[(srow + tt) * H + h0 + hl] : 0.f;
+    dt_tab[hl * kRows + tt] = tt < L ? dt[(trow + tt) * H + h0 + hl] : 0.f;
   }
-  const T* bg = Bm + b * d.bb + t0 * d.bt + g * d.bg;
-  const T* cg = Cm + b * d.cb + t0 * d.ct + g * d.cg;
-  for (int i = tid; i < L4 * N; i += kThreads) {
-    const int t = i / N, n = i - t * N;
-    bt[n * LP + t] = t < L ? up(bg[t * d.bt + n]) : 0.f;
-    ct[n * LP + t] = t < L ? up(cg[t * d.ct + n]) : 0.f;
+  __syncthreads();
+  for (int e = tid; e < kRows * HS; e += kF32Threads) {
+    const int tt = e & (kRows - 1);
+    u_tab[e] = tt < L ? expf(s_tab[e - tt + L - 1] - s_tab[e]) * dt_tab[e] : 0.f;
   }
-  for (int t = tid; t < L4; t += kThreads) {
-    const long long row = (static_cast<long long>(b) * d.T + t0 + t) * H + h;
-    const long long srow = ((static_cast<long long>(b) * d.nc + c) * L + t) * H + h;
-    dts[t] = t < L ? dt[row] : 0.f;
-    ss[t] = t < L ? s[srow] : 0.f;
-  }
+  cp_wait<0>();
   __syncthreads();
 
-  // ---- state weights exp(s_{L-1} - s_j) dt_j; W on the lower tiles ---------
-  for (int t = tid; t < L4; t += kThreads) us[t] = t < L ? expf(ss[L - 1] - ss[t]) * dts[t] : 0.f;
-  const int nt = L4 / 4;
-  for (int k = tid; k < nt * (nt + 1) / 2; k += kThreads) {
-    int ti = static_cast<int>((sqrtf(8.f * k + 1.f) - 1.f) * 0.5f);
-    while (ti * (ti + 1) / 2 > k) --ti;
-    while ((ti + 1) * (ti + 2) / 2 <= k) ++ti;
-    const int tj = k - ti * (ti + 1) / 2;  // tj <= ti
-    float acc[4][4] = {};
-    for (int n = 0; n < N; ++n) {
-      const float4 cv = *reinterpret_cast<const float4*>(ct + n * LP + 4 * ti);
-      const float4 bv = *reinterpret_cast<const float4*>(bt + n * LP + 4 * tj);
-      const float cr[4] = {cv.x, cv.y, cv.z, cv.w}, br[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[a][q] = fmaf(cr[a], br[q], acc[a][q]);
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int t = 4 * ti + a;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int j = 4 * tj + q;
-        w[t * LP + j] = (j <= t && t < L) ? acc[a][q] * expf(ss[t] - ss[j]) * dts[j] : 0.f;
-      }
-    }
-  }
-  __syncthreads();
-  for (int i = tid; i < N * L4; i += kThreads) {  // B_j <- B_j exp(s_{L-1} - s_j) dt_j
-    const int n = i / L4, j = i - n * L4;
-    bt[n * LP + j] *= us[j];
-  }
-  __syncthreads();
+  const int nkn = (N + 7) / 8;        // k-steps over n
+  const int nkl = (L + 7) / 8;        // k-steps over the chunk's rows
+  const int np = (P + 7) / 8;         // live n-tiles over p
+  const int nmt = (N + 15) / 16;      // m-tiles of the states
+  // warpgroup 0: the scores and Y, warp w the rows t = 16 w ..; warpgroup
+  // 1: the states, warp w the rows n = 32 w .. (two m-tiles)
+  const int r0 = 16 * wp;
+  const int ta = r0 + g, tb = ta + 8;
+  const int ny = wg == 0 && r0 < L ? min(2 * wp + 2, nkl) : 0;   // column tiles j <= t
 
-  // ---- Y_diag = W X (4 x 4 tiles of (t, p)) and S_c = B'^T X ((n, p)) ----
-  const int np4 = P / 4, ny = nt * np4, ns = (N / 4) * np4;
-  for (int k = tid; k < ny + ns; k += kThreads) {
-    float acc[4][4] = {};
-    if (k < ny) {
-      const int ti = k / np4, tp = k - ti * np4;
-      const int jmax = min(4 * ti + 3, L - 1);
-      for (int j = 0; j <= jmax; ++j) {
-        const float4 xv = *reinterpret_cast<const float4*>(xs + j * P + 4 * tp);
-        const float xr[4] = {xv.x, xv.y, xv.z, xv.w};
+  // ---- the scores S = C B^T for rows r0 .., once for the block's heads:
+  // the column tiles j <= 16 w + 15 only, N in two halves, each summed from
+  // zero on the tensor cores and added in float32 ------------------------
+  float sc[8][4];
+  zero(sc);
+  if (ny > 0) {
 #pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          const float wa = w[(4 * ti + a) * LP + j];
+    for (int half = 0; half < 2; ++half) {
+      if (8 * half >= nkn) break;
+      float part[8][4];
+      zero(part);
+#pragma unroll 1
+      for (int kk = 0; kk < 8; ++kk) {
+        const int k = 8 * half + kk;
+        if (k >= nkn) break;
+        FragA a;
+        load_a(a, sC + r0 * ldn + 8 * k, ldn, g, t);
 #pragma unroll
-          for (int q = 0; q < 4; ++q) acc[a][q] = fmaf(wa, xr[q], acc[a][q]);
+        for (int jg = 0; jg < 8; jg += 4) {
+          if (jg < ny) {
+            FragB bf[4];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) load_b_nk(bf[j], sB + 8 * (jg + j) * ldn + 8 * k, ldn, g, t);
+            mma3_group(part, jg, a, bf);
+          }
         }
       }
 #pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const int t = 4 * ti + a;
-        if (t < L) {
-          T* yo = y + ((static_cast<long long>(b) * d.T + t0 + t) * H + h) * P + 4 * tp;
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-          for (int q = 0; q < 4; ++q) yo[q] = down<T>(acc[a][q]);
-        }
-      }
-    } else {
-      const int kk = k - ny, tn = kk / np4, tp = kk - tn * np4;
-      for (int j = 0; j < L; ++j) {
-        const float4 xv = *reinterpret_cast<const float4*>(xs + j * P + 4 * tp);
-        const float xr[4] = {xv.x, xv.y, xv.z, xv.w};
-#pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          const float ba = bt[(4 * tn + a) * LP + j];
-#pragma unroll
-          for (int q = 0; q < 4; ++q) acc[a][q] = fmaf(ba, xr[q], acc[a][q]);
-        }
-      }
-      float* so = states + ((static_cast<long long>(b) * d.nc + c) * H + h) * N * P;
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-        *reinterpret_cast<float4*>(so + (4 * tn + a) * P + 4 * tp) =
-            make_float4(acc[a][0], acc[a][1], acc[a][2], acc[a][3]);
+        for (int e = 0; e < 4; ++e) sc[j][e] += part[j][e];
     }
+  }
+
+  // Each warpgroup walks the heads in a loop of its own, so that each keeps
+  // only its own accumulators live; both loops meet the same barriers (one
+  // a head, after the next head's x has landed).  Head hl + 1's x loads into
+  // the other stage under head hl's products, every thread its share.
+  auto heads = [&](auto&& body) {
+    for (int hl = 0; hl < HS; ++hl) {
+      if (hl + 1 < HS) {
+        load_rows(sX + ((hl + 1) & 1) * kRows * ldp, xg + (h0 + hl + 1) * d.xh, d.xt, L, P, ldp,
+                  vec);
+        cp_commit();
+      }
+      body(hl, sX + (hl & 1) * kRows * ldp);
+      cp_wait<0>();      // the next head's x has landed (this thread's copies)
+      __syncthreads();   // everyone's; and every warp is done with this stage
+    }
+  };
+  const int col0 = 4 * (t >> 1);
+  if (wg == 0) {
+    heads([&](int hl, const float* xs) {
+      // ---- Y = W X over the column tiles j <= t: W of columns 8 kj ..,
+      // selected (never multiplied) by the causal mask, the A operand ----
+      const int h = h0 + hl;
+      const float* s_h = s_tab + hl * kRows;
+      const float* dt_h = dt_tab + hl * kRows;
+      const float s_a = s_h[ta], s_b = s_h[tb];
+      float ya[8][4];
+      zero(ya);
+#pragma unroll
+      for (int kj = 0; kj < 8; ++kj) {
+        if (kj >= ny) break;
+        float w[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int tr = e < 2 ? ta : tb, j = 8 * kj + 2 * t + (e & 1);
+          w[e] = (j <= tr && tr < L) ? sc[kj][e] * expf((e < 2 ? s_a : s_b) - s_h[j]) * dt_h[j]
+                                     : 0.f;
+        }
+        FragA aw;
+        acc_to_a(aw, w);
+#pragma unroll
+        for (int jg = 0; jg < 8; jg += 4) {
+          if (jg < np) {
+            FragB bx[4];
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              load_b_kn_perm(bx[j], xs + 8 * kj * ldp + 8 * (jg + j), ldp, g, t);
+            mma3_group(ya, jg, aw, bx);
+          }
+        }
+      }
+      // out: four consecutive columns a lane; rows past L, columns past P
+      // are not written
+      T* yh = y + (trow * H + h) * P;
+#pragma unroll
+      for (int jn = 0; jn < 8; ++jn) {
+        float o[4];
+        const int row = pair_rows(ya[jn], t, o) ? tb : ta, col = 8 * jn + col0;
+        if (row < L && col < P) store4(yh + static_cast<long long>(row) * H * P + col, o);
+      }
+    });
+  } else {
+    heads([&](int hl, const float* xs) {
+      // ---- the states (u o B)^T X, two m-tiles of rows n sharing each
+      // split fragment of X ----------------------------------------------
+      const int h = h0 + hl;
+      const float* u_h = u_tab + hl * kRows;
+      float sa[2][8][4];
+      zero(sa[0]);
+      zero(sa[1]);
+#pragma unroll 1
+      for (int kj = 0; kj < 8; ++kj) {
+        if (kj >= nkl) break;
+        FragA au[2];
+        const float u0 = u_h[8 * kj + 2 * t], u1 = u_h[8 * kj + 2 * t + 1];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+          if (2 * wp + mi < nmt)
+            load_a_km_perm(au[mi], sB + 8 * kj * ldn + 32 * wp + 16 * mi, ldn, g, t, u0, u1);
+#pragma unroll
+        for (int jg = 0; jg < 8; jg += 4) {
+          if (jg < np) {
+            FragB bx[4];
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              load_b_kn_perm(bx[j], xs + 8 * kj * ldp + 8 * (jg + j), ldp, g, t);
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi)
+              if (2 * wp + mi < nmt) mma3_group(sa[mi], jg, au[mi], bx);
+          }
+        }
+      }
+      float* st = states + ((static_cast<long long>(b) * d.nc + c) * H + h) * N * P;
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int jn = 0; jn < 8; ++jn) {
+          float o[4];
+          const int n = 32 * wp + 16 * mi + g + (pair_rows(sa[mi][jn], t, o) ? 8 : 0);
+          const int col = 8 * jn + col0;
+          if (n < N && col < P) store4(st + static_cast<long long>(n) * P + col, o);
+        }
+    });
   }
 }
 
 template <typename T>
-int run(const void* x, const void* Bm, const void* Cm, const float* dt, const float* s, void* y,
-        float* states, int Ba, const Dims& d, cudaStream_t stream) {
-  const size_t bytes = smem_floats(d.L, d.N, d.P) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(ssd_chunk_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(bytes));
+int run_tf32(const void* x, const void* Bm, const void* Cm, const float* dt, const float* s,
+             void* y, float* states, int Ba, const Dims& d, cudaStream_t stream) {
+  int sms = 0;
+  const int e_sm = sm_count(&sms);
+  if (e_sm != 0) return e_sm;
+  const Plan pl = plan_for(false, Ba, d.H, d.G, d.nc, sms);
+  if (pl.gx > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t bytes = f32_smem_floats(d.N, d.P, pl.heads) * sizeof(float);
+  if (bytes > static_cast<size_t>(kMaxSmem)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = cudaFuncSetAttribute(
+      ssd_chunk_kernel_tf32<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const Plan pl = plan_for(false, Ba, d.H, d.G, d.nc, 0);
-  const dim3 grid(static_cast<unsigned>(pl.gx), pl.gy, pl.gz);
-  ssd_chunk_kernel<T><<<grid, pl.threads, bytes, stream>>>(
+  const int vec = std::is_same<T, float>::value && vec_ok(x, d.xb, d.xh, d.xt) &&
+                  vec_ok(Bm, d.bb, d.bg, d.bt) && vec_ok(Cm, d.cb, d.cg, d.ct);
+  const F32Dims f{d, d.H / d.G, pl.heads, d.H / d.G / pl.heads};
+  ssd_chunk_kernel_tf32<T><<<static_cast<unsigned>(pl.gx), pl.threads, bytes, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(Bm), static_cast<const T*>(Cm), dt, s,
-      static_cast<T*>(y), states, d);
+      static_cast<T*>(y), states, f, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -311,7 +449,6 @@ constexpr int kTcStages = 3;                // stages of the X ring
 constexpr uint32_t kTile = 64 * 128;        // 64 rows of 128 bytes, 128-byte swizzled
 constexpr uint32_t kKStep = 16 * 128;       // 16 rows of a tile: one k-step of an MN-major operand
 constexpr int kTcTiles = 4 + kTcStages + 4;  // C, B, the X ring, the states' staging
-constexpr float kLog2e = 1.4426950408889634f;
 
 struct TcDims {
   int T, H, G, N, P, L, nc, R, HS, n_slices;  // R = H / G heads per group
@@ -383,7 +520,7 @@ __device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
 // A register operand of k-step kk: a[0] row 16 wp + ln / 4, columns
 // 16 kk + 2 (ln % 4) + {0, 1}; a[1] the row 8 below; a[2], a[3] the same 8
 // columns to the right.
-__global__ void __launch_bounds__(kTcThreads, 2)
+__global__ void __launch_bounds__(kThreads, 2)
 ssd_chunk_kernel_tc(const __grid_constant__ CUtensorMap xmap,
                     const __grid_constant__ CUtensorMap bmap,
                     const __grid_constant__ CUtensorMap cmap,
@@ -428,13 +565,13 @@ ssd_chunk_kernel_tc(const __grid_constant__ CUtensorMap xmap,
   // the tables of the block's heads; rows past L are 0
   const long long srow = (static_cast<long long>(b) * d.nc + c) * L;
   const long long trow = static_cast<long long>(b) * d.T + static_cast<long long>(c) * L;
-  for (int e = tid; e < 64 * HS; e += kTcThreads) {
+  for (int e = tid; e < 64 * HS; e += kThreads) {
     const int t = e / HS, hl = e - t * HS;
     s_tab[hl * 64 + t] = t < L ? s[(srow + t) * H + h0 + hl] : 0.f;
     dt_tab[hl * 64 + t] = t < L ? dt[(trow + t) * H + h0 + hl] : 0.f;
   }
   __syncthreads();  // also publishes the mbarriers' init
-  for (int e = tid; e < 64 * HS; e += kTcThreads) {
+  for (int e = tid; e < 64 * HS; e += kThreads) {
     const int t = e & 63;
     u_tab[e] = t < L ? expf(s_tab[e - t + L - 1] - s_tab[e]) * dt_tab[e] : 0.f;
   }
@@ -691,15 +828,17 @@ int run_tc(const void* x, const void* Bm, const void* Cm, const float* dt, const
 
 // dtype 0: float32, 1: bfloat16 (x, B, C and y_diag).  strides: x's batch,
 // time and head strides, then B's and C's batch, time and group strides
-// (bfloat16 with N and P multiples of 8, the tensor-core kernel: x, B and C
+// (bfloat16 with N and P multiples of 8, the wgmma kernel: x, B and C
 // 16-byte aligned, their strides positive multiples of 8 elements, for the
-// TMA tensor maps).  *kernel is set to the kernel launched (0 CUDA cores, 1
-// tensor cores).  Returns the CUDA error code of the launch (0: launched).
+// TMA tensor maps).  *kernel is set to the kernel launched (0 the 3xTF32
+// kernel, 1 the wgmma kernel; both on the tensor cores).  Returns the CUDA
+// error code of the launch (0: launched).
 extern "C" int repro_ssd_intra_chunk(int dtype, const void* x, const void* Bm, const void* Cm,
                                      const void* dt, const void* s, void* y, void* states,
                                      int Ba, int T, int H, int G, int N, int P, int L,
                                      const long long* strides, void* stream, int* kernel) {
-  if (L < 1 || L > 64 || T % L != 0 || N < 1 || N > 128 || P < 1 || P > 64 || G < 1 || H % G != 0)
+  if (L < 1 || L > 64 || T % L != 0 || N < 4 || N > 128 || N % 4 != 0 || P < 4 || P > 64 ||
+      P % 4 != 0 || G < 1 || H % G != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Dims d{T, H, G, N, P, L, T / L,
          strides[0], strides[1], strides[2], strides[3], strides[4], strides[5],
@@ -711,33 +850,31 @@ extern "C" int repro_ssd_intra_chunk(int dtype, const void* x, const void* Bm, c
   switch (dtype) {
     case 0:
       *kernel = 0;
-      return run<float>(x, Bm, Cm, dtf, sf, y, sto, Ba, d, st);
+      return run_tf32<float>(x, Bm, Cm, dtf, sf, y, sto, Ba, d, st);
     case 1:
       if (N % 8 == 0 && P % 8 == 0) {
         *kernel = 1;
         return run_tc(x, Bm, Cm, dtf, sf, y, sto, Ba, d, st);
       }
       *kernel = 0;
-      return run<__nv_bfloat16>(x, Bm, Cm, dtf, sf, y, sto, Ba, d, st);
+      return run_tf32<__nv_bfloat16>(x, Bm, Cm, dtf, sf, y, sto, Ba, d, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// The launch plan repro_ssd_intra_chunk uses for these sizes (dtype and the
-// widths N, P pick the kernel as there): out[0..4] = blocks along x, y and
-// z, threads per block, heads per block.  Returns a CUDA error code.
+// The launch plan repro_ssd_intra_chunk uses for these sizes (both kernels
+// share it; dtype and the widths N, P pick the kernel as there): out[0..4] =
+// blocks along x, y and z, threads per block, heads per block.  Returns a
+// CUDA error code.
 extern "C" int repro_ssd_plan(int dtype, int Ba, int T, int H, int G, int N, int P, int L,
                               long long* out) {
-  if (L < 1 || T % L != 0 || G < 1 || H % G != 0 || dtype < 0 || dtype > 1)
+  if (L < 1 || T % L != 0 || G < 1 || H % G != 0 || dtype < 0 || dtype > 1 || N < 1 || P < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool tc = dtype == 1 && N % 8 == 0 && P % 8 == 0;
   int sms = 0;
-  if (tc) {
-    const int e = sm_count(&sms);
-    if (e != 0) return e;
-  }
-  const Plan p = plan_for(tc, Ba, H, G, T / L, sms);
+  const int e = sm_count(&sms);
+  if (e != 0) return e;
+  const Plan p = plan_for(dtype == 1 && N % 8 == 0 && P % 8 == 0, Ba, H, G, T / L, sms);
   out[0] = p.gx;
   out[1] = p.gy;
   out[2] = p.gz;

@@ -10,29 +10,34 @@ else, allocates its outputs with ``torch.empty``, launches on the current
 CUDA stream without synchronising, and raises if the launch was refused.
 
 Which kernel runs is one explicit rule (:func:`kernel_for`), applied by the
-C entry point, which reports its pick: bfloat16 with N and P multiples of 8
-runs on the tensor cores (``wgmma``, TMA); float32, and bfloat16 with N or P
-not a multiple of 8, on the CUDA cores (the first, float32 form).  There is
-no other switch and no fallback.  The tensor-core kernel loads x, B and C
-through TMA tensor maps, which need 16-byte aligned views with strides of
-16-byte multiples: a view without them is copied first into a contiguous
-buffer (the Mamba layer's views are never copied).
+C entry point, which reports its pick; both run on the tensor cores:
+bfloat16 with N and P multiples of 8 on ``wgmma`` (TMA loads and stores);
+float32, and bfloat16 with N or P not a multiple of 8, in 3xTF32 on
+``mma.sync`` (float32's accuracy from three TF32 products).  There is no
+other switch and no fallback.  The wgmma kernel loads x, B and C through
+TMA tensor maps, which need 16-byte aligned views with strides of 16-byte
+multiples: a view without them is copied first into a contiguous buffer
+(the Mamba layer's views are never copied).
 ``ssd_intra_chunk_cuda.launches`` counts the launches,
-``ssd_intra_chunk_cuda.tc_launches`` those on the tensor cores.
+``ssd_intra_chunk_cuda.by_kernel`` them by the kernel the C entry point
+reported (keys :data:`KERNELS`).
 :func:`c_plan` is the C entry point's launch plan, which ``chip_smoke.py``
 holds against the analyzer's (:func:`repro_torch.kernels.plans.ssd_plan`)
 at every shape it launched.  Under an analyzer check the wrapper records
 that plan and launches nothing.
 
 :func:`ssd_backward_cuda` launches K7's backward (``csrc/ssd_bwd.cu``,
-float32 on the CUDA cores): the gradient of the f32 forward's ``(y_diag,
-states)`` for ``x, dt, s, B, C``, with the contract of
+float32, 3xTF32 on the tensor cores: two kernels, dC and then dX, ddt, ds,
+dB): the gradient of the f32 forward's ``(y_diag, states)`` for ``x, dt,
+s, B, C``, with the contract of
 :func:`~repro_torch.kernels.ssd.ref.ssd_intra_chunk_backward_ref`.  It takes
-every shape the forward's f32 kernel takes, writes dB and dC per head and
-sums them over each group's heads here; ``ssd_backward_cuda.launches``
-counts its launches, :func:`bwd_c_plan` is its C entry point's plan
-(:func:`repro_torch.kernels.plans.ssd_bwd_plan` the analyzer's).  It is
-reached through :class:`_SsdCuda` only.
+every shape the forward's float32 kernel takes; the kernels write dB and dC
+as one partial sum per slice of the heads a block takes (the C entry
+point's rule, which :func:`bwd_c_plan` reports and this wrapper sizes the
+partials by), which this wrapper sums over each group's slices;
+``ssd_backward_cuda.launches`` counts its launches, :func:`bwd_c_plan` is
+its C entry point's plan (:func:`repro_torch.kernels.plans.ssd_bwd_plan` the
+analyzer's).  It is reached through :class:`_SsdCuda` only.
 
 :func:`ssd_kernel` is the counterpart of the reference's ``ssd_pallas``:
 the in-chunk decay ``s``, K7 behind :class:`_SsdCuda` (a
@@ -56,7 +61,7 @@ from .ref import chunk_logdecay
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_L, MAX_N, MAX_P = 64, 128, 64
-KERNELS = ("CUDA cores", "tensor cores")   # the C entry point's codes 0 and 1
+KERNELS = ("3xTF32", "wgmma")   # the C entry point's codes 0 and 1, both on the tensor cores
 _MAX_GRID_YZ = 65535
 
 
@@ -72,8 +77,7 @@ def _entry():
 @functools.lru_cache(maxsize=None)
 def _bwd_entry():
     fn = _build.load().repro_ssd_backward
-    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
-                   + [ctypes.c_void_p, ctypes.c_void_p])
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     return fn
 
@@ -92,12 +96,13 @@ def c_plan(dtype: torch.dtype, Ba: int, T: int, H: int, G: int, N: int, P: int, 
 
 
 def bwd_c_plan(Ba: int, T: int, H: int, G: int, N: int, P: int, L: int) -> tuple:
-    """The backward's C entry point's launch plan: blocks along x, y and z,
-    threads per block, bytes of dynamic shared memory."""
+    """The backward's C entry point's launch plan (both of its kernels) on
+    the current device: blocks along x, y and z, threads per block, heads
+    per block, bytes of dynamic shared memory of the larger kernel."""
     fn = _build.load().repro_ssd_bwd_plan
     fn.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_longlong)]
     fn.restype = ctypes.c_int
-    out = (ctypes.c_longlong * 5)()
+    out = (ctypes.c_longlong * 6)()
     err = fn(Ba, T, H, G, N, P, L, out)
     if err != 0:
         raise RuntimeError(f"repro_ssd_bwd_plan failed with CUDA error {err}")
@@ -105,9 +110,9 @@ def bwd_c_plan(Ba: int, T: int, H: int, G: int, N: int, P: int, L: int) -> tuple
 
 
 def kernel_for(dtype: torch.dtype, N: int, P: int) -> str:
-    """The kernel K7 runs on for x of ``dtype`` and widths N, P (the C entry
-    point's rule): the tensor cores for bfloat16 with N and P multiples of
-    8, the CUDA cores otherwise."""
+    """The kernel K7 runs for x of ``dtype`` and widths N, P (the C entry
+    point's rule): ``wgmma`` for bfloat16 with N and P multiples of 8,
+    ``3xTF32`` otherwise.  Both run on the tensor cores."""
     if dtype == torch.bfloat16 and N % 8 == 0 and P % 8 == 0:
         return KERNELS[1]
     return KERNELS[0]
@@ -193,12 +198,12 @@ def ssd_intra_chunk_cuda(x, dt, A, B, C, *, chunk: int = 64, s=None):
         raise RuntimeError(f"{where}: the C entry point ran the {KERNELS[kernel.value]} kernel, "
                            f"the rule says the {want} one")
     ssd_intra_chunk_cuda.launches += 1
-    ssd_intra_chunk_cuda.tc_launches += int(kernel.value == 1)
+    ssd_intra_chunk_cuda.by_kernel[KERNELS[kernel.value]] += 1
     return y, states, s
 
 
 ssd_intra_chunk_cuda.launches = 0
-ssd_intra_chunk_cuda.tc_launches = 0
+ssd_intra_chunk_cuda.by_kernel = dict.fromkeys(KERNELS, 0)
 
 
 def ssd_backward_cuda(x, dt, s, B, C, dy, dstates):
@@ -214,7 +219,8 @@ def ssd_backward_cuda(x, dt, s, B, C, dy, dstates):
     Ba, T, H, P = x.shape
     G, N = B.shape[2], B.shape[3]
     if _mk.TRACE is not None:   # an analyzer check: record the plan, launch nothing
-        dx = _mk.TRACE.kernel(ssd_bwd_plan(Ba, T, H, G, s.shape[2]), (x, dt, s, B, C, dy, dstates))
+        dx = _mk.TRACE.kernel(ssd_bwd_plan(Ba, T, H, G, s.shape[2], H100_SMS),
+                              (x, dt, s, B, C, dy, dstates))
         return dx, dt.new_empty(dt.shape), s.new_empty(s.shape), B.new_empty(B.shape), \
             C.new_empty(C.shape)
     ins = {"x": x, "dt": dt, "s": s, "B": B, "C": C, "dy": dy, "dstates": dstates}
@@ -232,24 +238,26 @@ def ssd_backward_cuda(x, dt, s, B, C, dy, dstates):
                          + ", ".join(f"{k} {tuple(v.shape)}" for k, v in ins.items()))
     dy = dy if dy.stride(3) == 1 else dy.contiguous()
     dt, s, dstates = dt.contiguous(), s.contiguous(), dstates.contiguous()
-    dx = torch.empty((Ba, T, H, P), dtype=x.dtype, device=x.device)
-    ddt = torch.empty((Ba, T, H), dtype=torch.float32, device=x.device)
-    ds = torch.empty((Ba, nc, L, H), dtype=torch.float32, device=x.device)
-    dBh = torch.empty((Ba, T, H, N), dtype=torch.float32, device=x.device)
-    dCh = torch.empty_like(dBh)
-    strides = (ctypes.c_longlong * 12)(*x.stride()[:3], *B.stride()[:3], *C.stride()[:3],
-                                       *dy.stride()[:3])
     with torch.cuda.device(x.device):
+        hs = bwd_c_plan(Ba, T, H, G, N, P, L)[4]
+        slices = H // G // hs
+        dx = torch.empty((Ba, T, H, P), dtype=x.dtype, device=x.device)
+        ddt = torch.empty((Ba, T, H), dtype=torch.float32, device=x.device)
+        ds = torch.empty((Ba, nc, L, H), dtype=torch.float32, device=x.device)
+        dBp = torch.empty((Ba, T, G * slices, N), dtype=torch.float32, device=x.device)
+        dCp = torch.empty_like(dBp)
+        strides = (ctypes.c_longlong * 12)(*x.stride()[:3], *B.stride()[:3], *C.stride()[:3],
+                                           *dy.stride()[:3])
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _bwd_entry()(*(t.data_ptr() for t in (x, B, C, dt, s, dy, dstates, dx, ddt, ds,
-                                                     dBh, dCh)),
+                                                     dBp, dCp)),
                            Ba, T, H, G, N, P, L, strides, stream)
     if err != 0:
         raise RuntimeError(f"{where}: launch failed with CUDA error {err}")
     ssd_backward_cuda.launches += 1
-    if G < H:   # the adjoint of the per-head repeat
-        dBh, dCh = (t.view(Ba, T, G, H // G, N).sum(3) for t in (dBh, dCh))
-    return dx, ddt, ds, dBh, dCh
+    if slices > 1:   # the slices' partial sums, in a fixed order
+        dBp, dCp = (t.view(Ba, T, G, slices, N).sum(3) for t in (dBp, dCp))
+    return dx, ddt, ds, dBp, dCp
 
 
 ssd_backward_cuda.launches = 0
@@ -259,8 +267,8 @@ class _SsdCuda(torch.autograd.Function):
     """K7's forward and K7's backward: ``(x, dt, s, B, C) -> (y_diag,
     states)``; ``A`` comes along only for the forward's checks (its
     gradient reaches it through ``s``).  Saves the inputs; the backward
-    (float32 only) recomputes C B^T, the decay and W.  Without gradients
-    (serving) only the forward runs."""
+    (float32 only) recomputes C B^T, dY X^T, the decay and W.  Without
+    gradients (serving) only the forward runs."""
 
     @staticmethod
     def forward(ctx, x, dt, s, B, C, A):

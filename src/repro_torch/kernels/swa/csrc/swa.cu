@@ -129,7 +129,7 @@
 //    64 (two blocks per SM), 169 KB at DP 128, 200 KB at DP 256.  ptxas
 //    (-Xptxas -v, sm_90a, nvcc 12.9): 212 / 208 / 225 registers at DP 64 /
 //    128 / 256, no spills.
-#include "tf32.cuh"
+#include "../../csrc/tf32.cuh"
 
 #include <algorithm>
 #include <climits>

@@ -79,7 +79,7 @@
 //   dQ:    DP 64: BN 32, MT 2 (128 rows), two stages (104 KB, two blocks
 //          per SM; 219 registers); DP 128: BN 64, two stages (203 KB; 223);
 //          DP 256: BN 32, one stage (200 KB; 237).
-#include "tf32.cuh"
+#include "../../csrc/tf32.cuh"
 
 namespace {
 

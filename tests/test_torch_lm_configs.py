@@ -236,11 +236,11 @@ def test_k7_at_state_width_16_vs_plain_on_card(cuda_device, case):
     Cm = zx[..., H * P + G * N:].view(Ba, T_, G, N)
     dt = torch.rand(Ba, T_, H, generator=g, device=cuda_device) * 0.2 + 0.01
     A = -torch.rand(H, generator=g, device=cuda_device) - 0.1
-    assert kssd.kernel_for(torch.bfloat16, N, P) == "tensor cores"
-    tc0 = kssd.ssd_intra_chunk_cuda.tc_launches
+    assert kssd.kernel_for(torch.bfloat16, N, P) == "wgmma"
+    w0 = kssd.ssd_intra_chunk_cuda.by_kernel["wgmma"]
     got = kssd.ssd_intra_chunk_cuda(x, dt, A, Bm, Cm, chunk=L)
     torch.cuda.synchronize()
-    assert kssd.ssd_intra_chunk_cuda.tc_launches == tc0 + 1
+    assert kssd.ssd_intra_chunk_cuda.by_kernel["wgmma"] == w0 + 1
     want = ssd_intra_chunk_ref(x, dt, A, Bm, Cm, chunk=L)
     for name, a, b in zip(("y_diag", "states", "s"), got, want):
         assert a.dtype == b.dtype and a.shape == b.shape, name

@@ -13,12 +13,13 @@ the decode step and ``ssd_scan``'s dispatch) against the JAX package's
   ``ssd_scan(use_kernel="ref" | "naive")``, with and without ``h0``, f32,
   to 2e-5 (the reference's own chunked-vs-naive check allows 2e-4).
 * On a CPU tensor ``auto`` runs the plain version and ``cuda`` raises; the
-  ``cuda``-marked tests hold K7 against its plain version on the card, each
-  launch on the kernel the rule picks (bf16 with N and P multiples of 8 on
-  the tensor cores, ``tc_launches``), from views that TMA reads as they are
-  and from odd-width ones the wrapper copies; f32 runs the CUDA-core kernel,
-  whose bf16 form (where the rule refuses the tensor cores) gives bitwise
-  the f32 result of the same values, rounded.
+  ``cuda``-marked tests hold K7 against its plain version on the card, every
+  launch on the tensor cores (``by_kernel``, the kernel the C entry point
+  reported: bf16 with N and P multiples of 8 on wgmma, the rest in 3xTF32),
+  from views that TMA reads as they are
+  and from odd-width ones the wrapper copies; the 3xTF32 kernel's bf16 form
+  (where the rule refuses wgmma) gives bitwise the f32 result of the same
+  values, rounded.
 
 The reference runs once in a module-scoped child process; arrays travel as
 ``.npy`` files made from a numpy seed.
@@ -232,13 +233,14 @@ def test_k7_vs_plain_on_card(cuda_device, case, dt, width):
     Ba, T, H_, G, N_, P_, L = case
     dtype = getattr(torch, dt)
     x, dtv, A, B, C = _card_inputs(case, dtype, width, cuda_device)
-    n0, tc0 = ssd.ssd_intra_chunk_cuda.launches, ssd.ssd_intra_chunk_cuda.tc_launches
+    n0, b0 = ssd.ssd_intra_chunk_cuda.launches, dict(ssd.ssd_intra_chunk_cuda.by_kernel)
     got = ssd.ssd_intra_chunk_cuda(x, dtv, A, B, C, chunk=L)
     torch.cuda.synchronize()
     assert ssd.ssd_intra_chunk_cuda.launches == n0 + 1
-    on_tc = ssd_kernel_mod.kernel_for(dtype, N_, P_) == "tensor cores"
-    assert on_tc == (dtype == torch.bfloat16 and N_ % 8 == 0 and P_ % 8 == 0)
-    assert ssd.ssd_intra_chunk_cuda.tc_launches == tc0 + int(on_tc)
+    ran = "wgmma" if dtype == torch.bfloat16 and N_ % 8 == 0 and P_ % 8 == 0 else "3xTF32"
+    assert ssd_kernel_mod.kernel_for(dtype, N_, P_) == ran
+    assert {k: n - b0[k] for k, n in ssd.ssd_intra_chunk_cuda.by_kernel.items()} == \
+        {k: int(k == ran) for k in ssd_kernel_mod.KERNELS}
     want = ssd.ssd_intra_chunk_ref(x, dtv, A, B, C, chunk=L)
     for name, a, b in zip(("y_diag", "states", "s"), got, want):
         assert a.dtype == b.dtype and a.shape == b.shape, name
@@ -258,18 +260,20 @@ def test_k7_vs_plain_on_card(cuda_device, case, dt, width):
 @pytest.mark.parametrize("case", [c for c in CARD_CASES if c[5] % 8 or c[4] % 8],
                          ids=lambda c: "x".join(map(str, c)))
 def test_k7_cuda_core_kernel_is_one_arithmetic(cuda_device, case):
-    """f32 runs on the CUDA cores, deterministically; where the rule keeps
-    bf16 off the tensor cores, its CUDA-core launch gives bitwise the f32
-    launch's states on the same (upcast) values, and its y_diag rounded."""
+    """f32 runs the 3xTF32 kernel on the tensor cores, deterministically;
+    where the rule keeps bf16 off wgmma, its 3xTF32 launch gives bitwise the
+    f32 launch's states on the same (upcast) values, and its y_diag
+    rounded."""
     L = case[-1]
     x, dtv, A, B, C = _card_inputs(case, torch.bfloat16, "aligned", cuda_device)
-    tc0 = ssd.ssd_intra_chunk_cuda.tc_launches
+    assert ssd_kernel_mod.kernel_for(torch.bfloat16, case[4], case[5]) == "3xTF32"
+    t0 = ssd.ssd_intra_chunk_cuda.by_kernel["3xTF32"]
     y16, st16, _ = ssd.ssd_intra_chunk_cuda(x, dtv, A, B, C, chunk=L)
     up = [t.float() for t in (x, B, C)]
     y32, st32, _ = ssd.ssd_intra_chunk_cuda(up[0], dtv, A, up[1], up[2], chunk=L)
     y32b, st32b, _ = ssd.ssd_intra_chunk_cuda(up[0], dtv, A, up[1], up[2], chunk=L)
     torch.cuda.synchronize()
-    assert ssd.ssd_intra_chunk_cuda.tc_launches == tc0
+    assert ssd.ssd_intra_chunk_cuda.by_kernel["3xTF32"] == t0 + 3
     assert torch.equal(y32, y32b) and torch.equal(st32, st32b)
     assert torch.equal(st16, st32) and torch.equal(y16, y32.bfloat16())
 

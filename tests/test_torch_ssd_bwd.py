@@ -218,7 +218,11 @@ def test_backward_plan_covers_its_output(shape):
     Ba, T, H, G, L = shape
     plan = plans.ssd_bwd_plan(Ba, T, H, G, L)
     assert launchgrid.check_plan(plan) == []
-    assert plan.grid == (T // L, H, Ba) and plan.block == (256, 1, 1)
+    # the forward's plan: HS heads of one group per block of two warpgroups
+    hs = plan.tile[2]
+    assert plan == dataclasses.replace(plans.ssd_plan(False, Ba, T, H, G, L), kernel="K7b ssd_bwd")
+    assert (H // G) % hs == 0 and plan.block == (256, 1, 1)
+    assert plan.grid == (Ba * (T // L) * H // hs, 1, 1)
     assert (f"K7b[{Ba}x{T}x{H},G={G},L={L}]", plan) in plans.library_plans()
 
 

@@ -14,8 +14,9 @@ the wrapper's rules.
   ``chip_smoke.k7_inputs`` makes them (softplus dt, A = -exp(U(0, 1))).
   With u X rounded once, the states miss 1e-5 by far: the reason for three
   terms.
-* ``kernel_for`` (the C entry point's rule), ``check_args`` (what neither
-  kernel takes) and ``kernels.tma_ready`` (which views are copied before
+* ``kernel_for`` (the C entry point's rule: bf16 at N and P multiples of
+  8 on wgmma, the rest in 3xTF32), ``check_args`` (what neither kernel
+  takes) and ``kernels.tma_ready`` (which views are copied before
   a tensor-core launch) as plain functions.
 
 The ``cuda``-marked tests of ``tests/test_torch_ssd.py`` hold the kernel
@@ -131,11 +132,12 @@ def test_tc_plan_per_group_scores_equal_per_head(ragged_rows):
 
 
 def test_kernel_rule():
-    tc, cc = K.KERNELS[1], K.KERNELS[0]
+    wg, tf = K.KERNELS[1], K.KERNELS[0]
+    assert (tf, wg) == ("3xTF32", "wgmma")   # both on the tensor cores
     bf, f32 = torch.bfloat16, torch.float32
-    assert [K.kernel_for(bf, n, p) for n, p in ((128, 64), (16, 16), (16, 8), (8, 8))] == [tc] * 4
-    assert [K.kernel_for(bf, n, p) for n, p in ((8, 4), (12, 8), (128, 60))] == [cc] * 3
-    assert [K.kernel_for(f32, n, p) for n, p in ((128, 64), (16, 8), (8, 4))] == [cc] * 3
+    assert [K.kernel_for(bf, n, p) for n, p in ((128, 64), (16, 16), (16, 8), (8, 8))] == [wg] * 4
+    assert [K.kernel_for(bf, n, p) for n, p in ((8, 4), (12, 8), (128, 60))] == [tf] * 3
+    assert [K.kernel_for(f32, n, p) for n, p in ((128, 64), (16, 8), (8, 4))] == [tf] * 3
 
 
 def _mk(T=16, H=2, G=1, N=16, P=8, dtype=torch.float32):
