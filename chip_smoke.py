@@ -114,6 +114,21 @@ plain PyTorch version on the card.  Then it drives these paths through the kerne
   prediction: 96 forward, 48 backward); one step of jamba's SMOKE config
   (K6's and K7's backward and the MoE layer in one model) against the
   plain path;
+* context parallelism and GPipe (slice 17, phase ``context_parallel``): K6
+  in float32 with its log-sum-exp at the halo'd shard's shape (2048
+  queries, the last of 3072 keys, window 1024), rank 0's and the ring's
+  diagonal step, and K7 at one shard's shape, against their plain
+  versions; mamba2-1.3b whole and gemma3-4b cut to its first 6 layers (one
+  period of its 5:1 pattern), float32, B 1, T 8192, run whole in this
+  process and then sharded over 4 gloo processes sharing the card
+  (``context_parallel_fwd``/``context_parallel_logits``: conv and kv
+  halos, ring attention, the SSD state scan): hidden state and logits
+  within 1e-3 normwise of one process, 48 K7 / 5 + 1 K6 launches a process,
+  the sharded forward timed against the one-process one (median of 3);
+  llama3.2-1b's 16 layers as 4 GPipe stages of 4 (4 microbatches of 1 x
+  2048) against the layers in sequence, 28 K6 launches a process.  The
+  processes' launches join the kernels line (``launches_context_parallel``,
+  ``launches_gpipe``);
 * the grid across processes (phase ``dist``): the one-process runs
   here, then 8 processes of a gloo group on this card, one block each
   (Heat3D 8 x 256^3 f32 100 steps with hide and without, every block and
@@ -3541,6 +3556,423 @@ def train_phases(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# slice 17: context parallelism and GPipe across processes (phase
+# context_parallel)
+# ---------------------------------------------------------------------------
+
+CP_WORLD = 4                 # gloo processes sharing the card, one sequence shard each
+CP_SHARD = 2048              # tokens a process: B 1, T = 4 x 2048 = 8192
+# name: (config, layers kept (None: all), seed of the weights and tokens)
+CP_MODELS = {"mamba2": ("mamba2-1.3b", None, 0), "gemma3": ("gemma3-4b", 6, 1)}
+CP_TOL = 1e-3                # normwise (Frobenius), sharded against one process
+CP_LOGIT_ROWS = 1024         # gemma3: each shard's first rows (the halo'd ones) and its last
+CP_RUNS = 3                  # timed forwards, median
+# B, H, Hkv, T, S, D, window of K6 on this path (f32 with its LSE): the halo'd
+# window layers of ranks 1-3 (S = T + W), rank 0's, and the ring's diagonal step
+CP_K6 = ((1, 8, 4, 2048, 3072, 256, 1024), (1, 8, 4, 2048, 2048, 256, 1024),
+         (1, 8, 4, 2048, 2048, 256, 2048))
+CP_K7 = (1, 2048, 64, 64, 128, 1, 64)   # K7 on one shard of mamba2-1.3b (Ba, T, H, P, N, G, L)
+CP_PIPE = ("llama3.2-1b", 4, 2048, 2)   # config, microbatches of 1 x 2048 tokens, seed
+CP_PIPE_TOL = 1e-6           # GPipe against the layers in sequence, normwise
+
+
+def cp_config(name: str):
+    """The float32 config of a context-parallel cell (gemma3-4b cut to one
+    period of its 5:1 pattern: 5 window layers and 1 global)."""
+    import dataclasses
+
+    from repro_torch.configs import get
+
+    cfg_name, layers, _ = CP_MODELS[name]
+    cfg = dataclasses.replace(get(cfg_name), dtype="float32")
+    if layers is not None:
+        pattern = cfg.stacks[0][0]
+        if len(pattern) != layers:
+            fail(f"{cfg_name}: its first period has {len(pattern)} layers, not {layers}")
+        cfg = dataclasses.replace(cfg, stacks=((pattern, 1),))
+    return cfg
+
+
+def cp_build(name: str, dev):
+    """The cell's model and its (1, T) tokens from its seed: the same on
+    every process of the card."""
+    from repro_torch.models import Model
+
+    cfg = cp_config(name)
+    gen = torch.Generator(device=dev).manual_seed(CP_MODELS[name][2])
+    model = Model(cfg, generator=gen, dtype=torch.float32, device=dev)
+    tokens = torch.randint(0, cfg.vocab, (1, CP_WORLD * CP_SHARD), generator=gen, device=dev)
+    return cfg, model, tokens
+
+
+def cp_logit_rows(name: str) -> torch.Tensor:
+    """The rows of a shard whose logits are compared: all of them (mamba2),
+    or the first CP_LOGIT_ROWS and the last (gemma3's vocab of 262144)."""
+    if name == "mamba2":
+        return torch.arange(CP_SHARD)
+    return torch.cat([torch.arange(CP_LOGIT_ROWS), torch.tensor([CP_SHARD - 1])])
+
+
+def host_ms(fn, sync_all=None) -> float:
+    """Host-clock ms of ``fn()`` from a synchronised start to its synchronised
+    end (``sync_all``: a barrier of the group before the start)."""
+    if sync_all is not None:
+        sync_all()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def cp_timed(run, sync_all, runs: int) -> dict:
+    """``runs`` timed ``run()`` calls started together (host ms each), with
+    ``comm.shift`` timed on the host: its calls and the host ms inside them
+    a run (the wait for this process's kernels before a staged copy, the
+    copies, the wait for the peers)."""
+    from repro_torch.core import comm
+
+    shift, calls, inside = comm.shift, [0], [0.0]
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        out = shift(*args, **kw)
+        inside[0] += (time.perf_counter() - t0) * 1e3
+        calls[0] += 1
+        return out
+
+    comm.shift = timed
+    try:
+        ms = [host_ms(run, sync_all) for _ in range(runs)]
+    finally:
+        comm.shift = shift
+    return {"ms": ms, "shift_calls": calls[0] / runs, "shift_host_ms": inside[0] / runs}
+
+
+def cp_model_check(name: str, ref_dir: str) -> dict:
+    """One process of the group: its shard of the cell's forward through
+    ``context_parallel_fwd`` and the logits, K6's and K7's launches counted
+    around it (zeroed just before, read just after), the hidden state and
+    the logits against the one-process run's (``ref_dir``: the parent's
+    hidden state of the whole sequence; the one-process logits of the
+    compared rows are ``logits_fn`` of its rows), then CP_RUNS timed
+    ``context_parallel_logits`` calls started together (``cp_timed``)."""
+    import os
+
+    from repro_torch.core import comm
+    from repro_torch.distributed.context_parallel import (context_parallel_fwd,
+                                                          context_parallel_logits)
+    from repro_torch.kernels.ssd import kernel as kssd
+    from repro_torch.kernels.swa import kernel as kswa
+    from repro_torch.models import transformer as tf
+
+    from repro_torch._device import resolve_device
+
+    dev = resolve_device(None)   # the card, shared by the group's processes
+    cfg, model, tokens = cp_build(name, dev)
+    r = comm.rank()
+    k6, k7 = kswa.swa_attention_cuda, kssd.ssd_intra_chunk_cuda
+    comm.barrier()
+    k6.launches = k6.tc_launches = k7.launches = 0
+    by0 = dict(k7.by_kernel)
+    with torch.inference_mode():
+        h = context_parallel_fwd(model, cfg, tokens, axis="sp")
+        logits = tf.logits_fn(model, h)
+    torch.cuda.synchronize()
+    launches = {"k6": k6.launches, "k6_tensor_core": k6.tc_launches, "k7": k7.launches,
+                "k7_3xtf32": k7.by_kernel["3xTF32"] - by0["3xTF32"]}
+    h_one = torch.load(os.path.join(ref_dir, f"{name}_hidden.pt"))[:, r * CP_SHARD:
+                                                                   (r + 1) * CP_SHARD].to(dev)
+    rows = cp_logit_rows(name).to(dev)
+    with torch.inference_mode():
+        want = tf.logits_fn(model, h_one.index_select(1, rows))[..., :cfg.vocab]
+    got = logits.index_select(1, rows)[..., :cfg.vocab]
+    out = {"launches": launches, "hidden_normwise": frobenius(h, h_one),
+           "logits_normwise": frobenius(got, want),
+           "hidden_max_abs": float((h - h_one).abs().max()),
+           "logits_max_abs": float((got - want).abs().max()),
+           "finite": bool(torch.isfinite(logits[..., :cfg.vocab]).all()),
+           "logits_shape": list(logits.shape)}
+    del h, logits, got, want, h_one
+
+    def run():
+        with torch.inference_mode():
+            context_parallel_logits(model, cfg, tokens, axis="sp")
+
+    out.update(cp_timed(run, comm.barrier, CP_RUNS))
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def cp_pipe_stage(cfg, positions):
+    """GPipe's ``stage_fn(params, x)`` for a stage of ``cfg``'s layers,
+    ``params`` a list of (block, layer spec)."""
+    from repro_torch.models import blocks
+
+    def stage(params, x):
+        for block, layer in params:
+            x = blocks.layer_fwd(block, cfg, layer, x, mode="train", positions=positions)[0]
+        return x
+
+    return stage
+
+
+def cp_pipe_setup(dev):
+    """llama3.2-1b in float32 from its seed and the microbatches (M, 1, T, d)."""
+    import dataclasses
+
+    from repro_torch.configs import get
+    from repro_torch.models import Model
+
+    name, M, T, seed = CP_PIPE
+    cfg = dataclasses.replace(get(name), dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model = Model(cfg, generator=gen, dtype=torch.float32, device=dev)
+    xs = torch.randn(M, 1, T, cfg.d_model, generator=gen, device=dev)
+    return cfg, model, xs
+
+
+def cp_gpipe_check(ref_dir: str) -> dict:
+    """One process of the group: stage r of llama3.2-1b (layers 4r..4r+3)
+    under ``gpipe``, K6's launches counted around it, the outputs against
+    the parent's layers applied in sequence; then timed."""
+    import os
+
+    from repro_torch.core import comm
+    from repro_torch.distributed.pipeline import gpipe
+    from repro_torch.kernels.swa import kernel as kswa
+
+    from repro_torch._device import resolve_device
+
+    dev = resolve_device(None)
+    cfg, model, xs = cp_pipe_setup(dev)
+    S, r = comm.world_size(), comm.rank()
+    per = cfg.n_layers // S
+    params = [(model.layers[i], cfg.layers_flat[i]) for i in range(r * per, (r + 1) * per)]
+    stage = cp_pipe_stage(cfg, torch.arange(xs.shape[2], device=dev))
+    k6 = kswa.swa_attention_cuda
+    comm.barrier()
+    k6.launches = 0
+    with torch.inference_mode():
+        got = gpipe(stage, params, xs, axis="pod")
+    torch.cuda.synchronize()
+    launches = k6.launches
+    want = torch.load(os.path.join(ref_dir, "gpipe_sequential.pt")).to(dev)
+    out = {"launches": launches, "normwise": frobenius(got, want),
+           "bitwise": bool(torch.equal(got, want)), "finite": bool(torch.isfinite(got).all())}
+    del got, want
+
+    def run():
+        with torch.inference_mode():
+            gpipe(stage, params, xs, axis="pod")
+
+    out["ms"] = [host_ms(run, comm.barrier) for _ in range(CP_RUNS)]
+    return out
+
+
+CP_CHECKS = {"cp_mamba2": lambda ref_dir: cp_model_check("mamba2", ref_dir),
+             "cp_gemma3": lambda ref_dir: cp_model_check("gemma3", ref_dir),
+             "cp_gpipe": cp_gpipe_check}
+
+
+def cp_kernel_checks(kswa, kssd, dev) -> dict:
+    """K6 (float32, with its LSE) at every shape of this path and K7 at the
+    shard's shape against their plain versions on the card; K6 at the halo
+    shape timed in turns with its plain version and SDPA."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ssd import ssd_intra_chunk_ref
+    from repro_torch.kernels.swa import swa_lse_ref
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+    out = {"k6_max_abs": 0.0}
+    for shape in CP_K6:
+        w = shape[-1]
+        q, k, v = k6_inputs(shape, torch.float32, gen, dev)
+        tc0 = kswa.swa_attention_cuda.tc_launches
+        o, lse = kswa.swa_attention_cuda(q, k, v, window=w, return_lse=True)
+        torch.cuda.synchronize()
+        if kswa.swa_attention_cuda.tc_launches != tc0 + 1:
+            fail(f"context_parallel: K6 at {shape} did not run on the tensor cores")
+        wo, wl = swa_lse_ref(q, k, v, window=w)
+        (eo, do), (el, dl) = normwise(o, wo), normwise(lse, wl)
+        if not (eo <= K6_TOL["float32"] and el <= K6_TOL["float32"]):
+            fail(f"context_parallel: K6 at {shape} differs from its plain version: output "
+                 f"{eo}, LSE {el} normwise > {K6_TOL['float32']}")
+        out["k6_max_abs"] = max(out["k6_max_abs"], do)
+        say("cp_kernel", kernel="K6 f32 with LSE", shape="B,H,Hkv,T,S,D,W=" +
+            ",".join(map(str, shape)), out_normwise=eo, lse_normwise=el, out_max_abs=do,
+            lse_max_abs=dl, tol=K6_TOL["float32"])
+        if shape == CP_K6[0]:
+            k_ms, p_ms, l_ms = [], [], []
+            for who in ("kernel", "plain", "library", "library", "plain", "kernel"):
+                if who == "kernel":
+                    k_ms.append(cuda_time_ms(lambda: kswa.swa_attention_cuda(
+                        q, k, v, window=w, return_lse=True), reps=10))
+                elif who == "plain":
+                    p_ms.append(cuda_time_ms(lambda: swa_lse_ref(q, k, v, window=w), reps=3,
+                                             warm=1))
+                else:   # SDPA on the band mask of the halo'd shard, a yardstick
+                    T, S = shape[3], shape[4]
+                    qp = torch.arange(T, device=dev)[:, None] + (S - T)
+                    kp = torch.arange(S, device=dev)[None, :]
+                    band = (kp <= qp) & (kp > qp - w)
+                    l_ms.append(cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=band, enable_gqa=True), reps=10))
+            bound, bound_by, floor = k6_bound(shape, 4)
+            out["k6_halo"] = {"ms": min(k_ms), "plain_ms": min(p_ms), "library_ms": min(l_ms),
+                              "bound_ms": bound, "bound_by": bound_by}
+            say("cp_kernel_time", kernel="K6 f32 with LSE", shape="B,H,Hkv,T,S,D,W=" +
+                ",".join(map(str, shape)), ms_runs=k_ms, plain_ms_runs=p_ms,
+                sdpa_band_ms_runs=l_ms, bound_ms=bound, bound_by=bound_by,
+                share_of_bound=bound / min(k_ms), f32_cuda_core_floor_ms=floor)
+        del q, k, v, o, lse, wo, wl
+    ins = k7_inputs(CP_K7, torch.float32, gen, dev)
+    b0 = dict(kssd.ssd_intra_chunk_cuda.by_kernel)
+    got = kssd.ssd_intra_chunk_cuda(*ins, chunk=CP_K7[-1])
+    torch.cuda.synchronize()
+    if kssd.ssd_intra_chunk_cuda.by_kernel["3xTF32"] != b0["3xTF32"] + 1:
+        fail("context_parallel: K7 at the shard's shape did not run its 3xTF32 kernel")
+    want = ssd_intra_chunk_ref(*ins, chunk=CP_K7[-1])
+    errs = {n: normwise(a, b) for n, a, b in zip(("y_diag", "states", "s"), got, want)}
+    for n, (e, _) in errs.items():
+        if not e <= K7_TOL["float32"][n]:
+            fail(f"context_parallel: K7 at {CP_K7} {n} differs from its plain version, "
+                 f"normwise {e} > {K7_TOL['float32'][n]}")
+    out["k7_max_abs"] = errs["y_diag"][1]
+    say("cp_kernel", kernel="K7 f32", shape="Ba,T,H,P,N,G,L=" + ",".join(map(str, CP_K7)),
+        **{f"{n}_normwise": e for n, (e, _) in errs.items()},
+        **{f"{n}_max_abs": d for n, (_, d) in errs.items()},
+        tol=json.dumps(K7_TOL["float32"]).replace(" ", ""))
+    del ins, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def context_parallel_phase(card: str, kswa, kssd, dev) -> dict:
+    """Phase 45 (context_parallel): K6 and K7 at this path's shapes against
+    their plain versions; mamba2-1.3b whole and gemma3-4b cut to 6 layers,
+    float32, B 1, T 8192, run whole in this process (the one-process
+    reference, its hidden state saved for the children; timed), then in
+    CP_WORLD gloo processes sharing the card, one 2048-token shard each,
+    through ``context_parallel_fwd``/``context_parallel_logits``: the hidden
+    state and the logits within CP_TOL normwise of one process, K6's and
+    K7's launches per process (gemma3 5 + 1, mamba2 48) all kernel
+    launches, the sharded forward timed against the one-process one;
+    llama3.2-1b's 16 layers as 4 GPipe stages of 4 (4 microbatches of
+    1 x 2048) against the layers in sequence.  gloo stages every exchange
+    through the host: the times measure no link.  Returns the launches and
+    the kernels-line numbers."""
+    import shutil
+    import tempfile
+
+    from repro_torch.models import transformer as tf
+
+    t_phase = time.perf_counter()
+    kern = cp_kernel_checks(kswa, kssd, dev)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cp_")
+    one = {}
+    try:
+        for name in CP_MODELS:
+            cfg, model, tokens = cp_build(name, dev)
+
+            def whole():
+                with torch.inference_mode():
+                    h, _, _ = tf.fwd(model, tokens, mode="train")
+                    return h, tf.logits_fn(model, h)
+
+            h, logits = whole()   # warm; the reference of the children's check
+            if not torch.isfinite(logits[..., :cfg.vocab]).all():
+                fail(f"context_parallel: {cfg.name}'s one-process logits are not finite")
+            torch.save(h.cpu(), f"{tmp}/{name}_hidden.pt")
+            del h, logits
+            one[name] = {"ms": [host_ms(whole) for _ in range(CP_RUNS)],
+                         "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                         "layers": cfg.n_layers}
+            del model, tokens
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        cfg, model, xs = cp_pipe_setup(dev)
+        stage = cp_pipe_stage(cfg, torch.arange(xs.shape[2], device=dev))
+        params = list(zip(model.layers, cfg.layers_flat))
+
+        def sequential():
+            with torch.inference_mode():
+                return torch.stack([stage(params, x) for x in xs])
+
+        seq = sequential()
+        torch.save(seq.cpu(), f"{tmp}/gpipe_sequential.pt")
+        one["gpipe"] = {"ms": [host_ms(sequential) for _ in range(CP_RUNS)],
+                        "layers": cfg.n_layers}
+        del model, xs, params, seq
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        got = dist_spawn(CP_WORLD, "gloo", tuple(CP_CHECKS), tmp,
+                         args={name: {"ref_dir": tmp} for name in CP_CHECKS})
+        spawn_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    for name in CP_MODELS:
+        res = [g[f"cp_{name}"] for g in got]
+        mixers = [layer.mixer for layer in cp_config(name).layers_flat]
+        # one K6 launch an attention layer (a halo'd window or the ring's
+        # diagonal), one K7 launch a Mamba layer
+        exp = {"k6": len(mixers) - mixers.count("mamba"), "k7": mixers.count("mamba")}
+        for r, x in enumerate(res):
+            n = x["launches"]
+            if (n["k6"], n["k7"]) != (exp["k6"], exp["k7"]) or n["k6_tensor_core"] != n["k6"] \
+                    or n["k7_3xtf32"] != n["k7"]:
+                fail(f"context_parallel {name}: rank {r} launched K6/K7 {n}, expected {exp}, "
+                     "every launch a tensor-core one")
+            if not x["finite"] or max(x["hidden_normwise"], x["logits_normwise"]) > CP_TOL:
+                fail(f"context_parallel {name}: rank {r} hidden {x['hidden_normwise']}, logits "
+                     f"{x['logits_normwise']} normwise from one process (> {CP_TOL}), or not "
+                     "finite")
+        sharded = sorted(max(x["ms"][i] for x in res) for i in range(CP_RUNS))[CP_RUNS // 2]
+        say("context_parallel", cell=f"{CP_MODELS[name][0]} {one[name]['layers']} layers f32 "
+            f"B1 T{CP_WORLD * CP_SHARD}", processes=CP_WORLD, link="gloo staging through "
+            "host on one card (measures no link)", card=repr(card),
+            hidden_normwise=max(x["hidden_normwise"] for x in res),
+            logits_normwise=max(x["logits_normwise"] for x in res),
+            hidden_max_abs=max(x["hidden_max_abs"] for x in res),
+            logits_max_abs=max(x["logits_max_abs"] for x in res), bound=CP_TOL,
+            logit_rows="all" if name == "mamba2" else f"first {CP_LOGIT_ROWS} and last a shard",
+            k6_launches_per_process=res[0]["launches"]["k6"],
+            k7_launches_per_process=res[0]["launches"]["k7"],
+            sharded_ms_median=sharded, sharded_ms_by_rank=json.dumps(
+                [x["ms"] for x in res]).replace(" ", ""),
+            one_process_ms_median=sorted(one[name]["ms"])[CP_RUNS // 2],
+            one_process_ms_runs=one[name]["ms"], one_process_peak_gb=one[name]["peak_gb"],
+            peak_gb_by_rank=[x["peak_gb"] for x in res])
+        say("context_parallel_breakdown", cell=CP_MODELS[name][0], card=repr(card),
+            shifts_per_forward=[x["shift_calls"] for x in res],
+            host_ms_inside_shifts_per_forward=[x["shift_host_ms"] for x in res],
+            host_ms_per_forward=[sorted(x["ms"])[CP_RUNS // 2] for x in res])
+    res = [g["cp_gpipe"] for g in got]
+    ticks = CP_PIPE[1] + CP_WORLD - 1
+    per_stage = one["gpipe"]["layers"] // CP_WORLD
+    for r, x in enumerate(res):
+        if x["launches"] != ticks * per_stage or not x["finite"] or x["normwise"] > CP_PIPE_TOL:
+            fail(f"context_parallel gpipe: rank {r} launched K6 {x['launches']} times (expected "
+                 f"{ticks * per_stage}), normwise {x['normwise']} from the layers in sequence")
+    say("context_parallel", cell=f"{CP_PIPE[0]} f32, {CP_WORLD} GPipe stages of {per_stage} "
+        f"layers, {CP_PIPE[1]} microbatches of 1 x {CP_PIPE[2]}", card=repr(card),
+        link="gloo staging through host on one card (measures no link)",
+        normwise=max(x["normwise"] for x in res), bitwise=all(x["bitwise"] for x in res),
+        bound=CP_PIPE_TOL, k6_launches_per_process=res[0]["launches"], ticks=ticks,
+        gpipe_ms_median=sorted(max(x["ms"][i] for x in res) for i in range(CP_RUNS))[CP_RUNS // 2],
+        sequential_ms_median=sorted(one["gpipe"]["ms"])[CP_RUNS // 2])
+    launches = {"k6": sum(g["cp_gemma3"]["launches"]["k6"] for g in got),
+                "k7": sum(g["cp_mamba2"]["launches"]["k7"] for g in got),
+                "k6_gpipe": sum(x["launches"] for x in res)}
+    say("context_parallel", status="ok", elapsed_s=time.perf_counter() - t_phase,
+        spawn_s=spawn_s, k6_launches=launches["k6"], k6_gpipe_launches=launches["k6_gpipe"],
+        k7_launches=launches["k7"], elapsed_total_s=time.perf_counter() - T_START)
+    return {**launches, **kern}
+
+
+# ---------------------------------------------------------------------------
 # slice 10: the grid across processes (phase dist)
 # ---------------------------------------------------------------------------
 
@@ -3740,17 +4172,19 @@ def dist_child() -> int:
                             world_size=world, rank=rank,
                             timeout=datetime.timedelta(seconds=DIST_GROUP_TIMEOUT_S))
     torch.backends.cuda.matmul.allow_tf32 = False
-    out = {name: DIST_CHECKS[name]() for name in job["checks"]}
+    checks = {**DIST_CHECKS, **CP_CHECKS}
+    out = {name: checks[name](**job["args"].get(name, {})) for name in job["checks"]}
     with open(os.path.join(job["out"], f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     dist.destroy_process_group()
     return 0
 
 
-def dist_spawn(world: int, backend: str, checks, tmp: str) -> list:
+def dist_spawn(world: int, backend: str, checks, tmp: str, args=None) -> list:
     """Run ``checks`` in ``world`` processes of a ``backend`` group on this
-    host; returns each rank's results.  Every process started is ended
-    before this returns; any failure fails the script."""
+    host (``args``: keyword arguments of each check by name); returns each
+    rank's results.  Every process started is ended before this returns;
+    any failure fails the script."""
     import os
 
     job_dir = os.path.join(tmp, f"{backend}{world}")
@@ -3762,7 +4196,8 @@ def dist_spawn(world: int, backend: str, checks, tmp: str) -> list:
     procs, logs = [], []
     for r in range(world):
         job = {"rank": r, "world": world, "backend": backend, "checks": list(checks),
-               "rendezvous": os.path.join(job_dir, "rendezvous"), "out": job_dir}
+               "args": args or {}, "rendezvous": os.path.join(job_dir, "rendezvous"),
+               "out": job_dir}
         env = dict(os.environ, LOCAL_RANK=str(r), OMP_NUM_THREADS="1",
                    CHIP_SMOKE_DIST=json.dumps(job))
         log = open(os.path.join(job_dir, f"log{r}.txt"), "w+")
@@ -4371,6 +4806,23 @@ def main() -> int:
     swa["launches"] += train["k6_forward"]
     ssd["launches_train"] = train["k7_forward"]
     ssd["launches"] += train["k7_forward"]
+    # context parallelism and GPipe (slice 17): K6's launches in gemma3-4b's
+    # sharded forward and in the GPipe stages, K7's in mamba2-1.3b's, summed
+    # over the processes, join their entries
+    from repro_torch.kernels.ssd import kernel as kssd
+    from repro_torch.kernels.swa import kernel as kswa
+
+    torch.cuda.empty_cache()
+    cp = context_parallel_phase(card, kswa, kssd, dev)
+    swa["launches_context_parallel"] = cp["k6"]
+    swa["launches_gpipe"] = cp["k6_gpipe"]
+    swa["launches"] += cp["k6"] + cp["k6_gpipe"]
+    swa["context_parallel_halo"] = {"shape": "B,H,Hkv,T,S,D,W=" + ",".join(map(str, CP_K6[0])),
+                                    "dtype": "float32", "max_abs_err": cp["k6_max_abs"],
+                                    **cp["k6_halo"]}
+    ssd["launches_context_parallel"] = cp["k7"]
+    ssd["launches"] += cp["k7"]
+    ssd["max_abs_err_context_parallel"] = cp["k7_max_abs"]
     # the processes of the dist phase: Heat3D's K1, Poisson's K2-K5 and the
     # two-phase step's shifted K2-K5, summed over the processes
     dist = dist_phase(card)

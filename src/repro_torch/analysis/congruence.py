@@ -120,10 +120,22 @@ def compare_sequences(seqs: list) -> list[Finding]:
             f"ranks issue different collective sequences: rank {r0} issues {len(sa)} "
             f"collective(s), rank {r} {len(sb)}; at position {i} rank {r0} issues {at_a} and "
             f"rank {r} {at_b} — a rank-dependent branch deadlocks"))
-    # point-to-point partners: what a rank sends low, its low neighbour receives high
+    # point-to-point partners: what a rank sends low, its low neighbour receives
+    # high; what a rank shifts to its destination, the destination receives from it
     if not findings:
         for r in ranks:
             for i, c in enumerate(seqs[r]):
+                if c["op"] == "shift":
+                    src, dst = c["peers"]
+                    for peer, side in ((dst, 0), (src, 1)):
+                        if peer is None or seqs[peer] is None or seqs[peer][i]["peers"][side] == r:
+                            continue
+                        findings.append(Finding(
+                            RULE, "error", "group",
+                            f"shift at position {i}: rank {r} pairs with rank {peer}, which "
+                            f"pairs with rank {seqs[peer][i]['peers'][side]} there "
+                            "(an unpaired message hangs)"))
+                    continue
                 if c["op"] != "sendrecv":
                     continue
                 low, high = c["peers"]

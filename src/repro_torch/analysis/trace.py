@@ -356,6 +356,13 @@ class Trace:
         return (None if low is None else to_high.clone(),
                 None if high is None else to_low.clone())
 
+    def shift(self, x, src, dst):
+        self.collectives.append(dict(op="shift", dtype=str(x.dtype), shape=tuple(x.shape),
+                                     peers=(src, dst), reduce=None, site="core.comm.shift",
+                                     tags=frozenset()))
+        # what arrives is a neighbour's tensor of this shape; zeros without a source
+        return x.clone() if src is not None else torch.zeros_like(x)
+
     def table(self, **entry) -> None:
         self.tables.append(entry)
 

@@ -8,6 +8,10 @@ CartesianTopology` assigns it.  This module is the ONLY place that calls
 
 * :func:`sendrecv` — the neighbour exchange of one halo slab per
   direction along one grid dimension (``batch_isend_irecv``);
+* :func:`shift` — the one-directional permute of the sequence axis
+  (``ppermute`` by a fixed offset): every process sends to the one ``by``
+  ranks up and receives from the one ``by`` ranks down, for the halos,
+  ring rotations and pipeline hand-offs of :mod:`repro_torch.distributed`;
 * :func:`all_reduce` — sum, max and min of the reductions' partials;
 * :func:`all_gather` — every process's tensor, for ``gather``;
 * :func:`barrier`, and what a process needs to know of the group
@@ -16,7 +20,7 @@ CartesianTopology` assigns it.  This module is the ONLY place that calls
   group's key-value store (no collective: a process that never publishes
   is a timeout, not a hang), for the analyzer's cross-process check.
 
-Under an analyzer check (:mod:`repro_torch.analysis`) the four
+Under an analyzer check (:mod:`repro_torch.analysis`) the five
 communicating functions record what they would send and return meta
 tensors of the right shape: nothing is sent.
 
@@ -46,6 +50,8 @@ from ..analysis import markers as _mk
 # in the order they were issued, so :func:`sendrecv` issues the
 # low-going pair before the high-going one on every process.
 _TAG_LOW, _TAG_HIGH = 1, 2
+# The tag of :func:`shift`'s one message a process sends and receives.
+_TAG_SHIFT = 3
 
 
 def _dist():
@@ -84,7 +90,7 @@ def _staged(t: torch.Tensor) -> bool:
 
 def _wire(t: torch.Tensor) -> torch.Tensor:
     """A contiguous tensor the backend can send: a host copy under staging."""
-    return t.detach().to("cpu") if _staged(t) else t.detach().contiguous()
+    return t.detach().contiguous().to("cpu") if _staged(t) else t.detach().contiguous()
 
 
 def _buffer(like: torch.Tensor) -> torch.Tensor:
@@ -122,6 +128,62 @@ def sendrecv(to_low: torch.Tensor | None, to_high: torch.Tensor | None,
         work.wait()
     dev = like.device
     return tuple(None if t is None else t.to(dev) for t in (from_low, from_high))
+
+
+def _shift_peers(by: int, periodic: bool) -> tuple:
+    """``(source, destination)`` of this process in a :func:`shift` by
+    ``by``: the ranks ``by`` below and ``by`` above it, taken modulo the
+    group's size when ``periodic``, else None where they fall outside."""
+    n, r = world_size(), rank()
+    if periodic:
+        return (r - by) % n, (r + by) % n
+    src, dst = r - by, r + by
+    return (src if 0 <= src < n else None), (dst if 0 <= dst < n else None)
+
+
+def _shift(t: torch.Tensor, by: int, periodic: bool) -> torch.Tensor:
+    src, dst = _shift_peers(by, periodic)
+    if _mk.TRACE is not None:
+        return _mk.TRACE.shift(t, src, dst)
+    if src == dst == rank():   # itself: no group, or a periodic shift by a multiple of it
+        return t.clone()
+    dist = _dist()
+    ops, got = [], None
+    if dst is not None:
+        ops.append(dist.P2POp(dist.isend, _wire(t), dst, tag=_TAG_SHIFT))
+    if src is not None:
+        got = _buffer(t)
+        ops.append(dist.P2POp(dist.irecv, got, src, tag=_TAG_SHIFT))
+    for work in dist.batch_isend_irecv(ops) if ops else ():
+        work.wait()
+    return torch.zeros_like(t) if got is None else got.to(t.device)
+
+
+class _Shift(torch.autograd.Function):
+    """A shift's gradient is the shift back: what went to rank r + by
+    returns from it."""
+
+    @staticmethod
+    def forward(ctx, t, by, periodic):
+        ctx.by, ctx.periodic = by, periodic
+        return _shift(t, by, periodic)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _shift(g, -ctx.by, ctx.periodic), None, None
+
+
+def shift(t: torch.Tensor, by: int = 1, periodic: bool = False) -> torch.Tensor:
+    """``ppermute`` by a fixed offset: this process sends ``t`` to rank
+    ``rank + by`` and returns what rank ``rank - by`` sent, on ``t``'s
+    device (ranks modulo the group's size when ``periodic``).  A process
+    with no source gets zeros, as ``ppermute`` gives; without a group the
+    process is its own neighbour (``t`` when periodic, zeros when not).
+    Every process of the group calls it with the same ``by`` and
+    ``periodic``.  Differentiable: the gradient travels back by ``-by``."""
+    if torch.is_grad_enabled() and t.requires_grad:
+        return _Shift.apply(t, int(by), bool(periodic))
+    return _shift(t, int(by), bool(periodic))
 
 
 def all_gather(t: torch.Tensor) -> list[torch.Tensor]:
@@ -192,4 +254,4 @@ def exchange_through_store(key: str, payload: bytes, timeout: float) -> list:
 
 
 __all__ = ["all_gather", "all_reduce", "backend", "barrier", "exchange_through_store",
-           "initialized", "rank", "sendrecv", "world_size"]
+           "initialized", "rank", "sendrecv", "shift", "world_size"]

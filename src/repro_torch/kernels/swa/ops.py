@@ -23,7 +23,7 @@ import torch
 
 from .. import dispatch
 from .kernel import swa_attention_cuda, swa_backward_cuda
-from .ref import swa_ref
+from .ref import swa_lse_ref, swa_ref
 
 
 class _SwaCuda(torch.autograd.Function):
@@ -44,11 +44,22 @@ class _SwaCuda(torch.autograd.Function):
 
 
 def swa_attention(q, k, v, *, window: int, scale: float | None = None,
-                  use_kernel: str = "auto"):
+                  use_kernel: str = "auto", return_lse: bool = False):
     """Causal sliding-window GQA attention, q (B, H, T, D), k/v
-    (B, Hkv, S, D), the queries the last T of S; see ``ref.swa_ref``."""
+    (B, Hkv, S, D), the queries the last T of S; see ``ref.swa_ref``.
+    ``return_lse``: also return each row's log-sum-exp, (B, H, T) float32
+    (K6's float32 kernel only; ``ref.swa_lse_ref`` on the plain path); the
+    kernel route then takes no gradient."""
     if dispatch.resolve(use_kernel, q, where="swa.swa_attention") == "ref":
+        if return_lse:
+            return swa_lse_ref(q, k, v, window=window, scale=scale)
         return swa_ref(q, k, v, window=window, scale=scale)
+    if return_lse:
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+            raise NotImplementedError(
+                "swa.swa_attention: K6's backward takes no gradient of the log-sum-exp "
+                "(use_kernel='ref' differentiates the plain version)")
+        return swa_attention_cuda(q, k, v, window=window, scale=scale, return_lse=True)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         if q.dtype != torch.float32:
             raise NotImplementedError(

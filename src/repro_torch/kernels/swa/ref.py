@@ -3,8 +3,8 @@ its backward.
 
 Position ``i`` attends to positions ``j`` with ``i - W < j <= i`` (window
 ``W``; ``W >= S`` is plain causal attention).  :func:`swa_ref` is op for op
-the JAX package's ``kernels/swa/ref.py::swa_ref``; :func:`swa_backward_ref`
-is its gradient written out (the reference has no backward kernel: it
+the JAX package's ``kernels/swa/ref.py::swa_ref``; :func:`swa_lse_ref` adds
+the rows' log-sum-exp; :func:`swa_backward_ref` is its gradient written out (the reference has no backward kernel: it
 differentiates its plain attention).
 """
 
@@ -35,6 +35,23 @@ def swa_ref(q, k, v, *, window: int, scale: float | None = None):
     p = torch.exp(logits - logits.amax(-1, keepdim=True))
     p = p / p.sum(-1, keepdim=True)
     return torch.einsum("bhts,bhsd->bhtd", p.to(q.dtype), vr)
+
+
+def swa_lse_ref(q, k, v, *, window: int, scale: float | None = None):
+    """:func:`swa_ref` and each row's log-sum-exp of the scaled, masked
+    logits, ``(B, H, T)`` float32: the plain version of K6's float32
+    forward with ``return_lse=True``."""
+    B, H, T, D = q.shape
+    S = k.shape[2]
+    g = H // k.shape[1]
+    scale = (D ** -0.5) if scale is None else scale
+    logits = torch.einsum("bhtd,bhsd->bhts", q * scale,
+                          torch.repeat_interleave(k, g, dim=1)).float()
+    qpos = torch.arange(T, device=q.device)[:, None] + (S - T)
+    kpos = torch.arange(S, device=q.device)[None, :]
+    mask = (kpos <= qpos) & (kpos > qpos - window)
+    lse = torch.logsumexp(torch.where(mask, logits, logits.new_full((), -torch.inf)), dim=-1)
+    return swa_ref(q, k, v, window=window, scale=scale), lse
 
 
 def swa_backward_ref(q, k, v, do, *, window: int, scale: float | None = None):

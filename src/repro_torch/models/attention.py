@@ -12,9 +12,15 @@ ring-buffer slots and masks.  Under ``cfg.kv_quant`` the cache holds int8
 keys and values with one float32 scale per (token, kv head)
 (:func:`_kv_quantize`), dequantised before :func:`_attend`.
 
-Cross-attention, a sequence axis, non-causal layers and a soft cap on the
-kernel path raise: they come with the rest of the LM scaffolding
-(ROADMAP.md, Queue A item 6).
+Under ``seq_axis`` (context parallelism, train mode only) x is this
+process's shard of a sequence sharded over the processes of the default
+group: a window layer runs :func:`repro_torch.distributed.seqpar.
+seq_sliding_window_attention` (K6 over a kv halo), a global layer
+:func:`repro_torch.distributed.ring.ring_attention`.
+
+Cross-attention, non-causal layers and a soft cap on the kernel path
+raise: they come with the rest of the LM scaffolding (ROADMAP.md, Queue A
+item 6).
 """
 
 from __future__ import annotations
@@ -23,6 +29,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..distributed.ring import ring_attention
+from ..distributed.seqpar import seq_sliding_window_attention
 from ..kernels.swa import swa_attention
 from .layers import rms_norm, rope, softcap
 from .params import ParamSpec
@@ -127,8 +135,8 @@ def fwd(attn: Attention, cfg, layer, x, *, mode, positions, cache=None, cache_le
     creates it at ``cache_len`` (default T).  Decode returns new cache
     tensors and leaves the given ones as they are."""
     check_layer(cfg, layer)
-    if seq_axis is not None:
-        raise NotImplementedError(f"seq_axis (context parallelism): not in the port yet ({LATER})")
+    if seq_axis is not None and mode != "train":
+        raise ValueError(f"seq_axis (context parallelism) runs train mode only, got {mode!r}")
     B, T, _ = x.shape
     H, Hkv, Dh = cfg.n_heads, cfg.n_kv, cfg.head_dim
     q = F.linear(x, attn.wq.weight).view(B, T, H, Dh)
@@ -165,6 +173,23 @@ def fwd(attn: Attention, cfg, layer, x, *, mode, positions, cache=None, cache_le
         valid = (sl <= pos) | (pos >= S) if window else sl <= pos  # a full ring: every slot
         out = _attend(q, _expand_kv(kf, H), _expand_kv(vf, H), valid[None, :],
                       attn_softcap=cfg.attn_softcap)
+    elif seq_axis is not None:
+        # context parallelism: the sequence is sharded over the group's
+        # processes and x is this process's shard at absolute ``positions``;
+        # a window layer takes a kv halo from the left neighbour (the
+        # paper's halo update on the token grid), a global layer runs ring
+        # attention (an iterated halo)
+        if cfg.attn_softcap:
+            raise NotImplementedError(f"attn_softcap on the kernel path: not in the port yet "
+                                      f"({LATER})")
+        qT, kT, vT = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        if window:
+            oT = seq_sliding_window_attention(qT, kT, vT, window=window, axis_name=seq_axis,
+                                              use_kernel=use_kernel)
+        else:
+            oT = ring_attention(qT, kT, vT, axis_name=seq_axis, use_kernel=use_kernel)
+        out = oT.transpose(1, 2)
+        new_cache = None
     else:  # train / prefill: K6's dispatch point, window = T for a global layer
         if cfg.attn_softcap:
             raise NotImplementedError(f"attn_softcap on the kernel path: not in the port yet "

@@ -103,17 +103,20 @@ class Block(nn.Module):
             self.ln2 = nn.Parameter(torch.empty(cfg.d_model, **meta), requires_grad=False)
             self.ffn = moe_mod.MoE(cfg) if layer.moe else FFN(cfg)
 
-    def forward(self, x, *, cfg, layer, positions, use_kernel: str = "auto"):
+    def forward(self, x, *, cfg, layer, positions, seq_axis=None, use_kernel: str = "auto"):
         """The layer in train mode: (x, aux), what a checkpointed layer of
         training returns."""
         x, _, aux = layer_fwd(self, cfg, layer, x, mode="train", positions=positions,
-                              use_kernel=use_kernel)
+                              seq_axis=seq_axis, use_kernel=use_kernel)
         return x, aux
 
 
 def layer_fwd(block: Block, cfg, layer, x, *, mode, positions=None, cache=None,
-              cache_len=None, use_kernel: str = "auto"):
-    """Returns (x, new_cache, aux)."""
+              cache_len=None, seq_axis=None, use_kernel: str = "auto"):
+    """Returns (x, new_cache, aux).  ``seq_axis``: x is this process's
+    shard of a sequence sharded over the default group (context
+    parallelism); the mixers exchange their halos, the FFN (dense, or MoE
+    at the shard's capacity, as the reference's) is local."""
     aux = x.new_zeros((), dtype=torch.float32)
     if cache is not None:
         new_cache = dict(cache)
@@ -128,11 +131,11 @@ def layer_fwd(block: Block, cfg, layer, x, *, mode, positions=None, cache=None,
     mixer_cache = cache.get("mixer") if cache is not None else None
     if layer.mixer == "mamba":
         h, c = ssm_mod.fwd(block.mixer, cfg, norm(x, block.ln1), mode=mode, cache=mixer_cache,
-                           use_kernel=use_kernel)
+                           seq_axis=seq_axis, use_kernel=use_kernel)
     else:
         h, c = attention.fwd(block.mixer, cfg, layer, norm(x, block.ln1), mode=mode,
                              positions=positions, cache=mixer_cache, cache_len=cache_len,
-                             use_kernel=use_kernel)
+                             seq_axis=seq_axis, use_kernel=use_kernel)
     x = x + h
     if new_cache is not None and c is not None:
         new_cache["mixer"] = c

@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..distributed.seqpar import seq_conv1d_causal
+from ..distributed.seqpar import seq_conv1d_causal, seq_ssd_scan
 from ..kernels.ssd import ssd_decode_step, ssd_scan
 from .layers import rms_norm
 from .params import ParamSpec
@@ -75,6 +75,11 @@ def fwd(m: Mamba2, cfg, x, *, mode, cache=None, seq_axis: str | None = None,
         use_kernel: str = "auto"):
     """x: (B, T, d).  Returns (out, new_cache).
 
+    seq_axis: x is this process's shard of a sequence sharded over the
+    processes of the default group (context parallelism): the conv takes
+    its K-1 token halo from the left neighbour and the SSD scan its
+    entering state from the ranks before (``distributed.seqpar``).
+
     cache (decode): {"conv": (B, K-1, conv_dim), "ssm": (B, H, N, P)}: the
     conv cache holds the pre-activation ``xBC`` of the last K-1 tokens, the
     SSM cache the state in x's dtype (read back in float32)."""
@@ -112,7 +117,12 @@ def fwd(m: Mamba2, cfg, x, *, mode, cache=None, seq_axis: str | None = None,
         Bs = xBC_c[..., d_in : d_in + G * N].reshape(B, T, G, N)
         Cs = xBC_c[..., d_in + G * N :].reshape(B, T, G, N)
         dtp = F.softplus(dt.float() + m.dt_bias)
-        y, h_fin = ssd_scan(xs, dtp, A, Bs, Cs, chunk=min(s.chunk, T), use_kernel=use_kernel)
+        if seq_axis is not None:   # the states' halo: a doubling scan across the shards
+            y, h_fin = seq_ssd_scan(xs, dtp, A, Bs, Cs, chunk=s.chunk, axis_name=seq_axis,
+                                    use_kernel=use_kernel)
+        else:
+            y, h_fin = ssd_scan(xs, dtp, A, Bs, Cs, chunk=min(s.chunk, T),
+                                use_kernel=use_kernel)
         y = y + m.D[None, None, :, None] * xs
         y = y.reshape(B, T, d_in)
         new_cache = None

@@ -244,7 +244,7 @@ def embed_tokens(model: Model, cfg, tokens):
     return x
 
 
-def _checkpointed(block, cfg, layer, x, positions, use_kernel: str, context_fn):
+def _checkpointed(block, cfg, layer, x, positions, seq_axis, use_kernel: str, context_fn):
     """One train-mode layer under a non-reentrant checkpoint.  The layer's
     parameters go in as inputs of the checkpointed function and reach the
     block through ``functional_call``, so that the recomputation in the
@@ -254,20 +254,25 @@ def _checkpointed(block, cfg, layer, x, positions, use_kernel: str, context_fn):
     def run(x, *vals):
         return torch.func.functional_call(
             block, dict(zip(names, vals)), (x,),
-            dict(cfg=cfg, layer=layer, positions=positions, use_kernel=use_kernel))
+            dict(cfg=cfg, layer=layer, positions=positions, seq_axis=seq_axis,
+                 use_kernel=use_kernel))
 
     return checkpoint(run, x, *vals, use_reentrant=False, context_fn=context_fn)
 
 
 def fwd(model: Model, inputs, *, mode, positions=None, caches=None, cache_len=None,
-        use_kernel: str = "auto", remat: str = "full"):
+        seq_axis=None, use_kernel: str = "auto", remat: str = "full"):
     """Backbone forward.
 
     inputs: int tokens (B, T) if cfg.vocab else embeddings (B, T, d).
     positions: (T,) absolute positions, an int tensor on the model's device
     (default ``arange(T)``; decode: ``[pos]``).  caches: list (one entry per
     layer) of cache dicts, or None.  cache_len: the attention layers' cache
-    length at prefill (default T).  remat: a key of :data:`REMAT_POLICIES`;
+    length at prefill (default T).  seq_axis: the inputs are this process's
+    shard of a sequence sharded over the default group's processes, at
+    absolute ``positions`` (context parallelism; train mode;
+    :mod:`repro_torch.distributed.context_parallel`).  remat: a key of
+    :data:`REMAT_POLICIES`;
     it applies to train mode with grad mode on and parameters that require
     grad (training), each layer checkpointed alone.  Returns (hidden
     (B, T, d), new_caches, aux)."""
@@ -284,12 +289,14 @@ def fwd(model: Model, inputs, *, mode, positions=None, caches=None, cache_len=No
     context_fn = REMAT_POLICIES[remat] if training else None
     for i, (layer, block) in enumerate(zip(cfg.layers_flat, model.layers)):
         if context_fn is not None:
-            x, a = _checkpointed(block, cfg, layer, x, positions, use_kernel, context_fn)
+            x, a = _checkpointed(block, cfg, layer, x, positions, seq_axis, use_kernel,
+                                 context_fn)
             c = None
         else:
             x, c, a = blocks.layer_fwd(block, cfg, layer, x, mode=mode, positions=positions,
                                        cache=None if caches is None else caches[i],
-                                       cache_len=cache_len, use_kernel=use_kernel)
+                                       cache_len=cache_len, seq_axis=seq_axis,
+                                       use_kernel=use_kernel)
         aux = aux + a
         if new_caches is not None:
             new_caches.append(c)

@@ -278,9 +278,16 @@ def test_what_the_attention_does_not_take_raises(reference):
     with pytest.raises(NotImplementedError, match="attn_softcap"):
         tf.prefill(m, tokens)
     x = torch.zeros(1, 4, CFG32.d_model)
-    with pytest.raises(NotImplementedError, match="seq_axis"):
-        attention.fwd(model.layers[0].mixer, CFG32, CFG32.layers_flat[0], x, mode="train",
+    with pytest.raises(ValueError, match="seq_axis"):
+        attention.fwd(model.layers[0].mixer, CFG32, CFG32.layers_flat[0], x, mode="prefill",
                       positions=torch.arange(4), seq_axis="seq")
+    xr = torch.randn(1, 8, CFG32.d_model, generator=torch.Generator().manual_seed(3))
+    for layer_index in (0, 2):   # without a group, seq_axis is the whole sequence
+        blk, lay = model.layers[layer_index].mixer, CFG32.layers_flat[layer_index]
+        plain, _ = attention.fwd(blk, CFG32, lay, xr, mode="train", positions=torch.arange(8))
+        shard, _ = attention.fwd(blk, CFG32, lay, xr, mode="train", positions=torch.arange(8),
+                                 seq_axis="seq")
+        torch.testing.assert_close(shard, plain, rtol=1e-6, atol=1e-6)
     with pytest.raises(ValueError, match="decode"):
         attention.fwd(model.layers[0].mixer, CFG32, CFG32.layers_flat[0], x, mode="decode",
                       positions=torch.arange(4))
