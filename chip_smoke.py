@@ -129,6 +129,23 @@ plain PyTorch version on the card.  Then it drives these paths through the kerne
   2048) against the layers in sequence, 28 K6 launches a process.  The
   processes' launches join the kernels line (``launches_context_parallel``,
   ``launches_gpipe``);
+* sharded training (slice 18, phase ``sharded_train``): K6's float32
+  forward with its LSE and its backward at a tensor-parallel process's
+  local heads (tp 2: 2 x 2048, 16 q / 4 kv heads; tp 4: 4 x 2048, 8 / 2)
+  and K7's forward and backward at a dp-4 process's row, against their
+  plain versions; llama3.2-1b cut to 4 of its 16 layers (full width, f32,
+  the launcher's TrainCfg, 4 x 2048) for 3 steps through the launcher in
+  this process and over dp 2 x tp 2 of 4 gloo processes sharing the card
+  (ZeRO-3 with tensor parallelism under ``default_rules``): every step's
+  loss within 2e-4 relative, the first grad norm within 1e-4; the elastic
+  resume (a sharded checkpoint after step 2, the launcher on dp 1 x tp 4
+  restores its blocks and runs step 3, within 2e-4 of one process);
+  mamba2-1.3b cut to 4 of 48 layers, 2 steps under dp 4 against one
+  process; ``compressed_psum_mean`` over the 4 processes (its one-shot
+  and error-feedback bounds), timed against a float32 sum all-reduce.
+  K6's and K7's launches, as predicted a process, join the kernels line
+  (``launches_sharded_train``) with each kernel's numbers at these shapes
+  (``sharded_train_local``);
 * the grid across processes (phase ``dist``): the one-process runs
   here, then 8 processes of a gloo group on this card, one block each
   (Heat3D 8 x 256^3 f32 100 steps with hide and without, every block and
@@ -3973,6 +3990,578 @@ def context_parallel_phase(card: str, kswa, kssd, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# slice 18: sharded training over a (data, model) process mesh (phase
+# sharded_train)
+# ---------------------------------------------------------------------------
+
+SH_WORLD = 4                 # gloo processes sharing the card
+SH_BATCH, SH_SEQ = 4, 2048   # the global batch of every cell
+# cell: (config, layers kept, steps, (dp, tp)); full width, depth cut so that
+# four processes staging ZeRO-3's gathers through the host fit the phase's 90 s
+SH_MODELS = {"llama": ("llama3.2-1b", 4, 3, (2, 2)), "mamba": ("mamba2-1.3b", 4, 2, (4, 1))}
+SH_ELASTIC = (2, (1, 4))     # llama: saved after 2 steps on (2, 2), step 3 on (1, 4)
+SH_TOL = {"loss": 2e-4, "grad_norm": 1e-4}   # relative, sharded against one process
+# K6 (B, H, Hkv, T, S, D, window) on a process's local heads, global causal:
+# tp 2 (dp 2, 2 rows) and tp 4 (the elastic step's mesh, 4 rows)
+SH_K6 = ((2, 16, 4, 2048, 2048, 64, 2048), (4, 8, 2, 2048, 2048, 64, 2048))
+SH_K7 = (1, 2048, 64, 64, 128, 1, 64)   # K7 on a process's row under dp 4 (Ba,T,H,P,N,G,L)
+SH_COMPRESS = (1024, 2, 4096)   # one llama3.2-1b wi block under (2, 2): d/2 x 2 x d_ff/2
+SH_EF_ROUNDS = 4             # error-feedback rounds of the same gradient
+SH_RUNS = 2                  # timed compressed and plain all-reduces each, in turns
+
+
+def sh_config(key: str) -> str:
+    """Register the cell's config cut to its layers (full width) under a
+    name of its own, which the launcher's ``--arch`` takes; returns it."""
+    import dataclasses
+
+    from repro_torch.configs import base as cb
+
+    name, layers, _, _ = SH_MODELS[key]
+    cfg = cb.get(name)
+    pattern = cfg.stacks[0][0]
+    cut = dataclasses.replace(cfg, name=f"{name}-{layers}l", stacks=((pattern, layers),))
+    cb.register(cut)
+    return cut.name
+
+
+def sh_argv(key: str, mesh=None, ckpt_dir=None) -> list:
+    _, _, steps, _ = SH_MODELS[key]
+    argv = ["--arch", sh_config(key), "--scale", "1.0", "--steps", str(steps), "--batch",
+            str(SH_BATCH), "--seq", str(SH_SEQ)]
+    if mesh is not None:
+        argv += ["--dp", str(mesh[0]), "--tp", str(mesh[1])]
+    if ckpt_dir is not None:
+        argv += ["--ckpt-dir", ckpt_dir]
+    return argv
+
+
+class CommMeter:
+    """Host ms spent inside ``core.comm``'s collectives of sharded training
+    and the bytes of this process's data they deliver to other processes
+    (an all-gather or all-reduce: its tensor to each of the others; a
+    reduce-scatter: the blocks it sends; the checkpoint's gather: its
+    tensor to process 0), while installed."""
+
+    NAMES = ("_parts", "_reduce_scatter", "max_over", "gather_to_first")
+
+    def __init__(self):
+        from repro_torch.core import comm
+
+        self.comm, self.saved, self.ms, self.bytes, self.calls = comm, {}, 0.0, 0, 0
+
+    def _sent(self, name, args) -> int:
+        if name == "gather_to_first":   # (t, sub) items, sent to process 0
+            return sum(t.nbytes for t, sub in args[0]
+                       if self.comm.rank() != 0 and 0 in sub.ranks)
+        t, sub = args[:2]
+        n = sub.size
+        return t.nbytes * (n - 1) // n if name == "_reduce_scatter" else t.nbytes * (n - 1)
+
+    def _wrap(self, name, fn):
+        def timed(*args):
+            sent = self._sent(name, args)
+            t0 = time.perf_counter()
+            out = fn(*args)
+            self.ms += (time.perf_counter() - t0) * 1e3
+            self.bytes += sent
+            self.calls += 1
+            return out
+
+        return timed
+
+    def __enter__(self):
+        for name in self.NAMES:
+            self.saved[name] = getattr(self.comm, name)
+            setattr(self.comm, name, self._wrap(name, self.saved[name]))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.comm, name, fn)
+
+    def take(self) -> dict:
+        out = {"host_ms": self.ms, "bytes": self.bytes, "calls": self.calls}
+        self.ms, self.bytes, self.calls = 0.0, 0, 0
+        return out
+
+
+def sh_steps(run, n: int, step0: int = 0) -> dict:
+    """``n`` steps of a launcher's run through ``Trainer.run``, the step's
+    metrics (loss, grad_norm) recorded from its train step."""
+    seen = []
+    step = run.trainer.train_step
+
+    def recording(p, o, b):
+        out = step(p, o, b)
+        seen.append((float(out[2]["loss"]), float(out[2]["grad_norm"])))
+        return out
+
+    run.trainer.train_step = recording
+    s0 = len(run.trainer.step_s)
+    try:
+        run.params, run.opt_state, hist = run.trainer.run(run.params, run.opt_state, n,
+                                                          step0=step0)
+    finally:
+        run.trainer.train_step = step
+    if len(hist) != n or not all(map(math.isfinite, hist)):
+        fail(f"sharded_train: {run.args.arch} steps {step0}..{step0 + n - 1} gave {hist}")
+    return {"loss": [a for a, _ in seen], "grad_norm": [b for _, b in seen],
+            "step_ms": [s * 1e3 for s in run.trainer.step_s[s0:]]}
+
+
+def sh_counters():
+    from repro_torch.kernels.ssd import kernel as kssd
+    from repro_torch.kernels.swa import kernel as kswa
+
+    return (kswa.swa_attention_cuda, kswa.swa_backward_cuda, kssd.ssd_intra_chunk_cuda,
+            kssd.ssd_backward_cuda)
+
+
+def sh_launches(start) -> dict:
+    """K6's and K7's launches since ``start`` (the counters' values then)."""
+    k6, k6b, k7, k7b = sh_counters()
+    return {"k6": k6.launches - start[0], "k6_backward": k6b.launches - start[1],
+            "k7": k7.launches - start[2], "k7_backward": k7b.launches - start[3],
+            "k6_tensor_core": k6.tc_launches - start[4],
+            "k7_3xtf32": k7.by_kernel["3xTF32"] - start[5]}
+
+
+def sh_zero() -> tuple:
+    """Every counter of the path set to 0 (the per-kernel splits read as
+    differences); returns the starting values for :func:`sh_launches`."""
+    k6, k6b, k7, k7b = sh_counters()
+    k6.launches = k6b.launches = k7.launches = k7b.launches = k6.tc_launches = 0
+    return (0, 0, 0, 0, 0, k7.by_kernel["3xTF32"])
+
+
+def sh_wait(go: str) -> float:
+    """Wait for the parent's one-process runs (its file ``go``): the
+    processes start up while the parent runs them.  Returns how many
+    seconds after ``go`` this process was ready (0 if it waited)."""
+    import dataclasses
+    import os
+
+    from repro_torch.configs.llama3_2_1b import SMOKE
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import TrainCfg, value_and_grad
+
+    # a SMOKE loss and gradient on the CPU, while the parent works: the
+    # path's lazy imports (torch.utils.checkpoint imports torch._dynamo at
+    # its first call: seconds a process, four at once) out of the first step
+    cfg = dataclasses.replace(SMOKE, dtype="float32")
+    tokens = torch.zeros(1, 8, dtype=torch.long)
+    value_and_grad(tf.init_params(cfg, torch.Generator().manual_seed(0), device="cpu"), cfg,
+                   TrainCfg(), {"tokens": tokens, "labels": tokens})
+    deadline = time.perf_counter() + DIST_SPAWN_LIMIT_S
+    late = os.path.exists(go)
+    while not os.path.exists(go):
+        if time.perf_counter() > deadline:
+            fail(f"sharded_train: the parent did not start the group ({go})")
+        time.sleep(0.05)
+    return time.time() - os.path.getmtime(go) if late else 0.0
+
+
+def sh_llama(ckpt_dir: str, go: str) -> dict:
+    """One process of the group: llama3.2-1b cut to 4 layers through the
+    launcher on (2, 2) (2 steps, a sharded checkpoint, step 3), then the
+    elastic resume: the launcher on (1, 4) with ``--ckpt-dir`` restores its
+    blocks of that checkpoint and runs step 3.  K6's launches counted around
+    the runs (zeroed just before, read just after), the collectives metered
+    around the steps."""
+    from repro_torch import ckpt
+    from repro_torch.core import comm
+    from repro_torch.launch import train as launch
+
+    late_s = sh_wait(go)
+    t0 = time.perf_counter()
+    run = launch.build(sh_argv("llama", SH_MODELS["llama"][3]))
+    build_s = time.perf_counter() - t0
+    shapes = {n: list(t.shape) for n, t in list(run.params.items())[:4]}
+    comm.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    start = sh_zero()
+    with CommMeter() as meter:
+        first = sh_steps(run, SH_ELASTIC[0])
+        steps_comm = meter.take()
+        t0 = time.perf_counter()
+        # the Trainer's periodic save: the blocks gathered to process 0 now,
+        # the files written on its thread while step 3 runs
+        pending = ckpt.async_save({"params": run.params, "opt": run.opt_state},
+                                  SH_ELASTIC[0], ckpt_dir, shardings=run.trainer.shardings)
+        save_s, save_comm = time.perf_counter() - t0, meter.take()
+        third = sh_steps(run, SH_MODELS["llama"][2] - SH_ELASTIC[0], step0=SH_ELASTIC[0])
+        third_comm = meter.take()
+        t0 = time.perf_counter()
+        pending.result()
+        write_wait_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = sh_launches(start)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del run
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    resumed = launch.build(sh_argv("llama", SH_ELASTIC[1], ckpt_dir))
+    restore_s = time.perf_counter() - t0
+    if resumed.step0 != SH_ELASTIC[0]:
+        fail(f"sharded_train: the (1, 4) launcher resumed at {resumed.step0}")
+    resumed.trainer.ckpt_dir = None   # no final save: the check is the step
+    start = sh_zero()
+    elastic = sh_steps(resumed, SH_MODELS["llama"][2] - SH_ELASTIC[0], step0=SH_ELASTIC[0])
+    torch.cuda.synchronize()
+    elastic_launches = sh_launches(start)
+    del resumed
+    torch.cuda.empty_cache()
+    steps = {k: first[k] + third[k] for k in first}
+    return {"steps": steps, "elastic": elastic, "launches": launches,
+            "elastic_launches": elastic_launches, "peak_gb": peak, "shapes": shapes,
+            "comm_steps": steps_comm, "comm_third": third_comm, "comm_save": save_comm,
+            "save_s": save_s, "write_wait_s": write_wait_s, "restore_s": restore_s,
+            "build_s": build_s, "late_s": late_s}
+
+
+def sh_mamba() -> dict:
+    """One process of the group: mamba2-1.3b cut to 4 layers through the
+    launcher under dp 4 (its row of the batch), K7's launches counted."""
+    from repro_torch.core import comm
+    from repro_torch.launch import train as launch
+
+    run = launch.build(sh_argv("mamba", SH_MODELS["mamba"][3]))
+    comm.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    start = sh_zero()
+    with CommMeter() as meter:
+        steps = sh_steps(run, SH_MODELS["mamba"][2])
+        metered = meter.take()
+    torch.cuda.synchronize()
+    out = {"steps": steps, "launches": sh_launches(start), "comm_steps": metered,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del run
+    torch.cuda.empty_cache()
+    return out
+
+
+def sh_compress() -> dict:
+    """One process of the group: ``compressed_psum_mean`` over a 1-D mesh of
+    every process, of a gradient the size of one llama ``wi`` block (this
+    process's from its seed): the one-shot error against the exact mean
+    (every process's gradient rebuilt from its seed), the error-feedback
+    time average over SH_EF_ROUNDS rounds, and host ms of the compressed
+    mean against a float32 sum all-reduce of the same tensor."""
+    from repro_torch._device import resolve_device
+    from repro_torch.core import comm
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.optim import compress
+
+    dev = resolve_device(None)
+    world = comm.world_size()
+    mesh = Mesh((world,), ("dp",))
+    grads = [torch.randn(SH_COMPRESS, generator=torch.Generator(device=dev).manual_seed(100 + r),
+                         device=dev) for r in range(world)]
+    exact = torch.stack(grads).mean(0)
+    x = grads[comm.rank()]
+    amax = max(float(g.abs().max()) for g in grads)
+    del grads
+    err = torch.zeros_like(x)
+    mean1, _ = compress.compressed_psum_mean(x, "dp", mesh)
+    q_err = float((mean1 - exact).abs().max())
+    acc = torch.zeros_like(x)
+    for i in range(SH_EF_ROUNDS):
+        m, err = compress.compressed_psum_mean(x + err, "dp", mesh)
+        acc += (m - acc) / (i + 1)
+    ef_err = float((acc - exact).abs().max())
+    sub = mesh.group("dp")
+    ms = {"compressed": [], "plain": []}
+    for who in ("compressed", "plain", "plain", "compressed")[:2 * SH_RUNS]:
+        fn = (lambda: compress.compressed_psum_mean(x, "dp", mesh)) if who == "compressed" \
+            else (lambda: comm.sum_over(x, sub) / world)
+        ms[who].append(host_ms(fn, comm.barrier))
+    return {"q_err": q_err, "amax_over_127": amax / 127.0, "ef_err": ef_err,
+            "ef_rounds": SH_EF_ROUNDS, "ms": ms, "mean_digest": float(mean1.double().sum()),
+            "wire_bytes": compress.wire_bytes(SH_COMPRESS, world)}
+
+
+SH_CHECKS = {"sh_llama": sh_llama, "sh_mamba": lambda: sh_mamba(),
+             "sh_compress": lambda: sh_compress()}
+
+
+def sh_kernel_checks(kswa, kssd, dev) -> dict:
+    """K6's float32 forward (with its LSE) and backward at the local-head
+    shapes, and K7's forward and backward at a dp-4 process's row, against
+    their plain versions; the tp-2 K6 and the K7 shape timed in turns with
+    the plain versions (and SDPA for K6)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ssd import ssd_intra_chunk_backward_ref, ssd_intra_chunk_ref
+    from repro_torch.kernels.swa import swa_backward_ref, swa_lse_ref
+
+    gen = torch.Generator(device=dev).manual_seed(37)
+    out = {"k6_max_abs": 0.0, "k6b_max_abs": 0.0}
+    for shape in SH_K6:
+        B, H, Hkv, T, S, D, w = shape
+        q, k, v = k6_inputs(shape, torch.float32, gen, dev)
+        do = torch.randn(B, T, H * D, generator=gen, device=dev).view(B, T, H, D).transpose(1, 2)
+        tc0 = kswa.swa_attention_cuda.tc_launches
+        o, lse = kswa.swa_attention_cuda(q, k, v, window=w, return_lse=True)
+        got = kswa.swa_backward_cuda(q, k, v, o, do, lse, window=w)
+        torch.cuda.synchronize()
+        if kswa.swa_attention_cuda.tc_launches != tc0 + 1:
+            fail(f"sharded_train: K6 at {shape} did not run on the tensor cores")
+        wo, wl = swa_lse_ref(q, k, v, window=w)
+        want = swa_backward_ref(q, k, v, do, window=w)
+        errs = {"o": frobenius(o, wo), "lse": frobenius(lse, wl),
+                **{n: frobenius(a, b) for n, a, b in zip(("dq", "dk", "dv"), got, want)}}
+        if max(errs.values()) > K6B_TOL:
+            fail(f"sharded_train: K6 at the local heads {shape}: normwise {errs} > {K6B_TOL}")
+        out["k6_max_abs"] = max(out["k6_max_abs"], float((o - wo).abs().max()))
+        out["k6b_max_abs"] = max(out["k6b_max_abs"],
+                                 max(float((a - b).abs().max()) for a, b in zip(got, want)))
+        say("sh_kernel", kernel="K6 f32 with LSE and its backward", shape="B,H,Hkv,T,S,D,W=" +
+            ",".join(map(str, shape)), normwise=json.dumps(errs).replace(" ", ""), tol=K6B_TOL)
+        if shape == SH_K6[0]:
+            runs = {"kernel": [], "plain": [], "library": [], "bwd": [], "bwd_plain": []}
+            fns = {"kernel": lambda: kswa.swa_attention_cuda(q, k, v, window=w, return_lse=True),
+                   "plain": lambda: swa_lse_ref(q, k, v, window=w),
+                   "library": lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                                     enable_gqa=True),
+                   "bwd": lambda: kswa.swa_backward_cuda(q, k, v, o, do, lse, window=w),
+                   "bwd_plain": lambda: swa_backward_ref(q, k, v, do, window=w)}
+            for who in ("kernel", "plain", "library", "bwd", "bwd_plain", "bwd_plain", "bwd",
+                        "library", "plain", "kernel"):
+                plain = who.endswith("plain")
+                runs[who].append(cuda_time_ms(fns[who], reps=3 if plain else 10,
+                                              warm=1 if plain else 3))
+            bound, bound_by, _ = k6_bound(shape, 4)
+            bbound, bbound_by, _, _ = k6b_bound(shape)
+            out["k6_time"] = {"ms": min(runs["kernel"]), "plain_ms": min(runs["plain"]),
+                         "library_ms": min(runs["library"]), "bound_ms": bound,
+                         "bound_by": bound_by}
+            out["k6b_time"] = {"ms": min(runs["bwd"]), "plain_ms": min(runs["bwd_plain"]),
+                          "bound_ms": bbound, "bound_by": bbound_by}
+            say("sh_kernel_time", kernel="K6 f32 with LSE / backward", shape="B,H,Hkv,T,S,D,W="
+                + ",".join(map(str, shape)), ms_runs=runs["kernel"],
+                plain_ms_runs=runs["plain"], sdpa_ms_runs=runs["library"],
+                backward_ms_runs=runs["bwd"], backward_plain_ms_runs=runs["bwd_plain"],
+                bound_ms=bound, backward_bound_ms=bbound,
+                share_of_bound=bound / min(runs["kernel"]),
+                backward_share_of_bound=bbound / min(runs["bwd"]))
+        del q, k, v, do, o, lse, got, want, wo, wl
+        torch.cuda.empty_cache()
+    L = SH_K7[-1]
+    x, dt, A, Bm, C, s, dy, dS = k7b_inputs(SH_K7, gen, dev)
+    b0 = kssd.ssd_intra_chunk_cuda.by_kernel["3xTF32"]
+    got = kssd.ssd_intra_chunk_cuda(x, dt, A, Bm, C, chunk=L)
+    gotb = kssd.ssd_backward_cuda(x, dt, s, Bm, C, dy, dS)
+    torch.cuda.synchronize()
+    if kssd.ssd_intra_chunk_cuda.by_kernel["3xTF32"] != b0 + 1:
+        fail("sharded_train: K7 at a dp-4 process's row did not run its 3xTF32 kernel")
+    want = ssd_intra_chunk_ref(x, dt, A, Bm, C, chunk=L)
+    wantb = ssd_intra_chunk_backward_ref(x, dt, s, Bm, C, dy, dS)
+    errs = {n: normwise(a, b)[0] for n, a, b in zip(("y_diag", "states", "s"), got, want)}
+    errb = {n: frobenius(a, b) for n, a, b in zip(K7B_NAMES, gotb, wantb)}
+    if any(errs[n] > K7_TOL["float32"][n] for n in errs) or max(errb.values()) > K7B_TOL:
+        fail(f"sharded_train: K7 at {SH_K7}: forward {errs}, backward {errb} normwise")
+    out["k7_max_abs"] = float((got[0] - want[0]).abs().max())
+    out["k7b_max_abs"] = max(float((a - b).abs().max()) for a, b in zip(gotb, wantb))
+    fns = {"fwd": lambda: kssd.ssd_intra_chunk_cuda(x, dt, A, Bm, C, chunk=L),
+           "fwd_plain": lambda: ssd_intra_chunk_ref(x, dt, A, Bm, C, chunk=L),
+           "bwd": lambda: kssd.ssd_backward_cuda(x, dt, s, Bm, C, dy, dS),
+           "bwd_plain": lambda: ssd_intra_chunk_backward_ref(x, dt, s, Bm, C, dy, dS)}
+    runs = {n: [] for n in fns}
+    for who in ("fwd", "fwd_plain", "bwd", "bwd_plain", "bwd_plain", "bwd", "fwd_plain", "fwd"):
+        plain = who.endswith("plain")
+        runs[who].append(cuda_time_ms(fns[who], reps=3 if plain else 10, warm=1 if plain else 3))
+    fbound, fbound_by, _ = k7_bound(SH_K7, 4)
+    bbound, bbound_by, _, _, _ = k7b_bound(SH_K7)
+    out["k7_time"] = {"ms": min(runs["fwd"]), "plain_ms": min(runs["fwd_plain"]),
+                 "bound_ms": fbound, "bound_by": fbound_by}
+    out["k7b_time"] = {"ms": min(runs["bwd"]), "plain_ms": min(runs["bwd_plain"]),
+                  "bound_ms": bbound, "bound_by": bbound_by}
+    say("sh_kernel", kernel="K7 f32 and its backward", shape="Ba,T,H,P,N,G,L=" +
+        ",".join(map(str, SH_K7)), forward_normwise=json.dumps(errs).replace(" ", ""),
+        backward_normwise=json.dumps(errb).replace(" ", ""), ms_runs=runs["fwd"],
+        plain_ms_runs=runs["fwd_plain"], backward_ms_runs=runs["bwd"],
+        backward_plain_ms_runs=runs["bwd_plain"], bound_ms=fbound, backward_bound_ms=bbound)
+    del x, dt, A, Bm, C, s, dy, dS, got, gotb, want, wantb
+    torch.cuda.empty_cache()
+    return out
+
+
+def sh_one_process(key: str) -> dict:
+    """The cell in this process (no mesh): the launcher's run, its steps'
+    losses and grad norms, ms a step, peak memory, K6's/K7's launches."""
+    from repro_torch.launch import train as launch
+
+    run = launch.build(sh_argv(key))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = sh_zero()
+    out = sh_steps(run, SH_MODELS[key][2])
+    torch.cuda.synchronize()
+    out["launches"] = sh_launches(start)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del run
+    torch.cuda.empty_cache()
+    return out
+
+
+def sh_entries(sh, swa, ssd, swa_bwd, ssd_bwd) -> None:
+    """Add the phase's launches and local-shape numbers to the kernels line."""
+    for entry, count, timed, err, shape in (
+            (swa, "k6", "k6_time", "k6_max_abs", SH_K6[0]),
+            (swa_bwd, "k6_backward", "k6b_time", "k6b_max_abs", SH_K6[0]),
+            (ssd, "k7", "k7_time", "k7_max_abs", SH_K7),
+            (ssd_bwd, "k7_backward", "k7b_time", "k7b_max_abs", SH_K7)):
+        entry["launches_sharded_train"] = sh[count]
+        entry["launches"] += sh[count]
+        entry["sharded_train_local"] = {"shape": ",".join(map(str, shape)), "dtype": "float32",
+                                        "max_abs_err": sh[err], **sh[timed]}
+
+
+def sh_rel(a, b) -> float:
+    return abs(a - b) / abs(b)
+
+
+def sharded_train_phase(card: str, kswa, kssd, dev) -> dict:
+    """Phase 46 (sharded_train): ZeRO-3 with tensor parallelism over a
+    ``(data, model)`` mesh of SH_WORLD gloo processes sharing the card.
+    (a) K6 at the local-head shapes and K7 at a dp-4 row against their
+    plain versions; (b) llama3.2-1b cut to 4 layers (full width, f32, the
+    launcher's TrainCfg, 4 x 2048) for 3 steps in this process and over
+    dp 2 x tp 2, every step's loss within SH_TOL, the first grad norm too,
+    and the elastic resume (saved after step 2 on (2, 2), step 3 on
+    (1, 4)); (c) mamba2-1.3b cut to 4 layers, 2 steps under dp 4 against
+    this process; (d) ``compressed_psum_mean`` over the 4 processes.  K6's
+    and K7's launches counted a process (all on the tensor cores, as
+    predicted: the forward twice a layer a step under remat "full", the
+    backward once).  Returns the launches and the kernel numbers."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sh_")
+    go, group = f"{tmp}/go", None
+    try:
+        # the processes start up (imports, the card, the group) while this
+        # one checks the kernels and runs the cells alone; they begin at go
+        group = dist_start(SH_WORLD, "gloo", tuple(SH_CHECKS), tmp,
+                           args={"sh_llama": {"ckpt_dir": f"{tmp}/ckpt", "go": go}})
+        kern = sh_kernel_checks(kswa, kssd, dev)
+        one = {key: sh_one_process(key) for key in SH_MODELS}
+        t0 = time.perf_counter()
+        open(go, "w").close()
+        got, group = dist_wait(*group), None
+        spawn_s = time.perf_counter() - t0
+    finally:
+        for p in group[0] if group is not None else ():   # a check here failed: end them
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    def layers(key):
+        return SH_MODELS[key][1]
+
+    def predicted(key, steps):
+        return 2 * layers(key) * steps, layers(key) * steps
+
+    total = {"k6": 0, "k6_backward": 0, "k7": 0, "k7_backward": 0}
+    for key, fwd, bwd in (("llama", "k6", "k6_backward"), ("mamba", "k7", "k7_backward")):
+        n = one[key]["launches"]
+        if (n[fwd], n[bwd]) != predicted(key, SH_MODELS[key][2]):
+            fail(f"sharded_train: one process of {key} launched {n}")
+        total[fwd] += n[fwd]
+        total[bwd] += n[bwd]
+    errs = {}
+    for r, g in enumerate(got):
+        x, m = g["sh_llama"], g["sh_mamba"]
+        for what, res, key, steps in (("llama (2, 2)", x["launches"], "llama", 3),
+                                      ("llama (1, 4)", x["elastic_launches"], "llama", 1),
+                                      ("mamba2 dp 4", m["launches"], "mamba", 2)):
+            fwd, bwd = ("k6", "k6_backward") if key == "llama" else ("k7", "k7_backward")
+            on_tc = res["k6_tensor_core"] == res["k6"] and res["k7_3xtf32"] == res["k7"]
+            if (res[fwd], res[bwd]) != predicted(key, steps) or not on_tc:
+                fail(f"sharded_train {what}: rank {r} launched {res}, predicted "
+                     f"{predicted(key, steps)} (K6 forward/backward or K7), all on the tensor "
+                     "cores")
+            total[fwd] += res[fwd]
+            total[bwd] += res[bwd]
+        for key, res in (("llama", x["steps"]), ("mamba", m["steps"])):
+            want = one[key]
+            rel = [sh_rel(a, b) for a, b in zip(res["loss"], want["loss"])]
+            gn = sh_rel(res["grad_norm"][0], want["grad_norm"][0])
+            errs[key] = max(errs.get(key, 0.0), max(rel))
+            errs[key + "_grad_norm"] = max(errs.get(key + "_grad_norm", 0.0), gn)
+            if len(rel) != SH_MODELS[key][2] or max(rel) > SH_TOL["loss"] or \
+                    gn > SH_TOL["grad_norm"]:
+                fail(f"sharded_train {key}: rank {r} losses {res['loss']} / grad norm "
+                     f"{res['grad_norm'][0]} against one process {want['loss']} / "
+                     f"{want['grad_norm'][0]}: {rel}, {gn} above {SH_TOL}")
+        el = sh_rel(x["elastic"]["loss"][0], one["llama"]["loss"][SH_ELASTIC[0]])
+        errs["elastic"] = max(errs.get("elastic", 0.0), el)
+        if el > SH_TOL["loss"]:
+            fail(f"sharded_train: rank {r}'s step 3 after the resume on (1, 4) "
+                 f"{x['elastic']['loss']} vs one process {one['llama']['loss']}: {el}")
+        c = g["sh_compress"]
+        if not (c["q_err"] <= c["amax_over_127"] + 1e-6
+                and c["ef_err"] < max(c["q_err"], 1e-4) + 1e-6):
+            fail(f"sharded_train compress: rank {r} one-shot {c['q_err']} (bound "
+                 f"{c['amax_over_127']}), error-feedback average {c['ef_err']}")
+    if len({g["sh_compress"]["mean_digest"] for g in got}) != 1:
+        fail("sharded_train compress: the processes' means differ")
+    for key in SH_MODELS:
+        res = [g[f"sh_{key}"] for g in got]
+        st = [r["steps"]["step_ms"] for r in res]
+        meter = [r["comm_steps"] for r in res]
+        n_steps = SH_ELASTIC[0] if key == "llama" else SH_MODELS[key][2]
+        cfg_name, n_layers, steps, mesh = SH_MODELS[key]
+        say("sharded_train", cell=f"{cfg_name} {n_layers} layers f32 {SH_BATCH}x{SH_SEQ}",
+            mesh=f"dp{mesh[0]}xtp{mesh[1]}", processes=SH_WORLD, card=repr(card),
+            link="gloo staging through host on one card (measures no link)",
+            losses_one_process=one[key]["loss"], losses_sharded=res[0]["steps"]["loss"],
+            grad_norm_one_process=one[key]["grad_norm"][0],
+            grad_norm_sharded=res[0]["steps"]["grad_norm"][0],
+            max_rel_err_loss=errs[key], max_rel_err_grad_norm=errs[key + "_grad_norm"],
+            tol=json.dumps(SH_TOL).replace(" ", ""),
+            step_ms_one_process=one[key]["step_ms"],
+            step_ms_sharded_by_rank=json.dumps(st).replace(" ", ""),
+            step_ms_sharded_median=float(np.median([max(s[i] for s in st)
+                                                    for i in range(1, len(st[0]))])),
+            host_share_in_collectives=[m["host_ms"] / sum(s[:n_steps])
+                                       for m, s in zip(meter, st)],
+            bytes_sent_per_step_by_rank=[m["bytes"] // n_steps for m in meter],
+            collective_calls_per_step=[m["calls"] // n_steps for m in meter],
+            max_memory_allocated_gb_by_rank=[r["peak_gb"] for r in res],
+            max_memory_allocated_gb_one_process=one[key]["peak_gb"],
+            launches_per_process=json.dumps(res[0]["launches"]).replace(" ", ""))
+    x = [g["sh_llama"] for g in got]
+    say("sharded_train_elastic", saved_after=SH_ELASTIC[0], first_mesh="dp2xtp2",
+        second_mesh=f"dp{SH_ELASTIC[1][0]}xtp{SH_ELASTIC[1][1]}",
+        loss_step3_resumed=x[0]["elastic"]["loss"][0],
+        loss_step3_one_process=one["llama"]["loss"][SH_ELASTIC[0]],
+        max_rel_err=errs["elastic"], save_s_by_rank=[r["save_s"] for r in x],
+        write_wait_s_by_rank=[r["write_wait_s"] for r in x],
+        build_s_by_rank=[r["build_s"] for r in x],
+        ready_after_go_s_by_rank=[r["late_s"] for r in x],
+        restore_s_by_rank=[r["restore_s"] for r in x],
+        save_bytes_sent_by_rank=[r["comm_save"]["bytes"] for r in x],
+        step_ms_resumed_by_rank=[r["elastic"]["step_ms"] for r in x],
+        local_shapes_rank0=json.dumps(x[0]["shapes"]).replace(" ", ""))
+    c = [g["sh_compress"] for g in got]
+    say("sharded_train_compress", shape=SH_COMPRESS, processes=SH_WORLD, card=repr(card),
+        one_shot_max_err=max(r["q_err"] for r in c), bound_amax_over_127=c[0]["amax_over_127"],
+        error_feedback_max_err=max(r["ef_err"] for r in c), rounds=SH_EF_ROUNDS,
+        compressed_host_ms_by_rank=[r["ms"]["compressed"] for r in c],
+        plain_sum_host_ms_by_rank=[r["ms"]["plain"] for r in c],
+        wire_bytes=json.dumps(c[0]["wire_bytes"]).replace(" ", ""))
+    elapsed = time.perf_counter() - t_phase
+    say("sharded_train", status="ok", elapsed_s=elapsed, spawn_s=spawn_s,
+        launches=json.dumps(total).replace(" ", ""),
+        elapsed_total_s=time.perf_counter() - T_START)
+    return {**total, **kern}
+
+
+# ---------------------------------------------------------------------------
 # slice 10: the grid across processes (phase dist)
 # ---------------------------------------------------------------------------
 
@@ -4172,7 +4761,7 @@ def dist_child() -> int:
                             world_size=world, rank=rank,
                             timeout=datetime.timedelta(seconds=DIST_GROUP_TIMEOUT_S))
     torch.backends.cuda.matmul.allow_tf32 = False
-    checks = {**DIST_CHECKS, **CP_CHECKS}
+    checks = {**DIST_CHECKS, **CP_CHECKS, **SH_CHECKS}
     out = {name: checks[name](**job["args"].get(name, {})) for name in job["checks"]}
     with open(os.path.join(job["out"], f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
@@ -4180,11 +4769,10 @@ def dist_child() -> int:
     return 0
 
 
-def dist_spawn(world: int, backend: str, checks, tmp: str, args=None) -> list:
-    """Run ``checks`` in ``world`` processes of a ``backend`` group on this
-    host (``args``: keyword arguments of each check by name); returns each
-    rank's results.  Every process started is ended before this returns;
-    any failure fails the script."""
+def dist_start(world: int, backend: str, checks, tmp: str, args=None):
+    """Start ``checks`` in ``world`` processes of a ``backend`` group on this
+    host (``args``: keyword arguments of each check by name); returns what
+    :func:`dist_wait` takes."""
     import os
 
     job_dir = os.path.join(tmp, f"{backend}{world}")
@@ -4203,6 +4791,15 @@ def dist_spawn(world: int, backend: str, checks, tmp: str, args=None) -> list:
         log = open(os.path.join(job_dir, f"log{r}.txt"), "w+")
         logs.append(log)
         procs.append(subprocess.Popen(cmd, env=env, stdout=log, stderr=subprocess.STDOUT))
+    return procs, logs, job_dir, backend
+
+
+def dist_wait(procs, logs, job_dir: str, backend: str) -> list:
+    """Each rank's results of a :func:`dist_start`.  Every process started is
+    ended before this returns; any failure fails the script."""
+    import os
+
+    world = len(procs)
     # within the call's limit whatever happens: a hung group is killed
     deadline = time.perf_counter() + min(DIST_SPAWN_LIMIT_S, remaining_s() - 30)
     try:
@@ -4229,6 +4826,14 @@ def dist_spawn(world: int, backend: str, checks, tmp: str, args=None) -> list:
         with open(os.path.join(job_dir, f"rank{r}.json")) as f:
             out.append(json.load(f))
     return out
+
+
+def dist_spawn(world: int, backend: str, checks, tmp: str, args=None) -> list:
+    """Run ``checks`` in ``world`` processes of a ``backend`` group on this
+    host (``args``: keyword arguments of each check by name); returns each
+    rank's results.  Every process started is ended before this returns;
+    any failure fails the script."""
+    return dist_wait(*dist_start(world, backend, checks, tmp, args))
 
 
 def dist_phase(card: str) -> dict:
@@ -4647,6 +5252,13 @@ def main() -> int:
     say("kernel_resources", **{k.replace("<", "[").replace(">", "]").replace(",", "_"):
                                json.dumps(v).replace(" ", "")
                                for k, v in sorted(kernel_resources(lib, log).items())})
+    if sys.argv[1:] == ["--only", "sharded_train"]:   # the phase alone, for its own checks
+        from repro_torch.kernels.ssd import kernel as kssd
+        from repro_torch.kernels.swa import kernel as kswa
+
+        sh = sharded_train_phase(card, kswa, kssd, dev)
+        print(json.dumps({"sharded_train": sh}))
+        return 0
 
     # ---- 3. kernels against their plain versions --------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -4823,6 +5435,12 @@ def main() -> int:
     ssd["launches_context_parallel"] = cp["k7"]
     ssd["launches"] += cp["k7"]
     ssd["max_abs_err_context_parallel"] = cp["k7_max_abs"]
+    # sharded training (slice 18): K6's and K7's launches (forward and
+    # backward) in the processes of the mesh and in the one-process runs
+    # beside them join their entries, with each kernel at the local shapes
+    torch.cuda.empty_cache()
+    sh = sharded_train_phase(card, kswa, kssd, dev)
+    sh_entries(sh, swa, ssd, *train["entries"])
     # the processes of the dist phase: Heat3D's K1, Poisson's K2-K5 and the
     # two-phase step's shifted K2-K5, summed over the processes
     dist = dist_phase(card)

@@ -4,6 +4,8 @@ a few hundred steps.
 Run:  PYTHONPATH=src python examples/torch_train_lm.py            # quick (~25M)
       PYTHONPATH=src python examples/torch_train_lm.py --full     # ~110M, 300 steps
       PYTHONPATH=src python examples/torch_train_lm.py --device cpu --steps 10
+      PYTHONPATH=src torchrun --nproc-per-node 8 examples/torch_train_lm.py \
+          --dp 4 --tp 2 [--device cpu]                            # DP x TP
 
 The twin of ``examples/train_lm.py``: the same models, arguments and
 printed lines, ``OK`` at the end.  It uses the port's whole training
@@ -11,8 +13,11 @@ substrate: synthetic data, AdamW with its schedule, gradient accumulation,
 rematerialization, checkpoint/restart and the straggler watchdog.  On the
 card (``--device cuda``, the default) every attention layer runs K6 and
 its backward kernel; ``--device cpu`` (or ``--kernel ref``) takes the
-plain PyTorch versions.  ``--dp`` and ``--tp`` above 1 raise: sharded
-training comes with the ``distributed/`` slice.
+plain PyTorch versions.  ``--dp`` and ``--tp`` train over a ``(data,
+model)`` mesh of the processes ``torchrun`` starts (gloo by default, so
+that several may share one card; ``--backend nccl`` with a card each):
+ZeRO-3 with tensor parallelism under ``default_rules``, as the reference
+example trains over a device mesh.
 """
 
 import argparse
@@ -24,7 +29,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 
 import numpy as np  # noqa: E402
 
-from _torch_group import add_device, device_arg  # noqa: E402
+from _torch_group import add_device, device_arg, process_group, say  # noqa: E402
 
 
 def model_cfg(full: bool):
@@ -63,18 +68,24 @@ def main(argv=None) -> dict:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--moments", default="float32", choices=["float32", "bfloat16", "int8"])
     add_device(ap)
+    ap.add_argument("--backend", default=None, choices=["gloo", "nccl"],
+                    help="process-group backend under torchrun (default gloo)")
     args = ap.parse_args(argv)
-    if args.dp * args.tp > 1:
-        raise NotImplementedError("--dp/--tp above 1: sharded training comes with the "
-                                  "distributed/ slice (ROADMAP.md, Queue A item 6)")
+    with process_group(args.backend) as world:
+        return train(args, world)
 
+
+def train(args, world: int) -> dict:
     import torch
 
     from repro_torch import optim
     from repro_torch._device import resolve_device
     from repro_torch.data import SyntheticLMData
+    from repro_torch.distributed.sharding import axis_rules, default_rules
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import params as pm
     from repro_torch.models import transformer as tf
-    from repro_torch.train import Trainer, make_train_step
+    from repro_torch.train import Trainer, make_train_step, state_shardings
 
     cfg = model_cfg(args.full)
     if args.full:
@@ -82,28 +93,45 @@ def main(argv=None) -> dict:
     else:
         batch, seq, steps = 16, 128, args.steps or 120
 
+    rules = None
+    if args.dp * args.tp > 1 or world > 1:
+        if args.dp * args.tp != world:
+            raise ValueError(f"--dp {args.dp} x --tp {args.tp} for {world} process(es): start "
+                             "dp x tp processes (torchrun --nproc-per-node)")
+        rules = default_rules(Mesh((args.dp, args.tp), ("data", "model")), batch_size=batch)
+
     device = resolve_device(device_arg(args))
     n_params = cfg.param_count()
-    print(f"model {cfg.name}: {n_params / 1e6:.1f}M params, "
-          f"{cfg.n_layers} layers; devices: 1 ({device})")
+    say(f"model {cfg.name}: {n_params / 1e6:.1f}M params, "
+        f"{cfg.n_layers} layers; devices: {world} ({device})")
 
     tcfg = train_cfg(steps, args.moments, args.kernel)
+    layout = tf.reference_layout(cfg)
     params = tf.init_params(cfg, torch.Generator(device=device).manual_seed(0),
                             torch.float32, device)
-    opt_state = optim.init(params, tcfg.opt, layout=tf.reference_layout(cfg))
+    if rules is not None:   # each process keeps its blocks
+        params = pm.shard(params, rules, layout)
+    with axis_rules(rules):
+        opt_state = optim.init(params, tcfg.opt, layout=layout)
+    base_step = make_train_step(cfg, tcfg)
+
+    def train_step(p, o, b):
+        with axis_rules(rules):
+            return base_step(p, o, b)
 
     data = SyntheticLMData(vocab=cfg.vocab, batch=batch, seq=seq, seed=0, device=str(device))
     ckpt_dir = args.ckpt_dir or os.path.join(tempfile.gettempdir(), "repro_torch_train_lm")
-    trainer = Trainer(cfg=cfg, train_step=make_train_step(cfg, tcfg), data=data,
-                      ckpt_dir=ckpt_dir, ckpt_every=max(50, steps // 4), log_every=10)
+    trainer = Trainer(cfg=cfg, train_step=train_step, data=data,
+                      ckpt_dir=ckpt_dir, ckpt_every=max(50, steps // 4), log_every=10,
+                      shardings=None if rules is None else state_shardings(cfg, tcfg.opt, rules))
     params, opt_state, step0 = trainer.restore_or_init(params, opt_state)
     params, opt_state, hist = trainer.run(params, opt_state, steps - step0, step0=step0)
     if hist:
-        print(f"loss: {hist[0]:.4f} -> {hist[-1]:.4f} "
-              f"(uniform floor = {np.log(cfg.vocab):.4f})")
+        say(f"loss: {hist[0]:.4f} -> {hist[-1]:.4f} "
+            f"(uniform floor = {np.log(cfg.vocab):.4f})")
         assert hist[-1] < hist[0], "training did not reduce the loss"
-    print(f"straggler events: {trainer.straggler_events}; checkpoints in {ckpt_dir}")
-    print("OK")
+    say(f"straggler events: {trainer.straggler_events}; checkpoints in {ckpt_dir}")
+    say("OK")
     return {"history": hist, "params": params, "straggler_events": trainer.straggler_events}
 
 

@@ -25,6 +25,16 @@ written as process 0 holds it.  Every process then waits for the others.
 :func:`restore` reads on every process, and each takes its own blocks of a
 field leaf.  So a state saved on 8 processes restores on one process with
 the same ``dims``, and through its gathered array on any other layout.
+
+A state sharded over a process mesh (sharded training; ``shardings=``, a
+tree of ``models.params.Placement`` beside the state, as
+``train.state_shardings`` builds it for ``{"params", "opt"}``) is saved as
+its global leaves: the processes that hold distinct blocks of a leaf send
+them to process 0, which assembles the whole array and writes it, the
+files a one-process run of the same state writes.  :func:`restore` with
+``shardings=`` (of the mesh to resume on) reads each file and keeps this
+process's block; so a checkpoint written on one mesh resumes on another,
+or in one process without ``shardings``: the reference's elastic resume.
 """
 
 from __future__ import annotations
@@ -41,6 +51,7 @@ import torch
 
 from ..core import comm
 from ..core import locations as _loc
+from ..models import params as pm
 
 
 @functools.cache
@@ -106,13 +117,37 @@ def _to_host(x) -> np.ndarray:
     return np.array(x, copy=True)
 
 
-def _host_leaves(state, grid=None):
+def _placements(state, shardings) -> list:
+    """For each leaf of :func:`_flatten`, its ``Placement`` (or device, or
+    None) from a tree beside the state."""
+    n = len(_flatten(state))
+    if shardings is None or isinstance(shardings, (str, torch.device)):
+        return [shardings] * n
+    out = [v for _, v in _flatten(shardings)]
+    if len(out) != n:
+        raise ValueError(f"shardings has {len(out)} leaves, the state {n}")
+    return out
+
+
+def _host_leaves(state, grid=None, shardings=None):
     """Host copies of the leaves, a field leaf of a grid spread over
-    processes gathered into the field tensor of every block (collective)."""
+    processes gathered into the field tensor of every block, a sharded leaf
+    assembled on process 0 (collective; the others keep none): every
+    sharded leaf's blocks travel to process 0 at once."""
+    leaves = _flatten(state)
+    placements = _placements(state, shardings)
+    sharded = [i for i, pl in enumerate(placements) if isinstance(pl, pm.Placement)]
+    arrived = comm.gather_to_first([placements[i].outgoing(leaves[i][1]) for i in sharded]) \
+        if sharded else []
+    whole = {i: placements[i].assemble(parts) for i, parts in zip(sharded, arrived)}
     out = []
-    for (p, x), g in zip(_flatten(state), _field_grids(state, grid)):
+    for i, ((p, x), g) in enumerate(zip(leaves, _field_grids(state, grid))):
         if g is not None and g.distributed:
             x = g.all_blocks(x)
+        if i in whole:
+            x = whole[i]
+            if x is None:
+                continue
         out.append((_leaf_name(p), _to_host(x)))
     return out
 
@@ -121,10 +156,11 @@ def _path(step: int, ckpt_dir: str) -> str:
     return os.path.join(ckpt_dir, f"step_{step:08d}")
 
 
-def save(state, step: int, ckpt_dir: str, grid=None) -> str:
+def save(state, step: int, ckpt_dir: str, grid=None, shardings=None) -> str:
     """Synchronous save.  Returns the checkpoint path.  Under a process
-    group every process calls it (``grid``: see the module docstring)."""
-    leaves = _host_leaves(state, grid)
+    group every process calls it (``grid``, ``shardings``: see the module
+    docstring)."""
+    leaves = _host_leaves(state, grid, shardings)
     if comm.rank() == 0:
         _write(leaves, step, ckpt_dir)
     comm.barrier()
@@ -146,11 +182,11 @@ class GroupSave:
         return self._path
 
 
-def async_save(state, step: int, ckpt_dir: str, grid=None):
+def async_save(state, step: int, ckpt_dir: str, grid=None, shardings=None):
     """Device-to-host copy now (and, under a process group, the gather of
-    the field leaves); file IO on a worker thread.  Returns a
-    :class:`GroupSave`."""
-    leaves = _host_leaves(state, grid)
+    the field leaves and of the sharded ones); file IO on a worker thread.
+    Returns a :class:`GroupSave`."""
+    leaves = _host_leaves(state, grid, shardings)
     future = _executor().submit(_write, leaves, step, ckpt_dir) if comm.rank() == 0 else None
     return GroupSave(future, _path(step, ckpt_dir))
 
@@ -192,24 +228,29 @@ def restore(state_like, step: int, ckpt_dir: str, shardings=None, grid=None):
     of a grid spread over processes (see the module docstring) takes this
     process's blocks of the stored field tensor of every block.
 
-    ``shardings`` is the one-card counterpart of the reference's target
-    shardings: a tree of ``torch.device``s matching ``state_like``, or one
-    device for every leaf.  Without it a leaf lands on the device of its
-    ``state_like`` tensor, and on the CPU where ``state_like`` holds a
-    NumPy array or a Python number.
+    ``shardings`` is the reference's target shardings: a tree matching
+    ``state_like`` (or one value for every leaf) of ``torch.device``s, of
+    ``models.params.Placement``s (each a leaf's spec on a mesh, from
+    ``train.state_shardings``: this process keeps its block of the stored
+    global leaf), or of None.  Without a device
+    a leaf lands on the device of its ``state_like`` tensor, and on the CPU
+    where ``state_like`` holds a NumPy array or a Python number.
     """
     path = _path(step, ckpt_dir)
     leaves = _flatten(state_like)
     grids = _field_grids(state_like, grid)
-    if shardings is None or isinstance(shardings, (str, torch.device)):
-        devices = [shardings] * len(leaves)
-    else:
-        devices = [d for _, d in _flatten(shardings)]
-        if len(devices) != len(leaves):
-            raise ValueError(f"shardings has {len(devices)} leaves, the state {len(leaves)}")
+    devices = _placements(state_like, shardings)
     out = []
     for (p, like), dev, g in zip(leaves, devices, grids):
-        arr = np.load(os.path.join(path, _leaf_name(p) + ".npy"))
+        arr = np.load(os.path.join(path, _leaf_name(p) + ".npy"), mmap_mode="r")
+        if isinstance(dev, pm.Placement):
+            block = dev.block(arr)
+            if tuple(block.shape) != _shape(like):
+                raise ValueError(f"{_leaf_name(p)}: this process's block of ckpt {arr.shape} is "
+                                 f"{tuple(block.shape)} != target {_shape(like)}")
+            out.append(block.to(like.device if isinstance(like, torch.Tensor) else "cpu"))
+            continue
+        arr = np.array(arr)
         if g is not None and g.distributed:
             if tuple(arr.shape) != g.full_shape:
                 raise ValueError(f"{_leaf_name(p)}: ckpt {arr.shape} != field {g.full_shape}")

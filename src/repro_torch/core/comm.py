@@ -14,13 +14,22 @@ CartesianTopology` assigns it.  This module is the ONLY place that calls
   ring rotations and pipeline hand-offs of :mod:`repro_torch.distributed`;
 * :func:`all_reduce` — sum, max and min of the reductions' partials;
 * :func:`all_gather` — every process's tensor, for ``gather``;
+* over a :class:`Subgroup` (the processes of one mesh axis, or of a tuple
+  of axes, :mod:`repro_torch.launch.mesh`): :func:`gather_over` (an
+  all-gather along a dimension), :func:`reduce_scatter_over` (its
+  transpose), :func:`sum_over` and :func:`max_over` (all-reduces) and
+  :func:`copy_to` (the identity whose backward sums) — the collectives of
+  sharded training (:mod:`repro_torch.distributed.sharding`), each a
+  ``torch.autograd.Function`` where a train step differentiates through
+  it; :func:`new_groups` makes the subgroups;
+* :func:`init_from_env` — join the group that ``torchrun`` describes;
 * :func:`barrier`, and what a process needs to know of the group
   (:func:`initialized`, :func:`world_size`, :func:`rank`);
 * :func:`exchange_through_store` — bytes of every process through the
   group's key-value store (no collective: a process that never publishes
   is a timeout, not a hang), for the analyzer's cross-process check.
 
-Under an analyzer check (:mod:`repro_torch.analysis`) the five
+Under an analyzer check (:mod:`repro_torch.analysis`) the
 communicating functions record what they would send and return meta
 tensors of the right shape: nothing is sent.
 
@@ -38,7 +47,9 @@ of one process) none of these functions is reached by the grid.
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
+import os
 import time
 
 import torch
@@ -52,6 +63,10 @@ from ..analysis import markers as _mk
 _TAG_LOW, _TAG_HIGH = 1, 2
 # The tag of :func:`shift`'s one message a process sends and receives.
 _TAG_SHIFT = 3
+# The tags of :func:`reduce_scatter_over`'s messages (one to each member)
+# and of the subgroup collectives' exchange of every member's tensor
+# (``_parts``); :func:`gather_to_first` tags item i ``_TAG_GATHER + i``.
+_TAG_SCATTER, _TAG_PARTS, _TAG_GATHER = 4, 5, 1 << 16
 
 
 def _dist():
@@ -224,6 +239,280 @@ def all_reduce(x: torch.Tensor, op: str) -> torch.Tensor:
     return w.to(x.device)
 
 
+# ---------------------------------------------------------------------------
+# subgroups: the collectives of sharded training
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Subgroup:
+    """Processes of the default group that act together: those of one mesh
+    axis, or of a tuple of axes, that share this process's other
+    coordinates.  ``ranks``: their default-group ranks in the order of
+    their index along the axes (the first axis major); ``handle``: the
+    backend's group (None for the default group itself, or a group of
+    one process, which communicates nothing)."""
+
+    ranks: tuple
+    handle: object = None
+
+    @property
+    def size(self) -> int:
+        return len(self.ranks)
+
+    @property
+    def index(self) -> int:
+        """This process's index in :attr:`ranks`."""
+        return self.ranks.index(rank())
+
+
+def new_groups(partition) -> Subgroup:
+    """Make the backend groups of ``partition`` (disjoint tuples of
+    default-group ranks, each in index order, together every process) and
+    return this process's :class:`Subgroup`.  ``new_group`` is collective
+    over the default group, so every process calls this with the same
+    partition, in the same order as every other call of it; a part of one
+    process, or the whole group, makes no backend group."""
+    mine = None
+    for members in partition:
+        members = tuple(int(r) for r in members)
+        handle = None
+        if 1 < len(members) < world_size():
+            handle = _dist().new_group(sorted(members))
+        if rank() in members:
+            mine = Subgroup(members, handle)
+    if mine is None:
+        raise ValueError(f"rank {rank()} is in no part of {list(partition)}")
+    return mine
+
+
+def _parts(t: torch.Tensor, sub: Subgroup) -> list:
+    """``t`` of every member of ``sub``, in its index order (host tensors
+    under staging): each member sends its ``t`` to every other one,
+    point-to-point under one tag, all messages at once (gloo's all-gather
+    took 1.8 times as long for two processes on one host)."""
+    dist = _dist()
+    w, me = _wire(t), sub.index
+    out, ops = [], []
+    for k, peer in enumerate(sub.ranks):
+        if k == me:
+            out.append(w)
+            continue
+        out.append(_buffer(t))
+        ops.append(dist.P2POp(dist.isend, w, peer, sub.handle, tag=_TAG_PARTS))
+        ops.append(dist.P2POp(dist.irecv, out[-1], peer, sub.handle, tag=_TAG_PARTS))
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    return out
+
+
+def _gather(t: torch.Tensor, sub: Subgroup, dim: int) -> torch.Tensor:
+    if _mk.TRACE is not None:
+        _mk.TRACE.collective("gather_over", t, peers=sub.ranks, site="core.comm.gather_over")
+        return torch.cat([t] * sub.size, dim)
+    return torch.cat([p.to(t.device) for p in _parts(t, sub)], dim)
+
+
+def _sum(t: torch.Tensor, sub: Subgroup) -> torch.Tensor:
+    """The members' ``t`` added one after another in index order: every
+    member does the same additions and reads the same bits."""
+    if _mk.TRACE is not None:
+        _mk.TRACE.collective("sum_over", t, peers=sub.ranks, reduce_op="sum",
+                             site="core.comm.sum_over")
+        return t.clone()
+    parts = _parts(t, sub)
+    acc = parts[0].to(t.device, copy=True)
+    for p in parts[1:]:
+        acc.add_(p.to(t.device))
+    return acc
+
+
+def _reduce_scatter(t: torch.Tensor, sub: Subgroup, dim: int) -> torch.Tensor:
+    """Member k's block k (of ``sub.size`` equal blocks along ``dim``),
+    summed over the members in index order.  Point-to-point messages under
+    one tag (gloo has no reduce-scatter): each member sends every other
+    member that one's block of its ``t`` and adds what it receives."""
+    n = sub.size
+    if t.shape[dim] % n:
+        raise ValueError(f"reduce-scatter of {t.shape[dim]} along dim {dim} over {n} processes")
+    if _mk.TRACE is not None:
+        _mk.TRACE.collective("reduce_scatter_over", t, peers=sub.ranks, reduce_op="sum",
+                             site="core.comm.reduce_scatter_over")
+        return t.narrow(dim, 0, t.shape[dim] // n).clone()
+    dist = _dist()
+    blocks, me = t.chunk(n, dim), sub.index
+    ops, got = [], {}
+    for k, peer in enumerate(sub.ranks):
+        if k != me:
+            ops.append(dist.P2POp(dist.isend, _wire(blocks[k]), peer, sub.handle,
+                                  tag=_TAG_SCATTER))
+            got[k] = _buffer(blocks[me])
+            ops.append(dist.P2POp(dist.irecv, got[k], peer, sub.handle, tag=_TAG_SCATTER))
+    for work in dist.batch_isend_irecv(ops) if ops else ():
+        work.wait()
+    acc = None
+    for k in range(n):
+        part = blocks[me] if k == me else got[k].to(t.device)
+        acc = part.clone() if acc is None else acc.add_(part)
+    return acc.contiguous()
+
+
+class _GatherOver(torch.autograd.Function):
+    """All-gather along ``dim``; its gradient is the reduce-scatter."""
+
+    @staticmethod
+    def forward(ctx, t, sub, dim):
+        ctx.sub, ctx.dim = sub, dim
+        return _gather(t, sub, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, ctx.sub, ctx.dim), None, None
+
+
+class _ReduceScatterOver(torch.autograd.Function):
+    """Reduce-scatter along ``dim``; its gradient is the all-gather."""
+
+    @staticmethod
+    def forward(ctx, t, sub, dim):
+        ctx.sub, ctx.dim = sub, dim
+        return _reduce_scatter(t, sub, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.sub, ctx.dim), None, None
+
+
+class _SumOver(torch.autograd.Function):
+    """A sum all-reduce whose backward is the identity: each member's
+    partial enters the sum once, so the sum's gradient is its own."""
+
+    @staticmethod
+    def forward(ctx, t, sub):
+        return _sum(t, sub)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CopyTo(torch.autograd.Function):
+    """The identity whose backward is a sum all-reduce: a tensor that every
+    member holds whole and uses for its own part (a column-parallel
+    input) gets the sum of the members' partial gradients."""
+
+    @staticmethod
+    def forward(ctx, t, sub):
+        ctx.sub = sub
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum(g, ctx.sub), None
+
+
+def _grad(t: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+def gather_over(t: torch.Tensor, sub: Subgroup, dim: int = 0) -> torch.Tensor:
+    """The members' ``t`` concatenated along ``dim`` in index order (every
+    member passes the same shape), on ``t``'s device.  Differentiable: the
+    gradient is :func:`reduce_scatter_over` of the incoming one."""
+    if sub.size == 1:
+        return t
+    return _GatherOver.apply(t, sub, dim) if _grad(t) else _gather(t, sub, dim)
+
+
+def reduce_scatter_over(t: torch.Tensor, sub: Subgroup, dim: int = 0) -> torch.Tensor:
+    """Block ``sub.index`` of ``t`` along ``dim`` summed over the members.
+    Differentiable: the gradient is :func:`gather_over`."""
+    if sub.size == 1:
+        return t
+    return _ReduceScatterOver.apply(t, sub, dim) if _grad(t) else _reduce_scatter(t, sub, dim)
+
+
+def sum_over(t: torch.Tensor, sub: Subgroup) -> torch.Tensor:
+    """Sum of the members' ``t``, the same bits on every member.
+    Differentiable with the identity as backward (the row-parallel output's
+    join, the vocabulary-parallel loss's partial sums)."""
+    if sub.size == 1:
+        return t
+    return _SumOver.apply(t, sub) if _grad(t) else _sum(t, sub)
+
+
+def copy_to(t: torch.Tensor, sub: Subgroup) -> torch.Tensor:
+    """``t`` itself; its gradient is summed over the members (see
+    :class:`_CopyTo`)."""
+    if sub.size == 1 or not _grad(t):
+        return t
+    return _CopyTo.apply(t, sub)
+
+
+def max_over(t: torch.Tensor, sub: Subgroup) -> torch.Tensor:
+    """Elementwise maximum of the members' ``t`` (exact in any order; no
+    gradient)."""
+    if sub.size == 1:
+        return t
+    if _mk.TRACE is not None:
+        _mk.TRACE.collective("max_over", t, peers=sub.ranks, reduce_op="max",
+                             site="core.comm.max_over")
+        return t.detach().clone()
+    dist = _dist()
+    w = _wire(t).clone()
+    dist.all_reduce(w, op=dist.ReduceOp.MAX, group=sub.handle)
+    return w.to(t.device)
+
+
+def gather_to_first(items) -> list:
+    """For each ``(t, sub)`` of ``items``, the members' ``t`` in index order
+    on rank 0 (the checkpoint's writer), None elsewhere: only a subgroup
+    that holds rank 0, at its index 0, communicates; its other members
+    send it their ``t``.  Every message of every item is posted at once
+    (point-to-point, item ``i`` under tag ``_TAG_GATHER + i``), so that the
+    transfers overlap; host tensors under staging."""
+    out, ops = [], []
+    dist = _dist() if _mk.TRACE is None else None
+    for i, (t, sub) in enumerate(items):
+        if 0 not in sub.ranks:
+            out.append(None)
+            continue
+        if sub.ranks[0] != 0:
+            raise ValueError(f"gather_to_first: rank 0 must come first in {sub.ranks}")
+        if _mk.TRACE is not None:
+            _mk.TRACE.collective("gather_to_first", t, peers=sub.ranks,
+                                 site="core.comm.gather_to_first")
+            out.append([t.clone() for _ in sub.ranks] if rank() == 0 else None)
+            continue
+        if rank() != 0:
+            ops.append(dist.P2POp(dist.isend, _wire(t), 0, tag=_TAG_GATHER + i))
+            out.append(None)
+            continue
+        parts = [t] + [_buffer(t) for _ in sub.ranks[1:]]
+        ops += [dist.P2POp(dist.irecv, buf, peer, tag=_TAG_GATHER + i)
+                for buf, peer in zip(parts[1:], sub.ranks[1:])]
+        out.append(parts)
+    for work in dist.batch_isend_irecv(ops) if ops else ():
+        work.wait()
+    return out
+
+
+def init_from_env(backend: str) -> bool:
+    """Join the group that ``torchrun`` describes (``WORLD_SIZE`` above 1 in
+    the environment, ``MASTER_ADDR``/``MASTER_PORT``, ``RANK``) with the
+    caller's ``backend``, unless a group exists already (the caller's).
+    Returns True when this call made the group (:func:`destroy` ends it)."""
+    if initialized() or int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return False
+    _dist().init_process_group(backend)
+    return True
+
+
+def destroy() -> None:
+    """End the default group (a no-op without one)."""
+    if initialized():
+        _dist().destroy_process_group()
+
+
 def barrier() -> None:
     """Wait for every process of the default group (a no-op without one)."""
     if _mk.TRACE is not None:
@@ -253,5 +542,7 @@ def exchange_through_store(key: str, payload: bytes, timeout: float) -> list:
     return out
 
 
-__all__ = ["all_gather", "all_reduce", "backend", "barrier", "exchange_through_store",
-           "initialized", "rank", "sendrecv", "shift", "world_size"]
+__all__ = ["Subgroup", "all_gather", "all_reduce", "backend", "barrier", "copy_to", "destroy",
+           "exchange_through_store", "gather_over", "gather_to_first", "init_from_env",
+           "initialized", "max_over", "new_groups", "rank", "reduce_scatter_over", "sendrecv",
+           "shift", "sum_over", "world_size"]

@@ -14,6 +14,10 @@ one, -100 at the last position.  The numbers are not JAX's: PyTorch's
 generators cannot repeat the threefry stream of ``jax.random.fold_in``, so
 the same (seed, step) gives other tokens in the two packages.  Tests that
 hold the port against the reference feed both the reference's batches.
+
+Under sharding rules every process draws the global batch of a step and
+keeps its rows (:func:`local_rows`): those of its coordinate along the
+batch's mesh axes, as the reference's ``batch`` axis splits them.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import dataclasses
 import torch
 
 from .._device import resolve_device
+from ..distributed import sharding
 
 _MASK64 = (1 << 64) - 1
 
@@ -81,8 +86,24 @@ def batch_specs(cfg, batch: int, seq: int) -> dict:
     return {"tokens": spec, "labels": spec.clone()}
 
 
+def local_rows(batch: dict) -> dict:
+    """This process's rows of a global batch under the installed sharding
+    rules (without rules the batch itself): the block of the leading axis
+    that the ``batch`` rule gives its mesh coordinates."""
+    rules = sharding.current()
+    if rules is None:
+        return batch
+    out = {}
+    for k, v in batch.items():
+        sp = rules.spec("batch", *([None] * (v.ndim - 1)), shape=tuple(v.shape))
+        n = v.shape[0] // sharding.entry_size(rules.mesh, sp[0])
+        i = rules.mesh.index(sp[0])
+        out[k] = v[i * n:(i + 1) * n]
+    return out
+
+
 def batch_logical_axes(cfg) -> dict:
-    """The logical axes of a batch's arrays (the reference's names; the port
-    runs on one card and shards nothing)."""
+    """The logical axes of a batch's arrays (the reference's names):
+    ``batch`` splits the rows over the data axes (:func:`local_rows`)."""
     batch_specs(cfg, 1, 1)
     return {"tokens": ("batch", None), "labels": ("batch", None)}

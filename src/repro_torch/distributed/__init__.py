@@ -1,11 +1,11 @@
-"""Distribution layer: the ``shard_map`` collectives of the JAX package's
-``distributed/`` over the processes of a ``torch.distributed`` group
-(halo sequence parallelism, ring attention, the flash-decoding combine,
-context parallelism, GPipe pipelining).  The reference's mesh axis is the
-default group (:mod:`.axis`); all traffic goes through
-:mod:`repro_torch.core.comm`.  The GSPMD sharding rules (``sharding.py``)
-are not ported yet."""
+"""Distribution layer: the JAX package's ``distributed/`` over the processes
+of a ``torch.distributed`` group.  The ``shard_map`` collectives (halo
+sequence parallelism, ring attention, the flash-decoding combine, context
+parallelism, GPipe pipelining) take the default group as the reference's
+mesh axis (:mod:`.axis`); the GSPMD sharding rules (:mod:`.sharding`) map
+logical axes onto a process mesh (``repro_torch.launch.mesh``) for sharded
+training.  All traffic goes through :mod:`repro_torch.core.comm`."""
 
-from . import axis, context_parallel, pipeline, ring, seqpar
+from . import axis, context_parallel, pipeline, ring, seqpar, sharding
 
-__all__ = ["axis", "context_parallel", "pipeline", "ring", "seqpar"]
+__all__ = ["axis", "context_parallel", "pipeline", "ring", "seqpar", "sharding"]

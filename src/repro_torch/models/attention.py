@@ -18,6 +18,16 @@ group: a window layer runs :func:`repro_torch.distributed.seqpar.
 seq_sliding_window_attention` (K6 over a kv halo), a global layer
 :func:`repro_torch.distributed.ring.ring_attention`.
 
+Under installed sharding rules (:mod:`repro_torch.distributed.sharding`;
+train mode, ``transformer.fwd`` raises on the others) the layer is tensor-parallel over the mesh axes of ``heads``,
+as Megatron-LM splits it: the weights arrive with their ``fsdp``
+dimensions gathered (``transformer``), ``wq`` holding this process's
+``H / tp`` query heads and ``wo`` their rows; ``wk``/``wv`` are whole
+(``kv_heads`` is not sharded) and the process slices the kv heads its query
+heads use.  The input passes through ``comm.copy_to`` (its gradient is
+summed over the heads' processes) and ``wo``'s partial outputs through
+``comm.sum_over``.  K6 runs on the local heads, forward and backward.
+
 Cross-attention, non-causal layers and a soft cap on the kernel path
 raise: they come with the rest of the LM scaffolding (ROADMAP.md, Queue A
 item 6).
@@ -29,6 +39,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core import comm
+from ..distributed import sharding
 from ..distributed.ring import ring_attention
 from ..distributed.seqpar import seq_sliding_window_attention
 from ..kernels.swa import swa_attention
@@ -37,6 +49,9 @@ from .params import ParamSpec
 
 LATER = "ROADMAP.md, Queue A item 6"
 NEG_INF = -1e30
+# the layer's weights whose gradient a tensor-parallel process holds only in
+# part (its query heads' share): summed over the heads' processes
+TP_PARTIAL = ("wk.weight", "wv.weight", "q_norm", "k_norm")
 
 
 def specs(cfg, layer) -> dict:
@@ -82,6 +97,40 @@ class Attention(nn.Module):
             for name in ("q_norm", "k_norm"):
                 self.register_parameter(
                     name, nn.Parameter(torch.empty(Dh, device="meta"), requires_grad=False))
+
+
+def tp_group(cfg, layer, rules):
+    """The subgroup the layer's query heads are split over under ``rules``
+    (None: no rules, or one process).  The rules must split the heads over
+    all of the ``heads`` rule's axes (else the layer would run replicated
+    on them, which the gradient sums do not allow): otherwise, and where
+    a process's query heads do not map onto whole kv heads, it raises."""
+    if rules is None:
+        return None
+    mesh, sp = rules.mesh, specs(cfg, layer)["wq"]
+    axes = sharding.entry_axes(rules.spec(*sp.axes, shape=sp.shape)[1])
+    want = tuple(a for a in rules.axes_of("heads") if mesh.shape[a] > 1)
+    if set(want) - set(axes):
+        raise NotImplementedError(
+            f"{cfg.n_heads} query heads do not split over the mesh axes {want} "
+            f"({dict(mesh.shape)}): tensor parallelism needs heads divisible by them")
+    sub = mesh.group(axes)
+    if sub.size == 1:
+        return None
+    Hl, g = cfg.n_heads // sub.size, cfg.n_heads // cfg.n_kv
+    if Hl % g and g % Hl:
+        raise NotImplementedError(
+            f"{Hl} query heads a process do not map onto whole kv heads (group of {g})")
+    return sub
+
+
+def _local_kv(w, cfg, sub, Hl: int):
+    """The rows of a whole ``wk``/``wv`` weight ``(Hkv Dh, d)`` for the kv
+    heads that this process's query heads ``[i Hl, (i + 1) Hl)`` use."""
+    g, Dh = cfg.n_heads // cfg.n_kv, cfg.head_dim
+    q0 = sub.index * Hl
+    k0, k1 = q0 // g, (q0 + Hl - 1) // g + 1
+    return w[k0 * Dh:k1 * Dh]
 
 
 def _kv_quantize(kv):
@@ -139,9 +188,16 @@ def fwd(attn: Attention, cfg, layer, x, *, mode, positions, cache=None, cache_le
         raise ValueError(f"seq_axis (context parallelism) runs train mode only, got {mode!r}")
     B, T, _ = x.shape
     H, Hkv, Dh = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    tp = tp_group(cfg, layer, sharding.current())
+    wk, wv = attn.wk.weight, attn.wv.weight
+    if tp is not None:   # this process's query heads and the kv heads they use
+        x = comm.copy_to(x, tp)
+        H = H // tp.size
+        wk, wv = _local_kv(wk, cfg, tp, H), _local_kv(wv, cfg, tp, H)
+        Hkv = wk.shape[0] // Dh
     q = F.linear(x, attn.wq.weight).view(B, T, H, Dh)
-    k = F.linear(x, attn.wk.weight).view(B, T, Hkv, Dh)
-    v = F.linear(x, attn.wv.weight).view(B, T, Hkv, Dh)
+    k = F.linear(x, wk).view(B, T, Hkv, Dh)
+    v = F.linear(x, wv).view(B, T, Hkv, Dh)
     if cfg.qk_norm:  # no (1 + w) here, even under gemma_norm, as in the reference
         q = rms_norm(q, attn.q_norm, cfg.norm_eps)
         k = rms_norm(k, attn.k_norm, cfg.norm_eps)
@@ -217,6 +273,8 @@ def fwd(attn: Attention, cfg, layer, x, *, mode, positions, cache=None, cache_le
                 new_cache = {"k": ks, "v": vs}
 
     out = F.linear(out.reshape(B, T, H * Dh), attn.wo.weight)
+    if tp is not None:   # wo is row-parallel: the processes' partial outputs summed
+        out = comm.sum_over(out, tp)
     return out, new_cache
 
 

@@ -8,6 +8,15 @@ takes precedence over ``layer.ffn``, as in the reference) or a dense one
 (gated ``swiglu``/``geglu`` or a plain activation).  Cross-attention comes
 with the rest of the LM scaffolding (ROADMAP.md, Queue A item 6) and raises
 until then.
+
+Under installed sharding rules a dense FFN is tensor-parallel over the
+mesh axes of ``ffn`` (Megatron-LM's split): ``wi`` column-parallel (this
+process's ``d_ff / tp`` columns of the gate and of the up projection),
+``wo`` row-parallel, its partial outputs summed over those processes
+(``comm.sum_over``), its input through ``comm.copy_to``.  Mamba and MoE
+layers train under rules whose tensor-parallel axes have one process
+(``--tp 1``: ZeRO-3 over the data axis); more raises (ROADMAP.md, Queue A
+items 7 and 8).
 """
 
 from __future__ import annotations
@@ -16,6 +25,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core import comm
+from ..distributed import sharding
 from . import attention
 from . import moe as moe_mod
 from . import ssm as ssm_mod
@@ -23,6 +34,8 @@ from .layers import act_fn, glu, rms_norm
 from .params import ParamSpec
 
 LATER = "ROADMAP.md, Queue A item 6 (cross-attention)"
+TP_MAMBA = "ROADMAP.md, Queue A item 7 (tensor parallelism of Mamba layers)"
+TP_MOE = "ROADMAP.md, Queue A item 8 (tensor and expert parallelism of MoE layers)"
 GATED = ("swiglu", "geglu")
 
 
@@ -64,13 +77,48 @@ class FFN(nn.Module):
         self.wo = nn.Linear(f, d, **meta)
 
 
+def ffn_tp_group(cfg, rules):
+    """The subgroup a dense FFN's ``d_ff`` is split over under ``rules``
+    (None: no rules, or one process); raises where ``d_ff`` does not split
+    over every axis of the ``ffn`` rule."""
+    if rules is None:
+        return None
+    mesh, sp = rules.mesh, ffn_specs(cfg)["wi"]
+    axes = sharding.entry_axes(rules.spec(*sp.axes, shape=sp.shape)[-1])
+    want = tuple(a for a in rules.axes_of("ffn") if mesh.shape[a] > 1)
+    if set(want) - set(axes):
+        raise NotImplementedError(f"d_ff {cfg.d_ff} does not split over the mesh axes {want} "
+                                  f"({dict(mesh.shape)})")
+    sub = mesh.group(axes)
+    return None if sub.size == 1 else sub
+
+
 def ffn_fwd(ffn: FFN, cfg, x):
+    tp = ffn_tp_group(cfg, sharding.current())
+    if tp is not None:
+        x = comm.copy_to(x, tp)
     h = F.linear(x, ffn.wi.weight)
     if cfg.act in GATED:
-        h = glu(h.unflatten(-1, (2, cfg.d_ff)), cfg.act)
+        h = glu(h.unflatten(-1, (2, -1)), cfg.act)
     else:
         h = act_fn(cfg.act)(h)
-    return F.linear(h, ffn.wo.weight)
+    out = F.linear(h, ffn.wo.weight)
+    return out if tp is None else comm.sum_over(out, tp)
+
+
+def check_sharded(cfg, layer, rules) -> None:
+    """Raise on what the port does not shard yet: a Mamba layer or an MoE
+    FFN under rules whose tensor-parallel axes hold more than one process."""
+    if rules is None:
+        return
+    mesh = rules.mesh
+    for what, name, on, later in (("a Mamba layer", "ffn", layer.mixer == "mamba", TP_MAMBA),
+                                  ("an MoE layer", "experts", bool(layer.moe), TP_MOE)):
+        tp = [a for a in rules.axes_of(name) if mesh.shape[a] > 1]
+        if on and tp:
+            raise NotImplementedError(f"{what} with its {name!r} axes {tp} over "
+                                      f"{[mesh.shape[a] for a in tp]} processes (tp > 1): not in "
+                                      f"the port yet ({later}); train it with --tp 1")
 
 
 def layer_specs(cfg, layer) -> dict:

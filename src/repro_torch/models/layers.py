@@ -10,6 +10,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..core import comm
+from ..distributed import sharding
+
 
 def rms_norm(x, w, eps: float = 1e-6, *, scale_plus_one: bool = False):
     """RMS norm over the last axis, in float32 inside, cast back to x's type."""
@@ -60,19 +63,35 @@ def softcap(x, cap: float):
     return torch.tanh(x / cap) * cap
 
 
-def _chunk_xent(hb, w_out, lb, logit_softcap: float, n_valid: int | None):
+def _chunk_xent(hb, w_out, lb, logit_softcap: float, n_valid: int | None, vocab=None):
     """Summed cross-entropy of one chunk of tokens, and the count of its
-    labels >= 0; the logits in float32, the vocab pad rows at -1e30."""
+    labels >= 0; the logits in float32, the vocab pad rows at -1e30.
+
+    ``vocab``: ``(subgroup, offset)`` where ``w_out`` holds the columns
+    ``[offset, offset + V_local)`` of a vocabulary sharded over the
+    subgroup: the log-sum-exp then comes from a max and a sum over it, the
+    label's logit from the process that holds it, and the padding is
+    masked by global index."""
     logits = (hb @ w_out).float()
     if logit_softcap:
         logits = softcap(logits, logit_softcap)
     V = logits.shape[-1]
-    if n_valid is not None and n_valid != V:   # mask the vocab padding
-        valid_v = torch.arange(V, device=logits.device) < n_valid
+    sub, off = vocab if vocab is not None else (None, 0)
+    if n_valid is not None and n_valid != V * (1 if sub is None else sub.size):
+        valid_v = torch.arange(off, off + V, device=logits.device) < n_valid
         logits = torch.where(valid_v, logits, logits.new_full((), -1e30))
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, lb.clamp_min(0).long()[..., None])[..., 0]
     valid = lb >= 0
+    if sub is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, lb.clamp_min(0).long()[..., None])[..., 0]
+    else:
+        m = comm.max_over(logits.detach().amax(dim=-1), sub)
+        se = comm.sum_over(torch.exp(logits - m[..., None]).sum(dim=-1), sub)
+        lse = m + torch.log(se)
+        lab = lb.clamp_min(0).long() - off
+        mine = (lab >= 0) & (lab < V)
+        picked = torch.gather(logits, -1, lab.clamp(0, V - 1)[..., None])[..., 0]
+        ll = comm.sum_over(torch.where(mine, picked, picked.new_zeros(())), sub)
     return torch.sum(torch.where(valid, lse - ll, lse.new_zeros(()))), valid.sum()
 
 
@@ -86,19 +105,38 @@ def cross_entropy_chunked(h, w_out, labels, *, chunk: int = 512, logit_softcap: 
     ``chunk`` does not divide T), and each chunk runs under
     ``torch.utils.checkpoint``, so the backward recomputes its logits:
     the (B, T, V) float32 logits are never held, which matters at 128-256 k
-    vocabularies."""
+    vocabularies.
+
+    Under installed sharding rules h and labels are this process's rows of
+    the batch and the logits are sharded by vocabulary, as the reference's
+    ``shd(logits, "batch", None, "vocab")`` asks: ``w_out`` holds this
+    process's columns, h enters through ``comm.copy_to`` (its gradient is
+    summed over the vocabulary's processes), and the value returned is
+    this process's share of the loss, the sum over its rows over the count
+    of valid labels of the whole batch: summed over the batch's processes
+    it is the global mean, and so are the gradients."""
     B, T, _ = h.shape
     chunk = min(chunk, T)
     if T % chunk:
         chunk = T   # the reference's fall-back for small shapes
+    rules = sharding.current()
+    vocab = None
+    vsub = sharding.group_of(rules, "vocab")
+    if vsub is not None:
+        sharding.shd(w_out, None, "vocab", shape=(w_out.shape[0], w_out.shape[1] * vsub.size))
+        vocab = (vsub, vsub.index * w_out.shape[1])
+        h = comm.copy_to(h, vsub)
     loss_sum = h.new_zeros((), dtype=torch.float32)
     n = torch.zeros((), dtype=torch.long, device=h.device)
     for c0 in range(0, T, chunk):
         hb, lb = h[:, c0:c0 + chunk], labels[:, c0:c0 + chunk]
         if torch.is_grad_enabled():
-            s, k = checkpoint(_chunk_xent, hb, w_out, lb, logit_softcap, n_valid,
+            s, k = checkpoint(_chunk_xent, hb, w_out, lb, logit_softcap, n_valid, vocab,
                               use_reentrant=False)
         else:
-            s, k = _chunk_xent(hb, w_out, lb, logit_softcap, n_valid)
+            s, k = _chunk_xent(hb, w_out, lb, logit_softcap, n_valid, vocab)
         loss_sum, n = loss_sum + s, n + k
+    batch = sharding.group_of(rules, "batch")
+    if batch is not None:
+        n = comm.sum_over(n, batch)
     return loss_sum / torch.clamp_min(n, 1)

@@ -25,6 +25,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core import comm
+from ..distributed import sharding
 from .layers import glu
 from .params import ParamSpec
 
@@ -121,12 +123,20 @@ def fwd(moe: MoE, cfg, x):
     logits = moe.router(x).float()  # (B, T, E)
     probs, gate, eid = route(logits, K)
 
-    # Switch aux loss: E * sum_e f_e * P_e (global statistics)
+    # Switch aux loss: E * sum_e f_e * P_e (global statistics: under sharding
+    # rules the counts and probabilities are summed over the batch's
+    # processes, each of which then holds the whole batch's aux loss)
     flat_eid = eid.reshape(-1)
     token_frac = torch.zeros(E, dtype=torch.float32, device=x.device).index_add_(
         0, flat_eid, torch.ones(flat_eid.shape, dtype=torch.float32, device=x.device))
-    token_frac = token_frac / (B * T * K)
-    prob_frac = probs.mean(dim=(0, 1))
+    batch = sharding.group_of(sharding.current(), "batch")
+    if batch is None:
+        token_frac = token_frac / (B * T * K)
+        prob_frac = probs.mean(dim=(0, 1))
+    else:
+        n = B * T * batch.size
+        token_frac = comm.sum_over(token_frac, batch) / (n * K)
+        prob_frac = comm.sum_over(probs.sum(dim=(0, 1)), batch) / n
     aux = E * torch.sum(token_frac * prob_frac)
 
     C = capacity(T, cfg)

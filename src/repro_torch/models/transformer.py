@@ -18,6 +18,16 @@ prefill and decode run under ``torch.inference_mode()``.  Training
 runs the same forward on them through ``torch.func.functional_call``, each
 layer under ``torch.utils.checkpoint`` as ``remat`` says
 (:data:`REMAT_POLICIES`).
+
+Under installed sharding rules (:mod:`repro_torch.distributed.sharding`;
+training only) the parameters are each process's blocks
+(``params.shard``) and the batch its rows: every layer's ``fsdp``
+dimensions are gathered just before it runs, inside its checkpoint, so
+that remat ``"full"`` gathers again in the backward rather than keeping
+the whole weights (ZeRO-3); the embedding is gathered once a step and
+split by vocabulary, each process looking up the ids in its range and a
+sum over the vocabulary's processes joining the rows; the same table is
+the tied head of the vocabulary-parallel loss.
 """
 
 from __future__ import annotations
@@ -31,7 +41,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts, noop_context_fn)
 
 from .._device import resolve_device
-from . import blocks
+from ..core import comm
+from ..distributed import sharding
+from . import attention, blocks
 from . import params as pm
 from .layers import cross_entropy_chunked, rms_norm
 from .params import ParamSpec, RefLeaf, stack_tree
@@ -138,7 +150,7 @@ def reference_layout(cfg) -> dict:
     how the port's tensor maps onto one repeat of the leaf
     (:class:`~repro_torch.models.params.RefLeaf`)."""
     specs = param_specs(cfg)
-    out = {name: RefLeaf((name,), None, specs[name].shape)
+    out = {name: RefLeaf((name,), None, specs[name].shape, axes=specs[name].axes)
            for name in ("embed", "final_norm", "head") if name in specs}
     base = 0
     for si, (pattern, repeat) in enumerate(cfg.stacks):
@@ -149,15 +161,20 @@ def reference_layout(cfg) -> dict:
                 for key, sub in leaf.items():
                     path = ("stacks", si, "layers", j, key)
                     if isinstance(sub, ParamSpec):   # ln1, ln2
-                        out[pre + key] = RefLeaf(path, r, sub.shape[1:])
+                        out[pre + key] = RefLeaf(path, r, sub.shape[1:], axes=sub.axes[1:])
                         continue
                     table = MIXER_LEAVES if key == "mixer" else ffn_table
                     for name, spec in sub.items():
                         target, n_in = table[name]
                         out[f"{pre}{key}.{target}"] = RefLeaf(path + (name,), r, spec.shape[1:],
-                                                              n_in)
+                                                              n_in, spec.axes[1:])
         base += repeat * len(pattern)
     return out
+
+
+SERVE_SHARDED = "ROADMAP.md, Queue A item 9 (serving under sharding rules)"
+# reference_layout, made once per config (the sharded paths read it every step)
+layout_of = functools.lru_cache(maxsize=None)(reference_layout)
 
 
 def init_params(cfg, generator: torch.Generator, dtype=torch.float32, device=None) -> dict:
@@ -234,11 +251,24 @@ class Model(nn.Module):
         return fwd(self, tokens, mode=mode, caches=caches, use_kernel=use_kernel)
 
 
-def embed_tokens(model: Model, cfg, tokens):
+def embed_tokens(model: Model, cfg, tokens, table=None):
     """The token embeddings; ``F.embedding``, whose backward sums the rows
     of repeated tokens in a fixed order (an index's ``index_put_`` does
-    not on the CPU), so that a training step is deterministic."""
-    x = F.embedding(tokens, model.embed)
+    not on the CPU), so that a training step is deterministic.  ``table``:
+    the embedding to use (default ``model.embed``); under sharding rules
+    it holds this process's rows of a vocabulary split over the
+    ``vocab`` axes: a process looks up the ids in its range (zeros
+    elsewhere) and a sum over those processes joins the rows."""
+    table = model.embed if table is None else table
+    vocab = sharding.group_of(sharding.current(), "vocab")
+    if vocab is None:
+        x = F.embedding(tokens, table)
+    else:
+        V = table.shape[0]
+        ids = tokens - vocab.index * V
+        mine = (ids >= 0) & (ids < V)
+        x = F.embedding(ids.clamp(0, V - 1), table)
+        x = comm.sum_over(torch.where(mine[..., None], x, x.new_zeros(())), vocab)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
     return x
@@ -260,8 +290,50 @@ def _checkpointed(block, cfg, layer, x, positions, seq_axis, use_kernel: str, co
     return checkpoint(run, x, *vals, use_reentrant=False, context_fn=context_fn)
 
 
+def _sharded(block, cfg, layer, index: int, x, positions, use_kernel: str, context_fn, rules):
+    """One train-mode layer under sharding rules: its parameters (this
+    process's blocks) go in as the inputs of the (checkpointed) function,
+    which gathers their ``fsdp`` dimensions before the layer runs, so that
+    the recomputation in the backward gathers again.  The kv projections
+    and the qk norms take ``partial_over`` the heads' axes (see
+    ``params.fsdp_gather``)."""
+    layout = layout_of(cfg)
+    names, vals = zip(*block.named_parameters())
+    leaves = [layout[f"layers.{index}.{n}"] for n in names]
+    heads = tuple(a for a in rules.axes_of("heads") if rules.mesh.shape[a] > 1)
+    partial = [heads if layer.mixer != "mamba" and n.startswith("mixer.")
+               and n[len("mixer."):] in attention.TP_PARTIAL else () for n in names]
+
+    def run(x, *vals):
+        # the rules again: the backward's recomputation may run on another
+        # thread (autograd's device threads), where the installed ones are not
+        with sharding.axis_rules(rules):
+            full = [pm.fsdp_gather(v, leaf, rules, p) for v, leaf, p in zip(vals, leaves, partial)]
+            return torch.func.functional_call(
+                block, dict(zip(names, full)), (x,),
+                dict(cfg=cfg, layer=layer, positions=positions, use_kernel=use_kernel))
+
+    if context_fn is None:
+        return run(x, *vals)
+    return checkpoint(run, x, *vals, use_reentrant=False, context_fn=context_fn)
+
+
+def check_sharded(cfg, rules) -> None:
+    """Raise before any collective, alike on every process, where ``rules``
+    shard a layer the port cannot shard yet (``blocks.check_sharded``)."""
+    if rules is not None:
+        for layer in cfg.layers_flat:
+            blocks.check_sharded(cfg, layer, rules)
+
+
+def embed_table(model, cfg):
+    """The embedding a step uses: ``model.embed``, with its ``fsdp``
+    dimension gathered under sharding rules (its vocabulary stays split)."""
+    return pm.fsdp_gather(model.embed, layout_of(cfg)["embed"], sharding.current())
+
+
 def fwd(model: Model, inputs, *, mode, positions=None, caches=None, cache_len=None,
-        seq_axis=None, use_kernel: str = "auto", remat: str = "full"):
+        seq_axis=None, use_kernel: str = "auto", remat: str = "full", table=None):
     """Backbone forward.
 
     inputs: int tokens (B, T) if cfg.vocab else embeddings (B, T, d).
@@ -274,12 +346,22 @@ def fwd(model: Model, inputs, *, mode, positions=None, caches=None, cache_len=No
     :mod:`repro_torch.distributed.context_parallel`).  remat: a key of
     :data:`REMAT_POLICIES`;
     it applies to train mode with grad mode on and parameters that require
-    grad (training), each layer checkpointed alone.  Returns (hidden
-    (B, T, d), new_caches, aux)."""
+    grad (training), each layer checkpointed alone.  table: the embedding
+    (default :func:`embed_table`).  Under sharding rules (train mode) each
+    layer runs through :func:`_sharded`.  Returns (hidden (B, T, d),
+    new_caches, aux)."""
     if remat not in REMAT_POLICIES:
         raise ValueError(f"remat={remat!r}; pick from {tuple(REMAT_POLICIES)}")
     cfg = model.cfg
-    x = embed_tokens(model, cfg, inputs) if cfg.vocab else inputs
+    rules = sharding.current()
+    if rules is not None and (mode != "train" or seq_axis is not None):
+        raise NotImplementedError(f"{mode} mode{' with seq_axis' if seq_axis else ''} under "
+                                  f"sharding rules: not in the port yet "
+                                  f"({SERVE_SHARDED})")
+    check_sharded(cfg, rules)
+    if cfg.vocab and table is None:
+        table = embed_table(model, cfg) if rules is not None else model.embed
+    x = embed_tokens(model, cfg, inputs, table) if cfg.vocab else inputs
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
     new_caches = [] if (caches is not None or mode == "prefill") else None
@@ -288,7 +370,10 @@ def fwd(model: Model, inputs, *, mode, positions=None, caches=None, cache_len=No
                 and any(p.requires_grad for p in model.parameters()))
     context_fn = REMAT_POLICIES[remat] if training else None
     for i, (layer, block) in enumerate(zip(cfg.layers_flat, model.layers)):
-        if context_fn is not None:
+        if rules is not None:
+            x, a = _sharded(block, cfg, layer, i, x, positions, use_kernel, context_fn, rules)
+            c = None
+        elif context_fn is not None:
             x, a = _checkpointed(block, cfg, layer, x, positions, seq_axis, use_kernel,
                                  context_fn)
             c = None
@@ -347,9 +432,17 @@ class _Trainable(nn.Module):
     def forward(self, batch, *, remat, aux_weight, loss_chunk, use_kernel):
         cfg = self.cfg
         encode_cross_states(self, cfg, batch, remat=remat)
+        rules = sharding.current()
+        check_sharded(cfg, rules)
+        sharding.shd(batch["tokens"], "batch", None)
+        table = embed_table(self, cfg) if cfg.vocab else None
         h, _, aux = fwd(self, batch["tokens"], mode="train", remat=remat,
-                        use_kernel=use_kernel)
-        loss = cross_entropy_chunked(h, lm_head_matrix(self), batch["labels"], chunk=loss_chunk,
+                        use_kernel=use_kernel, table=table)
+        if cfg.tie_embeddings:
+            w_out = table.T
+        else:
+            w_out = pm.fsdp_gather(self.head, layout_of(cfg)["head"], rules)
+        loss = cross_entropy_chunked(h, w_out, batch["labels"], chunk=loss_chunk,
                                      logit_softcap=cfg.logit_softcap, n_valid=cfg.vocab)
         return loss + aux_weight * aux, {"xent": loss, "aux": aux}
 
@@ -365,7 +458,10 @@ def loss_fn(params: dict, cfg, batch: dict, *, remat: str = "full", aux_weight: 
     parameter of ``Model(cfg)``, e.g. from :func:`init_params`; those that
     require grad get gradients) on ``batch`` = {"tokens" (B, T), "labels"
     (B, T), -100 ignored}.  Returns ``(xent + aux_weight * aux, {"xent",
-    "aux"})``, ``aux`` the MoE load-balance loss summed over the layers."""
+    "aux"})``, ``aux`` the MoE load-balance loss summed over the layers.
+    Under sharding rules ``params`` are this process's blocks, ``batch``
+    its rows, and ``xent`` its share of the loss (see
+    ``layers.cross_entropy_chunked``); ``aux`` is the whole batch's."""
     return torch.func.functional_call(
         _trainable(cfg), params, (batch,),
         dict(remat=remat, aux_weight=aux_weight, loss_chunk=loss_chunk, use_kernel=use_kernel),

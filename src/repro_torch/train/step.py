@@ -7,6 +7,17 @@ a step makes gradient-requiring aliases of them, takes the loss through
 returns new tensors from :func:`repro_torch.optim.update`.  With
 ``grad_accum > 1`` the microbatches run in turn, their gradients summed in
 float32 and averaged, so activation memory scales with the microbatch.
+
+Under installed sharding rules (the reference's ``with axis_rules(rules)``
+around the step) the parameters and the optimizer state are this
+process's blocks (``models.params.shard``) and the step takes the global
+batch and keeps its rows (``data.local_rows``); ``grad_accum`` splits
+those rows.  A leaf sharded by ``fsdp`` gets its gradient out of the
+backward's reduce-scatter already summed over those axes; every leaf is
+then summed over the batch axes its reduce-scatter did not cover (a
+replicated leaf, a norm: all of them; ``params.grad_sum_axes``), so that
+each process holds the gradient of the global loss for its block.  The
+loss and ``xent`` reported are the global batch's.
 """
 
 from __future__ import annotations
@@ -16,6 +27,10 @@ import dataclasses
 import torch
 
 from .. import optim
+from ..core import comm
+from ..data import local_rows
+from ..distributed import sharding
+from ..models import params as pm
 from ..models import transformer as tf
 from ..optim import schedule as sched
 
@@ -50,7 +65,42 @@ def value_and_grad(params: dict, cfg, tcfg: TrainCfg, batch: dict):
     grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
     grads = {k: torch.zeros_like(p) if g is None else g
              for (k, p), g in zip(leaves.items(), grads)}
-    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    rules = sharding.current()
+    if rules is None:
+        return loss.detach(), metrics, grads
+    # the gradients of the global loss, the reported loss the global batch's
+    layout = tf.layout_of(cfg)
+    for k, g in grads.items():
+        axes = pm.grad_sum_axes(layout[k], rules)
+        if axes:
+            grads[k] = comm.sum_over(g, rules.mesh.group(axes))
+    batch = sharding.group_of(rules, "batch")
+    if batch is not None:
+        metrics["xent"] = comm.sum_over(metrics["xent"], batch)
+    return metrics["xent"] + tcfg.aux_weight * metrics["aux"], metrics, grads
+
+
+def state_shardings(cfg, ocfg: optim.AdamWCfg, rules) -> dict:
+    """Where each leaf of a training state ``{"params", "opt"}`` sits on
+    the mesh of ``rules``: a ``models.params.Placement`` per parameter (its
+    reference leaf's spec, read through the port's layout) and per moment
+    (``optim.state_shardings``'s spec, in the reference leaf's layout),
+    None for the step counter (the same on every process).  What
+    ``ckpt.save``/``ckpt.restore`` take as ``shardings``."""
+    layout = tf.layout_of(cfg)
+    specs = optim.state_shardings(layout, ocfg, rules)
+
+    def moment(sp):
+        if isinstance(sp, dict):
+            return {k: pm.Placement(v, rules) for k, v in sp.items()}
+        return pm.Placement(sp, rules)
+
+    return {"params": {n: pm.Placement(pm.spec(leaf, rules), rules, leaf)
+                       for n, leaf in layout.items()},
+            "opt": {"m": {n: moment(sp) for n, sp in specs["m"].items()},
+                    "v": {n: moment(sp) for n, sp in specs["v"].items()},
+                    "step": None}}
 
 
 def make_train_step(cfg, tcfg: TrainCfg):
@@ -61,6 +111,7 @@ def make_train_step(cfg, tcfg: TrainCfg):
     layout = tf.reference_layout(cfg)
 
     def train_step(params, opt_state, batch):
+        batch = local_rows(batch)
         if tcfg.grad_accum == 1:
             loss, metrics, grads = value_and_grad(params, cfg, tcfg, batch)
         else:

@@ -17,7 +17,8 @@ The port's twin of the JAX package's ``train/trainer.py``:
   consecutive bad steps abort.
 
 A step reads the host once, for the loss, which also ends its host-clock
-time (``step_s``).
+time (``step_s``).  A sharded run (``shardings``: ``train.state_shardings``
+of its mesh) saves the global leaves and restores its blocks.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import time
 import torch
 
 from .. import ckpt as ckpt_mod
+from ..core import comm
 
 
 def _map(fn, tree, like=None):
@@ -50,6 +52,7 @@ class Trainer:
     data: object               # SyntheticLMData-like with .batch_at(step)
     ckpt_dir: str | None = None
     ckpt_every: int = 200
+    shardings: object = None   # train.state_shardings of a sharded run
     log_every: int = 10
     straggler_factor: float = 2.0
     max_bad_steps: int = 10
@@ -67,7 +70,8 @@ class Trainer:
             last = ckpt_mod.latest_step(self.ckpt_dir)
             if last is not None:
                 like = {"params": params, "opt": opt_state}
-                state = ckpt_mod.restore(_savable(like), last, self.ckpt_dir)
+                state = ckpt_mod.restore(_savable(like), last, self.ckpt_dir,
+                                         shardings=self.shardings)
                 state = _map(lambda t, ref: t.to(ref.dtype), state, like)
                 params, opt_state = state["params"], state["opt"]
                 step0 = last
@@ -77,8 +81,8 @@ class Trainer:
     def _save(self, params, opt_state, step: int, asynchronous: bool):
         state = _savable({"params": params, "opt": opt_state})
         if asynchronous:
-            return ckpt_mod.async_save(state, step, self.ckpt_dir)
-        return ckpt_mod.save(state, step, self.ckpt_dir)
+            return ckpt_mod.async_save(state, step, self.ckpt_dir, shardings=self.shardings)
+        return ckpt_mod.save(state, step, self.ckpt_dir, shardings=self.shardings)
 
     def run(self, params, opt_state, n_steps: int, *, step0: int = 0):
         """Runs steps ``step0 .. step0 + n_steps - 1``.  Returns (params,
@@ -98,14 +102,18 @@ class Trainer:
             if step > step0:
                 if self._ewma is None:
                     self._ewma = dt
-                if dt > self.straggler_factor * self._ewma and step > step0 + 2:
+                flagged = dt > self.straggler_factor * self._ewma and step > step0 + 2
+                if flagged:
                     self.straggler_events += 1
                     print(f"[watchdog] step {step} took {dt:.3f}s "
                           f"(EWMA {self._ewma:.3f}s) — straggler flagged")
-                    if self.ckpt_dir:
-                        pending = self._save(params, opt_state, step, True)
                 else:
                     self._ewma = 0.9 * self._ewma + 0.1 * dt
+                if self.ckpt_dir and comm.world_size() > 1:
+                    # a save is collective: every process saves if any flagged
+                    flagged = bool(comm.all_reduce(torch.tensor(float(flagged)), "max"))
+                if flagged and self.ckpt_dir:
+                    pending = self._save(params, opt_state, step, True)
 
             # NaN guard: skip the update
             if not math.isfinite(loss):

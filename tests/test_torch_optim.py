@@ -283,10 +283,14 @@ def test_unknown_moments_raise():
         optim.init({"w": torch.zeros(3)}, optim.AdamWCfg(moments="float16"))
 
 
-def test_launcher_runs_on_the_cpu_and_refuses_sharding(capsys):
+def test_launcher_runs_on_the_cpu_and_refuses_sharding(capsys, tmp_path):
     """``python -m repro_torch.launch.train --arch llama3.2-1b --scale 0.05
     --steps 3 --device cpu`` runs (its ``main``, in this process); ``--dp 2``
-    raises."""
+    in one process raises (no fall-back to one process), and over 2 gloo
+    processes ``--dp 2 --tp 1`` trains, every process with the same losses
+    as the one-process run's first steps within float32's summation
+    order."""
+    from _dist import spawn
     from repro_torch.launch import train as launch
 
     hist = launch.main(["--arch", "llama3.2-1b", "--scale", "0.05", "--steps", "3",
@@ -294,5 +298,11 @@ def test_launcher_runs_on_the_cpu_and_refuses_sharding(capsys):
     out = capsys.readouterr().out
     assert "[launch] llama3.2-1b @ scale 0.05: 0.8M params, 1 layers" in out
     assert "over 3 steps" in out and len(hist) == 3 and np.isfinite(hist).all()
-    with pytest.raises(NotImplementedError, match="dp"):
+    with pytest.raises(ValueError, match="dp 2"):
         launch.main(["--dp", "2", "--device", "cpu"])
+    got = spawn(2, "_torch_sharded:launcher", tmp_path,
+                ["--arch", "llama3.2-1b", "--scale", "0.05", "--steps", "3", "--dp", "2",
+                 "--tp", "1", "--device", "cpu"], timeout=180)
+    assert [g["rank"] for g in got] == [0, 1]
+    for g in got:
+        np.testing.assert_allclose(g["hist"], hist, rtol=2e-4)

@@ -2,7 +2,8 @@
 the CPU at its quick model (~25M parameters) for a few steps: the
 reference example's printed lines (the model line, the loss line against
 the uniform floor, the straggler line) and ``OK``, the loss falling, a
-second run resuming from the first's checkpoint, and ``--dp`` refused."""
+second run resuming from the first's checkpoint, ``--dp`` refused in one
+process and ``--dp 2 --tp 1`` training over 2 gloo processes."""
 
 from __future__ import annotations
 
@@ -39,6 +40,21 @@ def test_train_lm_twin_prints_the_reference_lines_and_resumes(tmp_path, capsys):
     assert len(again["history"]) == 2
 
 
-def test_train_lm_twin_refuses_sharding():
-    with pytest.raises(NotImplementedError, match="dp"):
+def test_train_lm_twin_refuses_sharding(tmp_path):
+    """``--dp 2`` in one process raises (nothing falls back to one
+    process); over 2 gloo processes ``--dp 2 --tp 1`` trains, both with the
+    same falling losses."""
+    with pytest.raises(ValueError, match="dp"):
         torch_train_lm.main(["--device", "cpu", "--dp", "2"])
+    from _dist import spawn
+
+    got = spawn(2, "test_torch_train_example:_twin", tmp_path, str(tmp_path / "ckpt"),
+                timeout=180)
+    assert got[0] == got[1] and len(got[0]) == 2 and got[0][-1] < got[0][0]
+
+
+def _twin(rank, world, ckpt):
+    """One process of the 2-process run: the twin's losses."""
+    out = torch_train_lm.main(["--device", "cpu", "--steps", "2", "--dp", "2", "--tp", "1",
+                               "--ckpt-dir", ckpt])
+    return out["history"]
