@@ -3866,13 +3866,14 @@ def cp_kernel_checks(kswa, kssd, dev) -> dict:
     return out
 
 
-def context_parallel_phase(card: str, kswa, kssd, dev) -> dict:
+def context_parallel_phase(card: str, kswa, kssd, dev, before_spawn=None) -> dict:
     """Phase 45 (context_parallel): K6 and K7 at this path's shapes against
     their plain versions; mamba2-1.3b whole and gemma3-4b cut to 6 layers,
     float32, B 1, T 8192, run whole in this process (the one-process
     reference, its hidden state saved for the children; timed), then in
     CP_WORLD gloo processes sharing the card, one 2048-token shard each,
-    through ``context_parallel_fwd``/``context_parallel_logits``: the hidden
+    through ``context_parallel_fwd``/``context_parallel_logits`` (started
+    after ``before_spawn()``, where given): the hidden
     state and the logits within CP_TOL normwise of one process, K6's and
     K7's launches per process (gemma3 5 + 1, mamba2 48) all kernel
     launches, the sharded forward timed against the one-process one;
@@ -3923,6 +3924,8 @@ def context_parallel_phase(card: str, kswa, kssd, dev) -> dict:
                         "layers": cfg.n_layers}
         del model, xs, params, seq
         torch.cuda.empty_cache()
+        if before_spawn is not None:
+            before_spawn()
         t0 = time.perf_counter()
         got = dist_spawn(CP_WORLD, "gloo", tuple(CP_CHECKS), tmp,
                          args={name: {"ref_dir": tmp} for name in CP_CHECKS})
@@ -3997,14 +4000,29 @@ def context_parallel_phase(card: str, kswa, kssd, dev) -> dict:
 SH_WORLD = 4                 # gloo processes sharing the card
 SH_BATCH, SH_SEQ = 4, 2048   # the global batch of every cell
 # cell: (config, layers kept, steps, (dp, tp)); full width, depth cut so that
-# four processes staging ZeRO-3's gathers through the host fit the phase's 90 s
-SH_MODELS = {"llama": ("llama3.2-1b", 4, 3, (2, 2)), "mamba": ("mamba2-1.3b", 4, 2, (4, 1))}
+# four processes staging ZeRO-3's gathers through the host fit the phase's
+# 130 s.  mamba2-1.3b runs under dp 4 and over dp 2 x tp 2 (its Mamba layers
+# tensor-parallel, slice 19), granite-moe-3b-a800m over dp 2 x tp 2 (its
+# experts split, 20 a process)
+SH_MODELS = {"llama": ("llama3.2-1b", 4, 3, (2, 2)), "mamba": ("mamba2-1.3b", 4, 2, (4, 1)),
+             "mamba_tp": ("mamba2-1.3b", 4, 2, (2, 2)),
+             "granite": ("granite-moe-3b-a800m", 4, 2, (2, 2))}
+# the one-process run a cell is held against, where it shares another's
+# (same config, batch and steps: run once)
+SH_ONE = {"mamba_tp": "mamba"}
 SH_ELASTIC = (2, (1, 4))     # llama: saved after 2 steps on (2, 2), step 3 on (1, 4)
 SH_TOL = {"loss": 2e-4, "grad_norm": 1e-4}   # relative, sharded against one process
 # K6 (B, H, Hkv, T, S, D, window) on a process's local heads, global causal:
-# tp 2 (dp 2, 2 rows) and tp 4 (the elastic step's mesh, 4 rows)
-SH_K6 = ((2, 16, 4, 2048, 2048, 64, 2048), (4, 8, 2, 2048, 2048, 64, 2048))
-SH_K7 = (1, 2048, 64, 64, 128, 1, 64)   # K7 on a process's row under dp 4 (Ba,T,H,P,N,G,L)
+# llama tp 2 (dp 2, 2 rows) and tp 4 (the elastic step's mesh, 4 rows),
+# granite tp 2 (12 query heads, the 4 kv heads they use); the first and the
+# last timed
+SH_K6 = ((2, 16, 4, 2048, 2048, 64, 2048), (4, 8, 2, 2048, 2048, 64, 2048),
+         (2, 12, 4, 2048, 2048, 64, 2048))
+# K7 (Ba, T, H, P, N, G, L): mamba2-1.3b on a process's row under dp 4, on
+# its local heads at tp 2 (dp 2, 2 rows) and at tp 4 (4 rows); the first
+# two timed
+SH_K7 = ((1, 2048, 64, 64, 128, 1, 64), (2, 2048, 32, 64, 128, 1, 64),
+         (4, 2048, 16, 64, 128, 1, 64))
 SH_COMPRESS = (1024, 2, 4096)   # one llama3.2-1b wi block under (2, 2): d/2 x 2 x d_ff/2
 SH_EF_ROUNDS = 4             # error-feedback rounds of the same gradient
 SH_RUNS = 2                  # timed compressed and plain all-reduces each, in turns
@@ -4220,18 +4238,20 @@ def sh_llama(ckpt_dir: str, go: str) -> dict:
             "build_s": build_s, "late_s": late_s}
 
 
-def sh_mamba() -> dict:
-    """One process of the group: mamba2-1.3b cut to 4 layers through the
-    launcher under dp 4 (its row of the batch), K7's launches counted."""
+def sh_cell(key: str) -> dict:
+    """One process of the group: the cell ``key`` through the launcher on
+    its mesh (mamba2-1.3b under dp 4: its row of the batch; over dp 2 x tp
+    2: its rows and its heads; granite: its rows and its experts), K6's and
+    K7's launches counted, the collectives metered around the steps."""
     from repro_torch.core import comm
     from repro_torch.launch import train as launch
 
-    run = launch.build(sh_argv("mamba", SH_MODELS["mamba"][3]))
+    run = launch.build(sh_argv(key, SH_MODELS[key][3]))
     comm.barrier()
     torch.cuda.reset_peak_memory_stats()
     start = sh_zero()
     with CommMeter() as meter:
-        steps = sh_steps(run, SH_MODELS["mamba"][2])
+        steps = sh_steps(run, SH_MODELS[key][2])
         metered = meter.take()
     torch.cuda.synchronize()
     out = {"steps": steps, "launches": sh_launches(start), "comm_steps": metered,
@@ -4281,22 +4301,26 @@ def sh_compress() -> dict:
             "wire_bytes": compress.wire_bytes(SH_COMPRESS, world)}
 
 
-SH_CHECKS = {"sh_llama": sh_llama, "sh_mamba": lambda: sh_mamba(),
+SH_CHECKS = {"sh_llama": sh_llama, "sh_mamba": lambda: sh_cell("mamba"),
+             "sh_mamba_tp": lambda: sh_cell("mamba_tp"), "sh_granite": lambda: sh_cell("granite"),
              "sh_compress": lambda: sh_compress()}
 
 
 def sh_kernel_checks(kswa, kssd, dev) -> dict:
     """K6's float32 forward (with its LSE) and backward at the local-head
-    shapes, and K7's forward and backward at a dp-4 process's row, against
-    their plain versions; the tp-2 K6 and the K7 shape timed in turns with
-    the plain versions (and SDPA for K6)."""
+    shapes, and K7's forward and backward at a dp-4 process's row and at
+    the tensor-parallel local heads, against their plain versions; the
+    tp-2 K6 shapes (llama, granite) and the first two K7 shapes timed in
+    turns with the plain versions (and SDPA for K6).  Returns the largest
+    errors and, per timed shape, its times and bound."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.ssd import ssd_intra_chunk_backward_ref, ssd_intra_chunk_ref
     from repro_torch.kernels.swa import swa_backward_ref, swa_lse_ref
 
     gen = torch.Generator(device=dev).manual_seed(37)
-    out = {"k6_max_abs": 0.0, "k6b_max_abs": 0.0}
+    out = {"k6_max_abs": 0.0, "k6b_max_abs": 0.0, "k7_max_abs": 0.0, "k7b_max_abs": 0.0,
+           "k6_time": {}, "k6b_time": {}, "k7_time": {}, "k7b_time": {}}
     for shape in SH_K6:
         B, H, Hkv, T, S, D, w = shape
         q, k, v = k6_inputs(shape, torch.float32, gen, dev)
@@ -4318,7 +4342,7 @@ def sh_kernel_checks(kswa, kssd, dev) -> dict:
                                  max(float((a - b).abs().max()) for a, b in zip(got, want)))
         say("sh_kernel", kernel="K6 f32 with LSE and its backward", shape="B,H,Hkv,T,S,D,W=" +
             ",".join(map(str, shape)), normwise=json.dumps(errs).replace(" ", ""), tol=K6B_TOL)
-        if shape == SH_K6[0]:
+        if shape in (SH_K6[0], SH_K6[-1]):
             runs = {"kernel": [], "plain": [], "library": [], "bwd": [], "bwd_plain": []}
             fns = {"kernel": lambda: kswa.swa_attention_cuda(q, k, v, window=w, return_lse=True),
                    "plain": lambda: swa_lse_ref(q, k, v, window=w),
@@ -4333,11 +4357,12 @@ def sh_kernel_checks(kswa, kssd, dev) -> dict:
                                               warm=1 if plain else 3))
             bound, bound_by, _ = k6_bound(shape, 4)
             bbound, bbound_by, _, _ = k6b_bound(shape)
-            out["k6_time"] = {"ms": min(runs["kernel"]), "plain_ms": min(runs["plain"]),
-                         "library_ms": min(runs["library"]), "bound_ms": bound,
-                         "bound_by": bound_by}
-            out["k6b_time"] = {"ms": min(runs["bwd"]), "plain_ms": min(runs["bwd_plain"]),
-                          "bound_ms": bbound, "bound_by": bbound_by}
+            name = ",".join(map(str, shape))
+            out["k6_time"][name] = {"ms": min(runs["kernel"]), "plain_ms": min(runs["plain"]),
+                                    "library_ms": min(runs["library"]), "bound_ms": bound,
+                                    "bound_by": bound_by}
+            out["k6b_time"][name] = {"ms": min(runs["bwd"]), "plain_ms": min(runs["bwd_plain"]),
+                                     "bound_ms": bbound, "bound_by": bbound_by}
             say("sh_kernel_time", kernel="K6 f32 with LSE / backward", shape="B,H,Hkv,T,S,D,W="
                 + ",".join(map(str, shape)), ms_runs=runs["kernel"],
                 plain_ms_runs=runs["plain"], sdpa_ms_runs=runs["library"],
@@ -4347,43 +4372,51 @@ def sh_kernel_checks(kswa, kssd, dev) -> dict:
                 backward_share_of_bound=bbound / min(runs["bwd"]))
         del q, k, v, do, o, lse, got, want, wo, wl
         torch.cuda.empty_cache()
-    L = SH_K7[-1]
-    x, dt, A, Bm, C, s, dy, dS = k7b_inputs(SH_K7, gen, dev)
-    b0 = kssd.ssd_intra_chunk_cuda.by_kernel["3xTF32"]
-    got = kssd.ssd_intra_chunk_cuda(x, dt, A, Bm, C, chunk=L)
-    gotb = kssd.ssd_backward_cuda(x, dt, s, Bm, C, dy, dS)
-    torch.cuda.synchronize()
-    if kssd.ssd_intra_chunk_cuda.by_kernel["3xTF32"] != b0 + 1:
-        fail("sharded_train: K7 at a dp-4 process's row did not run its 3xTF32 kernel")
-    want = ssd_intra_chunk_ref(x, dt, A, Bm, C, chunk=L)
-    wantb = ssd_intra_chunk_backward_ref(x, dt, s, Bm, C, dy, dS)
-    errs = {n: normwise(a, b)[0] for n, a, b in zip(("y_diag", "states", "s"), got, want)}
-    errb = {n: frobenius(a, b) for n, a, b in zip(K7B_NAMES, gotb, wantb)}
-    if any(errs[n] > K7_TOL["float32"][n] for n in errs) or max(errb.values()) > K7B_TOL:
-        fail(f"sharded_train: K7 at {SH_K7}: forward {errs}, backward {errb} normwise")
-    out["k7_max_abs"] = float((got[0] - want[0]).abs().max())
-    out["k7b_max_abs"] = max(float((a - b).abs().max()) for a, b in zip(gotb, wantb))
-    fns = {"fwd": lambda: kssd.ssd_intra_chunk_cuda(x, dt, A, Bm, C, chunk=L),
-           "fwd_plain": lambda: ssd_intra_chunk_ref(x, dt, A, Bm, C, chunk=L),
-           "bwd": lambda: kssd.ssd_backward_cuda(x, dt, s, Bm, C, dy, dS),
-           "bwd_plain": lambda: ssd_intra_chunk_backward_ref(x, dt, s, Bm, C, dy, dS)}
-    runs = {n: [] for n in fns}
-    for who in ("fwd", "fwd_plain", "bwd", "bwd_plain", "bwd_plain", "bwd", "fwd_plain", "fwd"):
-        plain = who.endswith("plain")
-        runs[who].append(cuda_time_ms(fns[who], reps=3 if plain else 10, warm=1 if plain else 3))
-    fbound, fbound_by, _ = k7_bound(SH_K7, 4)
-    bbound, bbound_by, _, _, _ = k7b_bound(SH_K7)
-    out["k7_time"] = {"ms": min(runs["fwd"]), "plain_ms": min(runs["fwd_plain"]),
-                 "bound_ms": fbound, "bound_by": fbound_by}
-    out["k7b_time"] = {"ms": min(runs["bwd"]), "plain_ms": min(runs["bwd_plain"]),
-                  "bound_ms": bbound, "bound_by": bbound_by}
-    say("sh_kernel", kernel="K7 f32 and its backward", shape="Ba,T,H,P,N,G,L=" +
-        ",".join(map(str, SH_K7)), forward_normwise=json.dumps(errs).replace(" ", ""),
-        backward_normwise=json.dumps(errb).replace(" ", ""), ms_runs=runs["fwd"],
-        plain_ms_runs=runs["fwd_plain"], backward_ms_runs=runs["bwd"],
-        backward_plain_ms_runs=runs["bwd_plain"], bound_ms=fbound, backward_bound_ms=bbound)
-    del x, dt, A, Bm, C, s, dy, dS, got, gotb, want, wantb
-    torch.cuda.empty_cache()
+    for shape in SH_K7:
+        L = shape[-1]
+        x, dt, A, Bm, C, s, dy, dS = k7b_inputs(shape, gen, dev)
+        b0 = kssd.ssd_intra_chunk_cuda.by_kernel["3xTF32"]
+        got = kssd.ssd_intra_chunk_cuda(x, dt, A, Bm, C, chunk=L)
+        gotb = kssd.ssd_backward_cuda(x, dt, s, Bm, C, dy, dS)
+        torch.cuda.synchronize()
+        if kssd.ssd_intra_chunk_cuda.by_kernel["3xTF32"] != b0 + 1:
+            fail(f"sharded_train: K7 at {shape} did not run its 3xTF32 kernel")
+        want = ssd_intra_chunk_ref(x, dt, A, Bm, C, chunk=L)
+        wantb = ssd_intra_chunk_backward_ref(x, dt, s, Bm, C, dy, dS)
+        errs = {n: normwise(a, b)[0] for n, a, b in zip(("y_diag", "states", "s"), got, want)}
+        errb = {n: frobenius(a, b) for n, a, b in zip(K7B_NAMES, gotb, wantb)}
+        if any(errs[n] > K7_TOL["float32"][n] for n in errs) or max(errb.values()) > K7B_TOL:
+            fail(f"sharded_train: K7 at {shape}: forward {errs}, backward {errb} normwise")
+        out["k7_max_abs"] = max(out["k7_max_abs"], float((got[0] - want[0]).abs().max()))
+        out["k7b_max_abs"] = max(out["k7b_max_abs"],
+                                 max(float((a - b).abs().max()) for a, b in zip(gotb, wantb)))
+        timed = {}
+        if shape in SH_K7[:2]:
+            fns = {"fwd": lambda: kssd.ssd_intra_chunk_cuda(x, dt, A, Bm, C, chunk=L),
+                   "fwd_plain": lambda: ssd_intra_chunk_ref(x, dt, A, Bm, C, chunk=L),
+                   "bwd": lambda: kssd.ssd_backward_cuda(x, dt, s, Bm, C, dy, dS),
+                   "bwd_plain": lambda: ssd_intra_chunk_backward_ref(x, dt, s, Bm, C, dy, dS)}
+            runs = {n: [] for n in fns}
+            for who in ("fwd", "fwd_plain", "bwd", "bwd_plain", "bwd_plain", "bwd", "fwd_plain",
+                        "fwd"):
+                plain = who.endswith("plain")
+                runs[who].append(cuda_time_ms(fns[who], reps=3 if plain else 10,
+                                              warm=1 if plain else 3))
+            fbound, fbound_by, _ = k7_bound(shape, 4)
+            bbound, bbound_by, _, _, _ = k7b_bound(shape)
+            name = ",".join(map(str, shape))
+            out["k7_time"][name] = {"ms": min(runs["fwd"]), "plain_ms": min(runs["fwd_plain"]),
+                                    "bound_ms": fbound, "bound_by": fbound_by}
+            out["k7b_time"][name] = {"ms": min(runs["bwd"]), "plain_ms": min(runs["bwd_plain"]),
+                                     "bound_ms": bbound, "bound_by": bbound_by}
+            timed = dict(ms_runs=runs["fwd"], plain_ms_runs=runs["fwd_plain"],
+                         backward_ms_runs=runs["bwd"], backward_plain_ms_runs=runs["bwd_plain"],
+                         bound_ms=fbound, backward_bound_ms=bbound)
+        say("sh_kernel", kernel="K7 f32 and its backward", shape="Ba,T,H,P,N,G,L=" +
+            ",".join(map(str, shape)), forward_normwise=json.dumps(errs).replace(" ", ""),
+            backward_normwise=json.dumps(errb).replace(" ", ""), **timed)
+        del x, dt, A, Bm, C, s, dy, dS, got, gotb, want, wantb
+        torch.cuda.empty_cache()
     return out
 
 
@@ -4406,23 +4439,52 @@ def sh_one_process(key: str) -> dict:
 
 
 def sh_entries(sh, swa, ssd, swa_bwd, ssd_bwd) -> None:
-    """Add the phase's launches and local-shape numbers to the kernels line."""
-    for entry, count, timed, err, shape in (
-            (swa, "k6", "k6_time", "k6_max_abs", SH_K6[0]),
-            (swa_bwd, "k6_backward", "k6b_time", "k6b_max_abs", SH_K6[0]),
-            (ssd, "k7", "k7_time", "k7_max_abs", SH_K7),
-            (ssd_bwd, "k7_backward", "k7b_time", "k7b_max_abs", SH_K7)):
+    """Add the phase's launches and local-shape numbers to the kernels line:
+    ``sharded_train_local`` the first timed shape (llama's tp-2 heads, a
+    dp-4 row of mamba2), ``sharded_train_tp`` the second (granite's tp-2
+    heads, mamba2's tp-2 heads)."""
+    for entry, count, timed, err in ((swa, "k6", "k6_time", "k6_max_abs"),
+                                     (swa_bwd, "k6_backward", "k6b_time", "k6b_max_abs"),
+                                     (ssd, "k7", "k7_time", "k7_max_abs"),
+                                     (ssd_bwd, "k7_backward", "k7b_time", "k7b_max_abs")):
         entry["launches_sharded_train"] = sh[count]
         entry["launches"] += sh[count]
-        entry["sharded_train_local"] = {"shape": ",".join(map(str, shape)), "dtype": "float32",
-                                        "max_abs_err": sh[err], **sh[timed]}
+        for key, (shape, numbers) in zip(("sharded_train_local", "sharded_train_tp"),
+                                         sh[timed].items()):
+            entry[key] = {"shape": shape, "dtype": "float32", "max_abs_err": sh[err], **numbers}
 
 
 def sh_rel(a, b) -> float:
     return abs(a - b) / abs(b)
 
 
-def sharded_train_phase(card: str, kswa, kssd, dev) -> dict:
+def sh_start() -> dict:
+    """Start the phase's SH_WORLD processes: they import, join their group
+    and warm up, then wait for the go file (``sh_wait``).  Returns what
+    :func:`sharded_train_phase` and :func:`sh_stop` take."""
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sh_")
+    go = f"{tmp}/go"
+    group = dist_start(SH_WORLD, "gloo", tuple(SH_CHECKS), tmp,
+                       args={"sh_llama": {"ckpt_dir": f"{tmp}/ckpt", "go": go}})
+    return {"tmp": tmp, "go": go, "group": group}
+
+
+def sh_stop(started: dict) -> None:
+    """End the processes of :func:`sh_start` still running (a check here
+    failed) and remove their directory."""
+    import shutil
+
+    for p in started["group"][0] if started.get("group") is not None else ():
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    started["group"] = None
+    shutil.rmtree(started["tmp"], ignore_errors=True)
+
+
+def sharded_train_phase(card: str, kswa, kssd, dev, started: dict | None = None) -> dict:
     """Phase 46 (sharded_train): ZeRO-3 with tensor parallelism over a
     ``(data, model)`` mesh of SH_WORLD gloo processes sharing the card.
     (a) K6 at the local-head shapes and K7 at a dp-4 row against their
@@ -4430,34 +4492,28 @@ def sharded_train_phase(card: str, kswa, kssd, dev) -> dict:
     launcher's TrainCfg, 4 x 2048) for 3 steps in this process and over
     dp 2 x tp 2, every step's loss within SH_TOL, the first grad norm too,
     and the elastic resume (saved after step 2 on (2, 2), step 3 on
-    (1, 4)); (c) mamba2-1.3b cut to 4 layers, 2 steps under dp 4 against
-    this process; (d) ``compressed_psum_mean`` over the 4 processes.  K6's
-    and K7's launches counted a process (all on the tensor cores, as
-    predicted: the forward twice a layer a step under remat "full", the
-    backward once).  Returns the launches and the kernel numbers."""
-    import shutil
-    import tempfile
-
+    (1, 4)); (c) mamba2-1.3b cut to 4 layers, 2 steps under dp 4 and over
+    dp 2 x tp 2 (tensor-parallel Mamba layers) against one run in this
+    process; (d) granite-moe-3b-a800m cut to 4 layers, 2 steps in this
+    process and over dp 2 x tp 2 (expert parallelism); (e)
+    ``compressed_psum_mean`` over the 4 processes.  K6's and K7's launches
+    counted a process (all on the tensor cores, as predicted: the forward
+    twice a layer a step under remat "full", the backward once).  Returns
+    the launches and the kernel numbers.  ``started``: the processes of
+    :func:`sh_start`, started earlier (default: started here)."""
     t_phase = time.perf_counter()
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_sh_")
-    go, group = f"{tmp}/go", None
+    started = started or sh_start()
     try:
-        # the processes start up (imports, the card, the group) while this
+        # the processes start up (imports, the group, a warm-up) while this
         # one checks the kernels and runs the cells alone; they begin at go
-        group = dist_start(SH_WORLD, "gloo", tuple(SH_CHECKS), tmp,
-                           args={"sh_llama": {"ckpt_dir": f"{tmp}/ckpt", "go": go}})
         kern = sh_kernel_checks(kswa, kssd, dev)
-        one = {key: sh_one_process(key) for key in SH_MODELS}
+        one = {key: sh_one_process(key) for key in SH_MODELS if key not in SH_ONE}
         t0 = time.perf_counter()
-        open(go, "w").close()
-        got, group = dist_wait(*group), None
+        open(started["go"], "w").close()
+        got, started["group"] = dist_wait(*started["group"]), None
         spawn_s = time.perf_counter() - t0
     finally:
-        for p in group[0] if group is not None else ():   # a check here failed: end them
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        shutil.rmtree(tmp, ignore_errors=True)
+        sh_stop(started)
 
     def layers(key):
         return SH_MODELS[key][1]
@@ -4465,20 +4521,26 @@ def sharded_train_phase(card: str, kswa, kssd, dev) -> dict:
     def predicted(key, steps):
         return 2 * layers(key) * steps, layers(key) * steps
 
+    def kernel_of(key):   # the mixers' kernel: K7 for mamba2, K6 for the others
+        return ("k7", "k7_backward") if key.startswith("mamba") else ("k6", "k6_backward")
+
     total = {"k6": 0, "k6_backward": 0, "k7": 0, "k7_backward": 0}
-    for key, fwd, bwd in (("llama", "k6", "k6_backward"), ("mamba", "k7", "k7_backward")):
-        n = one[key]["launches"]
+    for key in one:
+        n, (fwd, bwd) = one[key]["launches"], kernel_of(key)
         if (n[fwd], n[bwd]) != predicted(key, SH_MODELS[key][2]):
             fail(f"sharded_train: one process of {key} launched {n}")
         total[fwd] += n[fwd]
         total[bwd] += n[bwd]
+    cells = [key for key in SH_MODELS if key != "llama"]
     errs = {}
     for r, g in enumerate(got):
-        x, m = g["sh_llama"], g["sh_mamba"]
-        for what, res, key, steps in (("llama (2, 2)", x["launches"], "llama", 3),
-                                      ("llama (1, 4)", x["elastic_launches"], "llama", 1),
-                                      ("mamba2 dp 4", m["launches"], "mamba", 2)):
-            fwd, bwd = ("k6", "k6_backward") if key == "llama" else ("k7", "k7_backward")
+        x = g["sh_llama"]
+        for what, res, key, steps in (
+                ("llama (2, 2)", x["launches"], "llama", 3),
+                ("llama (1, 4)", x["elastic_launches"], "llama", 1),
+                *((f"{key} {SH_MODELS[key][3]}", g[f"sh_{key}"]["launches"], key,
+                   SH_MODELS[key][2]) for key in cells)):
+            fwd, bwd = kernel_of(key)
             on_tc = res["k6_tensor_core"] == res["k6"] and res["k7_3xtf32"] == res["k7"]
             if (res[fwd], res[bwd]) != predicted(key, steps) or not on_tc:
                 fail(f"sharded_train {what}: rank {r} launched {res}, predicted "
@@ -4486,8 +4548,8 @@ def sharded_train_phase(card: str, kswa, kssd, dev) -> dict:
                      "cores")
             total[fwd] += res[fwd]
             total[bwd] += res[bwd]
-        for key, res in (("llama", x["steps"]), ("mamba", m["steps"])):
-            want = one[key]
+        for key, res in (("llama", x["steps"]), *((key, g[f"sh_{key}"]["steps"]) for key in cells)):
+            want = one[SH_ONE.get(key, key)]
             rel = [sh_rel(a, b) for a, b in zip(res["loss"], want["loss"])]
             gn = sh_rel(res["grad_norm"][0], want["grad_norm"][0])
             errs[key] = max(errs.get(key, 0.0), max(rel))
@@ -4515,15 +4577,16 @@ def sharded_train_phase(card: str, kswa, kssd, dev) -> dict:
         meter = [r["comm_steps"] for r in res]
         n_steps = SH_ELASTIC[0] if key == "llama" else SH_MODELS[key][2]
         cfg_name, n_layers, steps, mesh = SH_MODELS[key]
+        alone = one[SH_ONE.get(key, key)]
         say("sharded_train", cell=f"{cfg_name} {n_layers} layers f32 {SH_BATCH}x{SH_SEQ}",
             mesh=f"dp{mesh[0]}xtp{mesh[1]}", processes=SH_WORLD, card=repr(card),
             link="gloo staging through host on one card (measures no link)",
-            losses_one_process=one[key]["loss"], losses_sharded=res[0]["steps"]["loss"],
-            grad_norm_one_process=one[key]["grad_norm"][0],
+            losses_one_process=alone["loss"], losses_sharded=res[0]["steps"]["loss"],
+            grad_norm_one_process=alone["grad_norm"][0],
             grad_norm_sharded=res[0]["steps"]["grad_norm"][0],
             max_rel_err_loss=errs[key], max_rel_err_grad_norm=errs[key + "_grad_norm"],
             tol=json.dumps(SH_TOL).replace(" ", ""),
-            step_ms_one_process=one[key]["step_ms"],
+            step_ms_one_process=alone["step_ms"],
             step_ms_sharded_by_rank=json.dumps(st).replace(" ", ""),
             step_ms_sharded_median=float(np.median([max(s[i] for s in st)
                                                     for i in range(1, len(st[0]))])),
@@ -4532,7 +4595,7 @@ def sharded_train_phase(card: str, kswa, kssd, dev) -> dict:
             bytes_sent_per_step_by_rank=[m["bytes"] // n_steps for m in meter],
             collective_calls_per_step=[m["calls"] // n_steps for m in meter],
             max_memory_allocated_gb_by_rank=[r["peak_gb"] for r in res],
-            max_memory_allocated_gb_one_process=one[key]["peak_gb"],
+            max_memory_allocated_gb_one_process=alone["peak_gb"],
             launches_per_process=json.dumps(res[0]["launches"]).replace(" ", ""))
     x = [g["sh_llama"] for g in got]
     say("sharded_train_elastic", saved_after=SH_ELASTIC[0], first_mesh="dp2xtp2",
@@ -4761,6 +4824,11 @@ def dist_child() -> int:
                             world_size=world, rank=rank,
                             timeout=datetime.timedelta(seconds=DIST_GROUP_TIMEOUT_S))
     torch.backends.cuda.matmul.allow_tf32 = False
+    deadline = time.perf_counter() + DIST_SPAWN_LIMIT_S
+    while job.get("go") and not os.path.exists(job["go"]):
+        if time.perf_counter() > deadline:
+            fail(f"dist: the parent did not start the group ({job['go']})")
+        time.sleep(0.05)
     checks = {**DIST_CHECKS, **CP_CHECKS, **SH_CHECKS}
     out = {name: checks[name](**job["args"].get(name, {})) for name in job["checks"]}
     with open(os.path.join(job["out"], f"rank{rank}.json"), "w") as f:
@@ -4769,10 +4837,11 @@ def dist_child() -> int:
     return 0
 
 
-def dist_start(world: int, backend: str, checks, tmp: str, args=None):
+def dist_start(world: int, backend: str, checks, tmp: str, args=None, go=None):
     """Start ``checks`` in ``world`` processes of a ``backend`` group on this
-    host (``args``: keyword arguments of each check by name); returns what
-    :func:`dist_wait` takes."""
+    host (``args``: keyword arguments of each check by name; ``go``: a file
+    the processes wait for, once in their group, before their checks);
+    returns what :func:`dist_wait` takes."""
     import os
 
     job_dir = os.path.join(tmp, f"{backend}{world}")
@@ -4785,7 +4854,7 @@ def dist_start(world: int, backend: str, checks, tmp: str, args=None):
     for r in range(world):
         job = {"rank": r, "world": world, "backend": backend, "checks": list(checks),
                "args": args or {}, "rendezvous": os.path.join(job_dir, "rendezvous"),
-               "out": job_dir}
+               "out": job_dir, "go": go}
         env = dict(os.environ, LOCAL_RANK=str(r), OMP_NUM_THREADS="1",
                    CHIP_SMOKE_DIST=json.dumps(job))
         log = open(os.path.join(job_dir, f"log{r}.txt"), "w+")
@@ -4836,7 +4905,7 @@ def dist_spawn(world: int, backend: str, checks, tmp: str, args=None) -> list:
     return dist_wait(*dist_start(world, backend, checks, tmp, args))
 
 
-def dist_phase(card: str) -> dict:
+def dist_phase(card: str, during_start=None) -> dict:
     """Phase 33 (dist): the grid across processes on this host.  The
     one-process runs first, in this process (no group); then 8 gloo
     processes of one block each (Heat3D hide and plain bitwise, the
@@ -4850,7 +4919,10 @@ def dist_phase(card: str) -> dict:
     and pressure within F5's tolerance of this process's, GP bitwise), and
     NCCL
     across min(cards, 4)
-    cards where there are several.  Returns K1's, K2-K5's, shifted and
+    cards where there are several.  The three groups on this card start up
+    together after the one-process runs, while this process runs
+    ``during_start()`` (where given); each begins at its own go file.
+    Returns K1's, K2-K5's, shifted and
     face K2-K5's launches in the group runs (summed over the processes;
     each check zeroes and reads the counts around its own run)."""
     import shutil
@@ -4948,11 +5020,27 @@ def dist_phase(card: str) -> dict:
             for n in ("stokes_stress", "stokes_face"):
                 for k, v in res.get(n, {}).get("face_launches", {}).items():
                     launches["face"][k] += v
+    go = {name: f"{tmp}/go_{name}" for name in ("g8", "n1", "g2")}
+    pending = {}
+
+    def run(name):
+        open(go[name], "w").close()
+        return dist_wait(*pending.pop(name))
+
     try:
+        # the groups start up (imports, the card, the group) together, while
+        # this process runs during_start; then one after the other
+        pending["g8"] = dist_start(8, "gloo", ("heat_hide", "heat_plain", "poisson",
+                                               "stokes_stress", "gp"), tmp, go=go["g8"])
+        pending["n1"] = dist_start(1, "nccl", ("heat_hide", "stokes_stress", "stokes_face",
+                                               "stokes_schur_cut", "gp"), tmp, go=go["n1"])
+        pending["g2"] = dist_start(2, "gloo", ("heat_hide", "twophase", "stokes_schur_cut", "gp"),
+                                   tmp, go=go["g2"])
+        if during_start is not None:
+            during_start()
         # ---- 8 gloo processes, one block each ------------------------------
         t0 = time.perf_counter()
-        g8 = dist_spawn(8, "gloo", ("heat_hide", "heat_plain", "poisson", "stokes_stress", "gp"),
-                        tmp)
+        g8 = run("g8")
         same_heat("heat_hide", g8, "8 gloo")
         same_heat("heat_plain", g8, "8 gloo")
         if g8[0]["heat_plain"]["gather"] != one["heat_plain"]["gather"]:
@@ -4987,8 +5075,7 @@ def dist_phase(card: str) -> dict:
             spawn_s=time.perf_counter() - t0)
         # ---- NCCL, one process of 8 blocks --------------------------------
         t0 = time.perf_counter()
-        n1 = dist_spawn(1, "nccl", ("heat_hide", "stokes_stress", "stokes_face",
-                                    "stokes_schur_cut", "gp"), tmp)
+        n1 = run("n1")
         same_heat("heat_hide", n1, "1 nccl")
         same_stokes(n1, "1 nccl", bitwise=True)
         tally(n1)
@@ -5003,7 +5090,7 @@ def dist_phase(card: str) -> dict:
             spawn_s=time.perf_counter() - t0)
         # ---- 2 gloo processes, 4 blocks each --------------------------------
         t0 = time.perf_counter()
-        g2 = dist_spawn(2, "gloo", ("heat_hide", "twophase", "stokes_schur_cut", "gp"), tmp)
+        g2 = run("g2")
         same_heat("heat_hide", g2, "2 gloo")
         same_counts("twophase", g2, "2 gloo")
         same_stokes(g2, "2 gloo")
@@ -5041,6 +5128,11 @@ def dist_phase(card: str) -> dict:
             say("dist", config="nccl across cards", status="not run",
                 reason=f"this host has {cards} card; the phase needs 2 or more")
     finally:
+        for procs, *_ in pending.values():   # a check here failed: end the waiting groups
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
         shutil.rmtree(tmp, ignore_errors=True)
     say("dist", status="ok", elapsed_s=time.perf_counter() - t_phase,
         k1_launches=launches["heat"],
@@ -5425,7 +5517,17 @@ def main() -> int:
     from repro_torch.kernels.swa import kernel as kswa
 
     torch.cuda.empty_cache()
-    cp = context_parallel_phase(card, kswa, kssd, dev)
+    # the sharded_train phase's processes start up (imports, their group, a
+    # warm-up on the CPU) beside the context_parallel phase's, then wait
+    started = {}
+    try:
+        cp = context_parallel_phase(card, kswa, kssd, dev,
+                                    before_spawn=lambda: started.update(sh_start()))
+        torch.cuda.empty_cache()
+        sh = sharded_train_phase(card, kswa, kssd, dev, started)
+    finally:
+        if started:
+            sh_stop(started)
     swa["launches_context_parallel"] = cp["k6"]
     swa["launches_gpipe"] = cp["k6_gpipe"]
     swa["launches"] += cp["k6"] + cp["k6_gpipe"]
@@ -5438,16 +5540,13 @@ def main() -> int:
     # sharded training (slice 18): K6's and K7's launches (forward and
     # backward) in the processes of the mesh and in the one-process runs
     # beside them join their entries, with each kernel at the local shapes
-    torch.cuda.empty_cache()
-    sh = sharded_train_phase(card, kswa, kssd, dev)
     sh_entries(sh, swa, ssd, *train["entries"])
     # the processes of the dist phase: Heat3D's K1, Poisson's K2-K5 and the
-    # two-phase step's shifted K2-K5, summed over the processes
-    dist = dist_phase(card)
-    # the analyzer's phase, alone after the groups have ended; its mgcg
-    # solves' launches are checked equal around a capture, not added to the
-    # counts
-    analysis_phase(card)
+    # two-phase step's shifted K2-K5, summed over the processes.  The
+    # analyzer's phase runs while its groups start up, after every launch of
+    # this process (its launch plans cover them all); its mgcg solves'
+    # launches are checked equal around a capture, not added to the counts
+    dist = dist_phase(card, during_start=lambda: analysis_phase(card))
     k1["launches"] += dist["heat"]
     k1["launches_dist"] = dist["heat"]
     for e in solver_entries:

@@ -108,12 +108,13 @@ def _leaf_name(path) -> str:
     return "__".join(str(p) for p in path) or "root"
 
 
-def _to_host(x) -> np.ndarray:
-    """A host copy of a leaf that no later write to ``x`` can reach."""
+def _to_host(x, own: bool = False) -> np.ndarray:
+    """A host copy of a leaf that no later write to ``x`` can reach
+    (``own``: ``x`` is a host tensor no one else holds, taken as it is)."""
     if isinstance(x, torch.Tensor):
         if x.dtype == torch.bfloat16:
             raise TypeError("bfloat16 leaves have no NumPy dtype; cast them before saving")
-        return x.detach().to("cpu", copy=True).numpy()
+        return (x if own else x.detach().to("cpu", copy=True)).numpy()
     return np.array(x, copy=True)
 
 
@@ -144,11 +145,11 @@ def _host_leaves(state, grid=None, shardings=None):
     for i, ((p, x), g) in enumerate(zip(leaves, _field_grids(state, grid))):
         if g is not None and g.distributed:
             x = g.all_blocks(x)
-        if i in whole:
+        if i in whole:   # assembled here: a fresh host tensor, not copied again
             x = whole[i]
             if x is None:
                 continue
-        out.append((_leaf_name(p), _to_host(x)))
+        out.append((_leaf_name(p), _to_host(x, own=i in whole)))
     return out
 
 

@@ -137,6 +137,30 @@ def local_shape(mesh, spec: tuple, shape: Sequence[int]) -> tuple:
     return tuple(out)
 
 
+def split_axes(rules, logical: Sequence, shape: Sequence[int], dim: int, what: str) -> tuple:
+    """The mesh axes that split dimension ``dim`` of a tensor of
+    ``logical`` axes and global ``shape`` under ``rules`` (those ``fit``
+    keeps).  Raises ``NotImplementedError`` ``"{what} over the mesh axes
+    ..."`` where they leave out an axis of more than one process that the
+    rule of the dimension's logical name maps to (the dimension does not
+    divide it)."""
+    mesh = rules.mesh
+    axes = entry_axes(rules.spec(*logical, shape=shape)[dim])
+    want = tuple(a for a in rules.axes_of(logical[dim]) if mesh.shape[a] > 1)
+    if set(want) - set(axes):
+        raise NotImplementedError(f"{what} over the mesh axes {want} ({dict(mesh.shape)})")
+    return axes
+
+
+def subgroup(rules, axes: tuple):
+    """This process's subgroup over ``axes`` of the rules' mesh, or None
+    (no rules, or a subgroup of one process)."""
+    if rules is None:
+        return None
+    sub = rules.mesh.group(axes)
+    return None if sub.size == 1 else sub
+
+
 def group_of(rules, name: str):
     """The process subgroup of the mesh axes (more than one process each)
     that the rule for ``name`` maps to, or None (no rules, or none such)."""
@@ -214,4 +238,4 @@ def default_rules(mesh, *, batch_size: int | None = None,
 
 
 __all__ = ["AbstractMesh", "AxisRules", "axis_rules", "current", "default_rules", "entry_axes",
-           "entry_size", "group_of", "local_shape", "shd"]
+           "entry_size", "group_of", "local_shape", "shd", "split_axes", "subgroup"]

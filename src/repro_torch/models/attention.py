@@ -35,6 +35,8 @@ item 6).
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -99,29 +101,27 @@ class Attention(nn.Module):
                     name, nn.Parameter(torch.empty(Dh, device="meta"), requires_grad=False))
 
 
-def tp_group(cfg, layer, rules):
-    """The subgroup the layer's query heads are split over under ``rules``
-    (None: no rules, or one process).  The rules must split the heads over
-    all of the ``heads`` rule's axes (else the layer would run replicated
-    on them, which the gradient sums do not allow): otherwise, and where
-    a process's query heads do not map onto whole kv heads, it raises."""
+def tp_axes(cfg, layer, rules) -> tuple:
+    """The mesh axes the layer's query heads are split over under ``rules``
+    (() without rules).  The rules must split the heads over all of the
+    ``heads`` rule's axes (else the layer would run replicated on them,
+    which the gradient sums do not allow): otherwise, and where a
+    process's query heads do not map onto whole kv heads, it raises."""
     if rules is None:
-        return None
+        return ()
     mesh, sp = rules.mesh, specs(cfg, layer)["wq"]
-    axes = sharding.entry_axes(rules.spec(*sp.axes, shape=sp.shape)[1])
-    want = tuple(a for a in rules.axes_of("heads") if mesh.shape[a] > 1)
-    if set(want) - set(axes):
-        raise NotImplementedError(
-            f"{cfg.n_heads} query heads do not split over the mesh axes {want} "
-            f"({dict(mesh.shape)}): tensor parallelism needs heads divisible by them")
-    sub = mesh.group(axes)
-    if sub.size == 1:
-        return None
-    Hl, g = cfg.n_heads // sub.size, cfg.n_heads // cfg.n_kv
+    axes = sharding.split_axes(rules, sp.axes, sp.shape, 1,
+                               f"{cfg.n_heads} query heads do not split")
+    Hl, g = cfg.n_heads // math.prod(mesh.shape[a] for a in axes), cfg.n_heads // cfg.n_kv
     if Hl % g and g % Hl:
         raise NotImplementedError(
             f"{Hl} query heads a process do not map onto whole kv heads (group of {g})")
-    return sub
+    return axes
+
+
+def tp_group(cfg, layer, rules):
+    """The subgroup of :func:`tp_axes` (None: no rules, or one process)."""
+    return sharding.subgroup(rules, tp_axes(cfg, layer, rules))
 
 
 def _local_kv(w, cfg, sub, Hl: int):

@@ -13,10 +13,10 @@ Under installed sharding rules a dense FFN is tensor-parallel over the
 mesh axes of ``ffn`` (Megatron-LM's split): ``wi`` column-parallel (this
 process's ``d_ff / tp`` columns of the gate and of the up projection),
 ``wo`` row-parallel, its partial outputs summed over those processes
-(``comm.sum_over``), its input through ``comm.copy_to``.  Mamba and MoE
-layers train under rules whose tensor-parallel axes have one process
-(``--tp 1``: ZeRO-3 over the data axis); more raises (ROADMAP.md, Queue A
-items 7 and 8).
+(``comm.sum_over``), its input through ``comm.copy_to``.  A Mamba layer is
+tensor-parallel over its heads (``ssm.tp_group``) and an MoE FFN
+expert-parallel (``moe.ep_group``).  :func:`check_sharded` raises, before
+any collective, on a layer whose shapes do not split over the mesh.
 """
 
 from __future__ import annotations
@@ -34,8 +34,6 @@ from .layers import act_fn, glu, rms_norm
 from .params import ParamSpec
 
 LATER = "ROADMAP.md, Queue A item 6 (cross-attention)"
-TP_MAMBA = "ROADMAP.md, Queue A item 7 (tensor parallelism of Mamba layers)"
-TP_MOE = "ROADMAP.md, Queue A item 8 (tensor and expert parallelism of MoE layers)"
 GATED = ("swiglu", "geglu")
 
 
@@ -77,20 +75,19 @@ class FFN(nn.Module):
         self.wo = nn.Linear(f, d, **meta)
 
 
-def ffn_tp_group(cfg, rules):
-    """The subgroup a dense FFN's ``d_ff`` is split over under ``rules``
-    (None: no rules, or one process); raises where ``d_ff`` does not split
-    over every axis of the ``ffn`` rule."""
+def ffn_tp_axes(cfg, rules) -> tuple:
+    """The mesh axes a dense FFN's ``d_ff`` is split over under ``rules``
+    (() without rules); raises where ``d_ff`` does not split over every
+    axis of the ``ffn`` rule."""
     if rules is None:
-        return None
-    mesh, sp = rules.mesh, ffn_specs(cfg)["wi"]
-    axes = sharding.entry_axes(rules.spec(*sp.axes, shape=sp.shape)[-1])
-    want = tuple(a for a in rules.axes_of("ffn") if mesh.shape[a] > 1)
-    if set(want) - set(axes):
-        raise NotImplementedError(f"d_ff {cfg.d_ff} does not split over the mesh axes {want} "
-                                  f"({dict(mesh.shape)})")
-    sub = mesh.group(axes)
-    return None if sub.size == 1 else sub
+        return ()
+    sp = ffn_specs(cfg)["wi"]
+    return sharding.split_axes(rules, sp.axes, sp.shape, -1, f"d_ff {cfg.d_ff} does not split")
+
+
+def ffn_tp_group(cfg, rules):
+    """The subgroup of :func:`ffn_tp_axes` (None: no rules, or one process)."""
+    return sharding.subgroup(rules, ffn_tp_axes(cfg, rules))
 
 
 def ffn_fwd(ffn: FFN, cfg, x):
@@ -107,18 +104,20 @@ def ffn_fwd(ffn: FFN, cfg, x):
 
 
 def check_sharded(cfg, layer, rules) -> None:
-    """Raise on what the port does not shard yet: a Mamba layer or an MoE
-    FFN under rules whose tensor-parallel axes hold more than one process."""
+    """Raise, naming the shapes and the mesh, where a shape of ``layer``
+    that ``rules`` split does not split over the mesh: its mixer's heads
+    (attention, Mamba) and its FFN's ``d_ff`` or experts.  Reads the rules
+    only (no subgroup is made), so it may run before any collective."""
     if rules is None:
         return
-    mesh = rules.mesh
-    for what, name, on, later in (("a Mamba layer", "ffn", layer.mixer == "mamba", TP_MAMBA),
-                                  ("an MoE layer", "experts", bool(layer.moe), TP_MOE)):
-        tp = [a for a in rules.axes_of(name) if mesh.shape[a] > 1]
-        if on and tp:
-            raise NotImplementedError(f"{what} with its {name!r} axes {tp} over "
-                                      f"{[mesh.shape[a] for a in tp]} processes (tp > 1): not in "
-                                      f"the port yet ({later}); train it with --tp 1")
+    if layer.mixer == "mamba":
+        ssm_mod.tp_axes(cfg, rules)
+    else:
+        attention.tp_axes(cfg, layer, rules)
+    if layer.moe:
+        moe_mod.ep_axes(cfg, rules)
+    elif layer.ffn:
+        ffn_tp_axes(cfg, rules)
 
 
 def layer_specs(cfg, layer) -> dict:

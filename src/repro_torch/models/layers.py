@@ -14,10 +14,20 @@ from ..core import comm
 from ..distributed import sharding
 
 
-def rms_norm(x, w, eps: float = 1e-6, *, scale_plus_one: bool = False):
-    """RMS norm over the last axis, in float32 inside, cast back to x's type."""
+def rms_norm(x, w, eps: float = 1e-6, *, scale_plus_one: bool = False, over=None):
+    """RMS norm over the last axis, in float32 inside, cast back to x's type.
+
+    ``over``: a ``comm.Subgroup`` whose processes each hold an equal part of
+    the last axis (a tensor-parallel layer's channels): the mean square is
+    that of the whole axis, its sum added over them.  The sum goes through
+    ``comm.copy_to(comm.sum_over(.))``, so that in the backward each
+    process's part also receives the other processes' terms."""
     xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    if over is None:
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    else:
+        ss = comm.sum_over(torch.sum(xf * xf, dim=-1, keepdim=True), over)
+        var = comm.copy_to(ss, over) / (xf.shape[-1] * over.size)
     y = xf * torch.rsqrt(var + eps)
     wf = w.float()
     if scale_plus_one:  # gemma convention

@@ -17,6 +17,19 @@ Shared (always-on) experts add a dense GLU FFN of ``n_shared * d_ff``.
 The Switch load-balance loss ``E * sum_e f_e P_e`` is returned beside the
 output.  No TPU kernel sits inside the reference's MoE (its expert GEMMs
 are ``jnp.einsum``); here they are ``torch.bmm`` over the expert axis.
+
+Under installed sharding rules (train mode) the experts are split over
+the mesh axes of ``experts`` (expert parallelism, :func:`ep_group`): the
+rules split the batch over the data axes only, so every process of that
+subgroup holds the same tokens and routes them alike (the same top-k,
+capacity and drops); each applies its ``E / ep`` experts to the pairs
+routed to them, and the partial outputs are summed over the subgroup
+(``comm.sum_over``; the input through ``comm.copy_to``): no all-to-all.
+The shared experts are column- and row-parallel over the same processes
+(the ``ffn`` axes of ``shared_wi``, which must be the experts'), as the
+dense FFN is.  The aux loss is whole on every process of the subgroup;
+its gradient is taken on the first process alone, so that the sums over
+the subgroup count it once.
 """
 
 from __future__ import annotations
@@ -82,6 +95,31 @@ class MoE(nn.Module):
             self.shared_wo = nn.Linear(m.n_shared * f, d, bias=False, **meta)
 
 
+def ep_axes(cfg, rules) -> tuple:
+    """The mesh axes an MoE layer's experts are split over under ``rules``
+    (() without rules); raises, naming the shapes and the mesh, where the
+    experts, or the shared experts' ``n_shared * d_ff``, do not split over
+    every axis of their rule."""
+    if rules is None:
+        return ()
+    m, mesh, sp = _moe_cfg(cfg), rules.mesh, specs(cfg)
+    wi = sp["wi"]
+    axes = sharding.split_axes(rules, wi.axes, wi.shape, 0, f"{m.n_experts} experts do not split")
+    if m.n_shared:
+        what = f"the shared experts' n_shared x d_ff = {m.n_shared * m.d_ff}"
+        swi = sp["shared_wi"]
+        shared = sharding.split_axes(rules, swi.axes, swi.shape, 2, f"{what} does not split")
+        if {a for a in shared if mesh.shape[a] > 1} != {a for a in axes if mesh.shape[a] > 1}:
+            raise NotImplementedError(f"{what} splits over the mesh axes {shared}, the experts "
+                                      f"over {axes} ({dict(mesh.shape)}): not one subgroup")
+    return axes
+
+
+def ep_group(cfg, rules):
+    """The subgroup of :func:`ep_axes` (None: no rules, or one process)."""
+    return sharding.subgroup(rules, ep_axes(cfg, rules))
+
+
 def route(logits, k: int):
     """Softmax over the experts and the top ``k`` of each token, the lower
     expert first among equal probabilities (``jax.lax.top_k``'s order; a
@@ -119,6 +157,10 @@ def fwd(moe: MoE, cfg, x):
     m = cfg.moe
     B, T, d = x.shape
     E, K = m.n_experts, m.top_k
+    rules = sharding.current()
+    ep = ep_group(cfg, rules)
+    if ep is not None:   # the tokens are the same on every process of ep
+        x = comm.copy_to(x, ep)
 
     logits = moe.router(x).float()  # (B, T, E)
     probs, gate, eid = route(logits, K)
@@ -129,7 +171,7 @@ def fwd(moe: MoE, cfg, x):
     flat_eid = eid.reshape(-1)
     token_frac = torch.zeros(E, dtype=torch.float32, device=x.device).index_add_(
         0, flat_eid, torch.ones(flat_eid.shape, dtype=torch.float32, device=x.device))
-    batch = sharding.group_of(sharding.current(), "batch")
+    batch = sharding.group_of(rules, "batch")
     if batch is None:
         token_frac = token_frac / (B * T * K)
         prob_frac = probs.mean(dim=(0, 1))
@@ -138,31 +180,39 @@ def fwd(moe: MoE, cfg, x):
         token_frac = comm.sum_over(token_frac, batch) / (n * K)
         prob_frac = comm.sum_over(probs.sum(dim=(0, 1)), batch) / n
     aux = E * torch.sum(token_frac * prob_frac)
+    if ep is not None and ep.index:   # its gradient once over ep: on the first process
+        aux = aux.detach()
 
     C = capacity(T, cfg)
     dest, sorted_tok, order = dispatch(eid, C, E)
     w_sorted = torch.gather(gate.reshape(B, T * K), 1, order)
+    # this process's experts [e0, e0 + El): their slots; every other pair
+    # (routed elsewhere, or dropped) to the slot past them
+    El = moe.wi.shape[0]
+    lo = (0 if ep is None else ep.index * El) * C
+    dest = torch.where((dest >= lo) & (dest < lo + El * C), dest - lo, El * C)
 
-    # the (B, E C) buffer, one row more for the dropped pairs (cut off after)
+    # the (B, El C) buffer, one row more for the other pairs (cut off after)
     rows = torch.arange(B, device=x.device)[:, None]
-    buf = x.new_zeros(B, E * C + 1, d)
+    buf = x.new_zeros(B, El * C + 1, d)
     buf[rows, dest] = x[rows, sorted_tok]
-    eb = buf[:, :E * C].reshape(B, E, C, d)
+    eb = buf[:, :El * C].reshape(B, El, C, d)
 
-    # the expert GEMMs, batched over the experts: (E, B C, d) @ (E, d, 2f)
-    xe = eb.transpose(0, 1).reshape(E, B * C, d)
+    # the expert GEMMs, batched over the experts: (El, B C, d) @ (El, d, 2f)
+    xe = eb.transpose(0, 1).reshape(El, B * C, d)
     h = glu(torch.bmm(xe, moe.wi.flatten(2)).unflatten(-1, (2, m.d_ff)), cfg.act)
-    ob = torch.bmm(h, moe.wo).reshape(E, B, C, d).transpose(0, 1).reshape(B, E * C, d)
+    ob = torch.bmm(h, moe.wo).reshape(El, B, C, d).transpose(0, 1).reshape(B, El * C, d)
 
-    # combine: each pair's output (zero for a dropped pair), weighted, added
-    # into its token in the sorted order
+    # combine: each pair's output (zero for a pair not in ob), weighted,
+    # added into its token in the sorted order
     ob = torch.cat([ob, ob.new_zeros(B, 1, d)], dim=1)
     vals = ob[rows, dest] * w_sorted[..., None].to(x.dtype)
     idx = (rows * T + sorted_tok).reshape(-1)
     out = x.new_zeros(B * T, d).index_add_(0, idx, vals.reshape(-1, d)).reshape(B, T, d)
 
-    if m.n_shared:
-        hs = glu(F.linear(x, moe.shared_wi.weight).unflatten(-1, (2, m.n_shared * m.d_ff)),
-                 cfg.act)
+    if m.n_shared:   # column- and row-parallel over the same processes (ep_axes)
+        hs = glu(F.linear(x, moe.shared_wi.weight).unflatten(-1, (2, -1)), cfg.act)
         out = out + F.linear(hs, moe.shared_wo.weight)
+    if ep is not None:   # the processes' partial outputs summed
+        out = comm.sum_over(out, ep)
     return out, aux

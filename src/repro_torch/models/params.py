@@ -215,11 +215,13 @@ def fsdp_axes(leaf: RefLeaf, rules) -> tuple:
                  for a in entry_axes(e))
 
 
-def fsdp_gather(t: torch.Tensor, leaf: RefLeaf, rules, partial_over: tuple = ()) -> torch.Tensor:
+def fsdp_gather(t: torch.Tensor, leaf: RefLeaf, rules, partial_over: tuple = (),
+                whole: bool = False) -> torch.Tensor:
     """ZeRO-3's gather of one weight before its layer: this process's block
     ``t`` with its ``fsdp`` dimensions all-gathered (the tensor-parallel
-    ones stay split), in the port's layout.  Differentiable: the gradient
-    leaves through the gather's reduce-scatter, summed over those axes.
+    ones stay split; ``whole``: every dimension gathered), in the port's
+    layout.  Differentiable: the gradient leaves through the gather's
+    reduce-scatter, summed over those axes.
 
     ``partial_over``: mesh axes over which this process's gradient of the
     weight is a partial one (a weight replicated inside the
@@ -229,12 +231,13 @@ def fsdp_gather(t: torch.Tensor, leaf: RefLeaf, rules, partial_over: tuple = ())
     if rules is None:
         return t
     mesh, sp = rules.mesh, spec(leaf, rules)
-    dims = [i for i, name in enumerate(logical_axes(leaf)) if name == "fsdp" and sp[i] is not None]
+    dims = [i for i, name in enumerate(logical_axes(leaf))
+            if sp[i] is not None and (whole or name == "fsdp")]
     out = t
     if dims:
         ref = _gathered(local(leaf, rules).to_ref(t), sp, mesh, dims)
         out = dataclasses.replace(leaf, shape=tuple(ref.shape)).from_ref(ref)
-    done = fsdp_axes(leaf, rules)
+    done = tuple(a for i in dims for a in entry_axes(sp[i]))
     extra = tuple(a for a in partial_over if a not in done and mesh.shape[a] > 1)
     return comm.copy_to(out, mesh.group(extra)) if extra else out
 

@@ -7,18 +7,42 @@ scan for its tensor-parallel sharding, the port passes grouped B/C on: K7
 maps head h to group ``h // (H // G)``, which gives the same result and
 saves two per-head copies of B/C per layer (2 x 134 MB at 4 x 2048 tokens
 of mamba2-1.3b in bf16).
+
+Under installed sharding rules (train mode) the layer is tensor-parallel
+over the mesh axes that split ``out_proj``'s ``d_inner`` rows (the
+``ffn`` rule): process ``r`` of ``tp`` runs heads ``[r H/tp, (r+1) H/tp)``,
+the block of rows ``out_proj`` holds.  The stored layout stays the
+reference's, whose ``in_proj`` column blocks do not fall on head
+boundaries (its fused output is ``z | x B C | dt``): the layer gathers
+``in_proj`` whole and takes its heads' z, x and dt columns and the B/C
+columns of the groups they use (:func:`local_rows`); the replicated
+``conv_w``, ``conv_b``, ``A_log``, ``D``, ``dt_bias`` and ``norm_w`` are
+sliced alike (:data:`TP_PARTIAL`: their gradients, and the B/C columns',
+are partial and summed over the processes).  The input passes through
+``comm.copy_to``, ``out_proj`` is row-parallel (``comm.sum_over``), and
+the gated RMS norm sums its mean square over the processes.  K7 and its
+backward run on the local heads.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core import comm
+from ..distributed import sharding
 from ..distributed.seqpar import seq_conv1d_causal, seq_ssd_scan
 from ..kernels.ssd import ssd_decode_step, ssd_scan
 from .layers import rms_norm
 from .params import ParamSpec
+
+# the replicated leaves a tensor-parallel process slices to its heads: their
+# gradient on a process is its heads' (and its groups') share, summed over
+# the heads' processes
+TP_PARTIAL = ("conv_w", "conv_b", "A_log", "D", "dt_bias", "norm_w")
 
 
 def _dims(cfg):
@@ -63,12 +87,73 @@ class Mamba2(nn.Module):
                 name, nn.Parameter(torch.empty(sp[name].shape, **meta), requires_grad=False))
 
 
-def _split(cfg, zxbcdt):
-    d_in, H, conv_dim = _dims(cfg)
-    z = zxbcdt[..., :d_in]
-    xBC = zxbcdt[..., d_in : d_in + conv_dim]
-    dt = zxbcdt[..., d_in + conv_dim :]
-    return z, xBC, dt
+def tp_axes(cfg, rules) -> tuple:
+    """The mesh axes a Mamba layer's heads are split over under ``rules``
+    (those of ``out_proj``'s ``d_inner`` rows; () without rules).  Raises,
+    naming the shapes and the mesh, where ``d_inner`` does not split over
+    every axis of the ``ffn`` rule, where the heads do not split over them
+    or where a process's heads do not map onto whole groups of B/C."""
+    if rules is None:
+        return ()
+    s, mesh = cfg.ssm, rules.mesh
+    d_in, H, _ = _dims(cfg)
+    sp = specs(cfg)["out_proj"]
+    what = f"a Mamba layer's {H} heads (d_inner {d_in}) do not split"
+    axes = sharding.split_axes(rules, sp.axes, sp.shape, 0, what)
+    tp = math.prod(mesh.shape[a] for a in axes)
+    if H % tp:
+        raise NotImplementedError(f"{what} over the mesh axes {axes} ({dict(mesh.shape)})")
+    Hl, hg = H // tp, H // s.n_groups
+    if Hl % hg and hg % Hl:
+        raise NotImplementedError(
+            f"{Hl} Mamba heads a process do not map onto whole groups of B/C ({s.n_groups} "
+            f"groups of {hg} heads) over the mesh axes {axes} ({dict(mesh.shape)})")
+    return axes
+
+
+def tp_group(cfg, rules):
+    """The subgroup of :func:`tp_axes` (None: no rules, or one process)."""
+    return sharding.subgroup(rules, tp_axes(cfg, rules))
+
+
+def _local_parts(cfg, r: int, tp: int):
+    """Process ``r`` of ``tp``'s heads ``(h0, h1)`` and the groups of B/C
+    they use ``(g0, g1)``."""
+    _, H, _ = _dims(cfg)
+    Hl, hg = H // tp, H // cfg.ssm.n_groups
+    return (r * Hl, (r + 1) * Hl), (r * Hl // hg, ((r + 1) * Hl - 1) // hg + 1)
+
+
+def local_rows(cfg, r: int, tp: int):
+    """Indices, along ``in_proj``'s fused output ``z | x B C | dt`` and along
+    the conv's channels ``x B C``, of process ``r`` of ``tp``'s heads and
+    groups, each part in the reference's order."""
+    s = cfg.ssm
+    d_in, _, _ = _dims(cfg)
+    P, GN = s.head_dim, s.n_groups * s.d_state
+    (h0, h1), (g0, g1) = _local_parts(cfg, r, tp)
+    heads = torch.arange(h0 * P, h1 * P)
+    groups = torch.arange(g0 * s.d_state, g1 * s.d_state)
+    conv = torch.cat([heads, d_in + groups, d_in + GN + groups])
+    proj = torch.cat([heads, d_in + conv, 2 * d_in + 2 * GN + torch.arange(h0, h1)])
+    return proj, conv
+
+
+def _local(m: Mamba2, cfg, sub):
+    """The layer's weights for this process's heads (``sub``: the heads'
+    subgroup, None: all of them): ``in_proj`` (rows of the whole weight),
+    ``conv_w``, ``conv_b``, ``A_log``, ``D``, ``dt_bias``, ``norm_w``, and
+    the local ``(d_inner, H, G)``."""
+    d_in, H, _ = _dims(cfg)
+    if sub is None:
+        return (m.in_proj.weight, *(getattr(m, n) for n in TP_PARTIAL),
+                (d_in, H, cfg.ssm.n_groups))
+    proj, conv = (i.to(m.in_proj.weight.device) for i in local_rows(cfg, sub.index, sub.size))
+    (h0, h1), (g0, g1) = _local_parts(cfg, sub.index, sub.size)
+    P = cfg.ssm.head_dim
+    return (m.in_proj.weight[proj], m.conv_w[:, conv], m.conv_b[conv], m.A_log[h0:h1],
+            m.D[h0:h1], m.dt_bias[h0:h1], m.norm_w[h0 * P:h1 * P],
+            ((h1 - h0) * P, h1 - h0, g1 - g0))
 
 
 def fwd(m: Mamba2, cfg, x, *, mode, cache=None, seq_axis: str | None = None,
@@ -85,12 +170,16 @@ def fwd(m: Mamba2, cfg, x, *, mode, cache=None, seq_axis: str | None = None,
     SSM cache the state in x's dtype (read back in float32)."""
     s = cfg.ssm
     B, T, d = x.shape
-    d_in, H, conv_dim = _dims(cfg)
-    N, G, P = s.d_state, s.n_groups, s.head_dim
+    tp = tp_group(cfg, sharding.current())
+    if tp is not None:   # this process's heads; the input's gradient summed over tp
+        x = comm.copy_to(x, tp)
+    w_in, conv_w, conv_b, A_log, D, dt_bias, norm_w, (d_in, H, G) = _local(m, cfg, tp)
+    N, P = s.d_state, s.head_dim
+    conv_dim = d_in + 2 * G * N
 
-    zxbcdt = F.linear(x, m.in_proj.weight)
-    z, xBC, dt = _split(cfg, zxbcdt)
-    A = -torch.exp(m.A_log.float())
+    zxbcdt = F.linear(x, w_in)
+    z, xBC, dt = zxbcdt.split((d_in, conv_dim, H), dim=-1)
+    A = -torch.exp(A_log.float())
 
     if mode == "decode":
         if cache is None or T != 1:
@@ -99,31 +188,31 @@ def fwd(m: Mamba2, cfg, x, *, mode, cache=None, seq_axis: str | None = None,
         window = torch.cat([conv_st, xBC], dim=1)  # (B, K, conv_dim)
         # window[k]: oldest..current; the conv applies w[j] to x[t-j], so
         # the current token takes w[0] -> flip w along taps
-        xBC_t = torch.einsum("bkc,kc->bc", window, m.conv_w.flip(0)) + m.conv_b
+        xBC_t = torch.einsum("bkc,kc->bc", window, conv_w.flip(0)) + conv_b
         xBC_t = F.silu(xBC_t)
         new_conv = window[:, 1:]
         xs = xBC_t[..., :d_in].reshape(B, H, P)
         Bs = xBC_t[..., d_in : d_in + G * N].reshape(B, G, N)
         Cs = xBC_t[..., d_in + G * N :].reshape(B, G, N)
-        dt_t = F.softplus(dt[:, 0].float() + m.dt_bias)
+        dt_t = F.softplus(dt[:, 0].float() + dt_bias)
         y, h_new = ssd_decode_step(cache["ssm"].float(), xs.float(), dt_t, A, Bs, Cs)
-        y = y + m.D[None, :, None] * xs
+        y = y + D[None, :, None] * xs
         y = y.reshape(B, 1, d_in).to(x.dtype)
         new_cache = dict(cache, conv=new_conv, ssm=h_new.to(cache["ssm"].dtype))
     else:
-        xBC_c = seq_conv1d_causal(xBC, m.conv_w, axis_name=seq_axis)
-        xBC_c = F.silu(xBC_c + m.conv_b)
+        xBC_c = seq_conv1d_causal(xBC, conv_w, axis_name=seq_axis)
+        xBC_c = F.silu(xBC_c + conv_b)
         xs = xBC_c[..., :d_in].reshape(B, T, H, P)
         Bs = xBC_c[..., d_in : d_in + G * N].reshape(B, T, G, N)
         Cs = xBC_c[..., d_in + G * N :].reshape(B, T, G, N)
-        dtp = F.softplus(dt.float() + m.dt_bias)
+        dtp = F.softplus(dt.float() + dt_bias)
         if seq_axis is not None:   # the states' halo: a doubling scan across the shards
             y, h_fin = seq_ssd_scan(xs, dtp, A, Bs, Cs, chunk=s.chunk, axis_name=seq_axis,
                                     use_kernel=use_kernel)
         else:
             y, h_fin = ssd_scan(xs, dtp, A, Bs, Cs, chunk=min(s.chunk, T),
                                 use_kernel=use_kernel)
-        y = y + m.D[None, None, :, None] * xs
+        y = y + D[None, None, :, None] * xs
         y = y.reshape(B, T, d_in)
         new_cache = None
         if mode == "prefill":
@@ -135,8 +224,11 @@ def fwd(m: Mamba2, cfg, x, *, mode, cache=None, seq_axis: str | None = None,
                 "ssm": h_fin.to(x.dtype),
             }
 
-    y = rms_norm(y * F.silu(z), m.norm_w, cfg.norm_eps)
+    # the gated norm's mean square over the whole d_inner: summed over tp
+    y = rms_norm(y * F.silu(z), norm_w, cfg.norm_eps, over=tp)
     out = F.linear(y, m.out_proj.weight)
+    if tp is not None:   # out_proj is row-parallel: the partial outputs summed
+        out = comm.sum_over(out, tp)
     return out, new_cache
 
 

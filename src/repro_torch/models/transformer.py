@@ -43,7 +43,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from .._device import resolve_device
 from ..core import comm
 from ..distributed import sharding
-from . import attention, blocks
+from . import attention, blocks, moe, ssm
 from . import params as pm
 from .layers import cross_entropy_chunked, rms_norm
 from .params import ParamSpec, RefLeaf, stack_tree
@@ -290,25 +290,42 @@ def _checkpointed(block, cfg, layer, x, positions, seq_axis, use_kernel: str, co
     return checkpoint(run, x, *vals, use_reentrant=False, context_fn=context_fn)
 
 
+def _partial_over(cfg, layer, rules) -> dict:
+    """``{parameter name in the block: mesh axes}`` of a layer's weights
+    whose gradient a tensor-parallel process holds in part (see
+    ``params.fsdp_gather``): the kv projections and qk norms of attention
+    over the heads' axes, the replicated leaves of a Mamba layer and its
+    ``in_proj`` (of which a process uses its heads' columns) over its
+    heads' axes, an MoE router over the experts' axes."""
+    if layer.mixer == "mamba":
+        mixer = dict.fromkeys(ssm.TP_PARTIAL + ("in_proj.weight",), ssm.tp_axes(cfg, rules))
+    else:
+        mixer = dict.fromkeys(attention.TP_PARTIAL, attention.tp_axes(cfg, layer, rules))
+    out = {f"mixer.{n}": axes for n, axes in mixer.items()}
+    if layer.moe:
+        out["ffn.router.weight"] = moe.ep_axes(cfg, rules)
+    return out
+
+
 def _sharded(block, cfg, layer, index: int, x, positions, use_kernel: str, context_fn, rules):
     """One train-mode layer under sharding rules: its parameters (this
     process's blocks) go in as the inputs of the (checkpointed) function,
     which gathers their ``fsdp`` dimensions before the layer runs, so that
-    the recomputation in the backward gathers again.  The kv projections
-    and the qk norms take ``partial_over`` the heads' axes (see
-    ``params.fsdp_gather``)."""
+    the recomputation in the backward gathers again; a Mamba layer's
+    ``in_proj`` is gathered whole.  The weights of :func:`_partial_over`
+    take ``partial_over`` those axes (see ``params.fsdp_gather``)."""
     layout = layout_of(cfg)
     names, vals = zip(*block.named_parameters())
     leaves = [layout[f"layers.{index}.{n}"] for n in names]
-    heads = tuple(a for a in rules.axes_of("heads") if rules.mesh.shape[a] > 1)
-    partial = [heads if layer.mixer != "mamba" and n.startswith("mixer.")
-               and n[len("mixer."):] in attention.TP_PARTIAL else () for n in names]
+    partial = _partial_over(cfg, layer, rules)
+    extra = [(partial.get(n, ()), n == "mixer.in_proj.weight") for n in names]
 
     def run(x, *vals):
         # the rules again: the backward's recomputation may run on another
         # thread (autograd's device threads), where the installed ones are not
         with sharding.axis_rules(rules):
-            full = [pm.fsdp_gather(v, leaf, rules, p) for v, leaf, p in zip(vals, leaves, partial)]
+            full = [pm.fsdp_gather(v, leaf, rules, p, whole)
+                    for v, leaf, (p, whole) in zip(vals, leaves, extra)]
             return torch.func.functional_call(
                 block, dict(zip(names, full)), (x,),
                 dict(cfg=cfg, layer=layer, positions=positions, use_kernel=use_kernel))
@@ -320,7 +337,8 @@ def _sharded(block, cfg, layer, index: int, x, positions, use_kernel: str, conte
 
 def check_sharded(cfg, rules) -> None:
     """Raise before any collective, alike on every process, where ``rules``
-    shard a layer the port cannot shard yet (``blocks.check_sharded``)."""
+    split a layer's shape that does not split over the mesh
+    (``blocks.check_sharded``)."""
     if rules is not None:
         for layer in cfg.layers_flat:
             blocks.check_sharded(cfg, layer, rules)

@@ -22,18 +22,25 @@ from repro_torch.launch.mesh import Mesh
 from repro_torch.models import params as pm
 from repro_torch.models import transformer as tf
 from repro_torch.optim import compress
-from repro_torch.train import TrainCfg, make_train_step
+from repro_torch.data import local_rows
+from repro_torch.train import TrainCfg, make_train_step, value_and_grad
 
 TCFG = dict(warmup=2, total_steps=50)
 
 
-def smoke(module: str):
+def smoke(module: str, ssm=None):
+    """The module's SMOKE config in float32; ``ssm``: fields of its SSMCfg
+    to replace (e.g. ``{"n_groups": 2}``)."""
     cfg = importlib.import_module(f"repro_torch.configs.{module}").SMOKE
+    if ssm:
+        cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm, **ssm))
     return dataclasses.replace(cfg, dtype="float32")
 
 
-def tcfg(moments: str = "float32", grad_accum: int = 1, lr: float = 1e-3) -> TrainCfg:
-    return TrainCfg(opt=optim.AdamWCfg(lr=lr, moments=moments), grad_accum=grad_accum, **TCFG)
+def tcfg(moments: str = "float32", grad_accum: int = 1, lr: float = 1e-3,
+         aux_weight: float = 0.01) -> TrainCfg:
+    return TrainCfg(opt=optim.AdamWCfg(lr=lr, moments=moments), grad_accum=grad_accum,
+                    aux_weight=aux_weight, **TCFG)
 
 
 def load_params(cfg, path):
@@ -82,12 +89,14 @@ def replicated_digest(params, layout, rules) -> dict:
 
 
 def sharded_train(rank, world, module, mesh_shape, steps, moments="float32", params_path=None,
-                  batches_path=None, batch=4, seq=16, grad_accum=1):
+                  batches_path=None, batch=4, seq=16, grad_accum=1, ssm=None, aux_weight=0.01,
+                  first_grads=False):
     """``steps`` steps on a (data, model) mesh against one process: the
     losses and grad norms of both, the local shapes, and digests of the
-    replicated leaves."""
-    cfg = smoke(module)
-    tc = tcfg(moments, grad_accum)
+    replicated leaves.  ``first_grads``: also the gradients of the first
+    step's loss on the mesh, gathered whole (``"grads"``, on rank 0)."""
+    cfg = smoke(module, ssm)
+    tc = tcfg(moments, grad_accum, aux_weight=aux_weight)
     layout = tf.reference_layout(cfg)
     params0 = load_params(cfg, params_path)
     batches = load_batches(batches_path, steps, cfg, batch, seq)
@@ -98,6 +107,11 @@ def sharded_train(rank, world, module, mesh_shape, steps, moments="float32", par
     local = pm.shard(params0, rules, layout)
     with axis_rules(rules):
         opt = optim.init(local, tc.opt, layout=layout)
+    grads = None
+    if first_grads:
+        with axis_rules(rules):
+            _, _, g = value_and_grad(local, cfg, tc, local_rows(batches[0]))
+        grads = pm.gather(g, rules, layout)   # collective
     p, o, hist = run_steps(cfg, tc, local, opt, batches, rules)
     shapes = {"params": {n: tuple(t.shape) for n, t in local.items()},
               "m": {n: (tuple(v["q"].shape), tuple(v["s"].shape)) if isinstance(v, dict)
@@ -105,7 +119,8 @@ def sharded_train(rank, world, module, mesh_shape, steps, moments="float32", par
     whole = pm.gather(p, rules, layout)   # collective
     return {"one": one, "sharded": hist, "shapes": shapes,
             "replicated": replicated_digest(p, layout, rules),
-            "whole": {n: t.numpy() for n, t in whole.items()} if rank == 0 else None}
+            "whole": {n: t.numpy() for n, t in whole.items()} if rank == 0 else None,
+            "grads": {n: t.numpy() for n, t in grads.items()} if rank == 0 and grads else None}
 
 
 def elastic(rank, world, module, steps, ckpt_dir, params_path=None, batches_path=None,

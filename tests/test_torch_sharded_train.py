@@ -23,9 +23,11 @@ in one group:
   each of the 4 ranks: the same losses on every rank, those of
   ``launch.main`` without sharding within 2e-4.
 
-``tp > 1`` on a Mamba or an MoE layer raises ``NotImplementedError``
-naming its ``ROADMAP.md`` item (no group needed: the check comes before
-any collective).
+``tp > 1`` on a Mamba or an MoE layer passes the rules' check where the
+shapes split, and raises ``NotImplementedError`` naming the shapes and the
+mesh where they do not (no group needed: the check comes before any
+collective); ``tests/test_torch_sharded_mixers.py`` trains those layers
+over the mesh.
 """
 
 from __future__ import annotations
@@ -210,22 +212,31 @@ def test_serving_under_rules_raises():
                                          ("jamba_v01_52b", "item 7"),
                                          ("granite_moe_3b", "item 8")])
 def test_tensor_parallel_mamba_and_moe_raise(module, item):
+    """ROADMAP.md Queue A items 7 (Mamba) and 8 (MoE): under (1, 2) rules
+    the SMOKE config's shapes split and the check passes; under (1, 3)
+    they do not and the check raises, naming the first shape it reads that
+    does not split (mamba2, jamba: 8 Mamba heads; granite: 4 query heads)
+    and the mesh."""
     cfg = child.smoke(module)
-    params = tf.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    batch = {"tokens": torch.zeros(2, 8, dtype=torch.long),
-             "labels": torch.zeros(2, 8, dtype=torch.long)}
-    rules = default_rules(AbstractMesh((1, 2), ("data", "model")), batch_size=2)
-    with axis_rules(rules), pytest.raises(NotImplementedError, match=f"ROADMAP.md, Queue A {item}"):
-        tf.loss_fn(params, cfg, batch)
+    tf.check_sharded(cfg, default_rules(AbstractMesh((1, 2), ("data", "model")), batch_size=2))
+    rules = default_rules(AbstractMesh((1, 3), ("data", "model")), batch_size=2)
+    with pytest.raises(NotImplementedError, match=r"do not split over the mesh axes "
+                                                  r"\('model',\) \(\{'data': 1, 'model': 3\}\)"):
+        tf.check_sharded(cfg, rules)
 
 
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
 
-# B, H, Hkv, T, D of K6 on a tensor-parallel process of llama3.2-1b at a
-# global batch of 4 x 2048: tp 2 (dp 2: 2 rows) and tp 4 (dp 1: 4 rows)
-LOCAL_HEADS = ((2, 16, 4, 2048, 64), (4, 8, 2, 2048, 64))
+# B, H, Hkv, T, D of K6 on a tensor-parallel process at a global batch of
+# 4 x 2048: llama3.2-1b at tp 2 (dp 2: 2 rows) and tp 4 (dp 1: 4 rows),
+# granite-moe-3b-a800m at tp 2 (12 query heads, the 4 kv heads they use)
+LOCAL_HEADS = ((2, 16, 4, 2048, 64), (4, 8, 2, 2048, 64), (2, 12, 4, 2048, 64))
+# Ba, T, H, P, N, G, L of K7 on a tensor-parallel process: mamba2-1.3b at
+# tp 2 (dp 2) and tp 4 (dp 1) of 4 x 2048, and jamba's SMOKE width at tp 2
+LOCAL_SSD_HEADS = ((2, 2048, 32, 64, 128, 1, 64), (4, 2048, 16, 64, 128, 1, 64),
+                   (2, 32, 4, 16, 16, 1, 8))
 CARD_TOL = 1e-5   # normwise, float32 (3xTF32) against the plain version
 
 
@@ -261,3 +272,41 @@ def test_k6_at_the_local_head_shapes_on_card(case):
         assert torch.isfinite(a).all() and err <= CARD_TOL, (name, err)
     with pytest.raises(ValueError, match="disagree"):
         kswa.swa_attention_cuda(q[:, :H - 1], k, v, window=T)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", LOCAL_SSD_HEADS, ids=lambda c: "x".join(map(str, c)))
+def test_k7_at_the_local_head_shapes_on_card(case):
+    """K7's float32 forward (3xTF32) and its backward at a tensor-parallel
+    process's local heads against ``ssd_intra_chunk_ref`` and
+    ``ssd_intra_chunk_backward_ref``, normwise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.ssd import kernel as kssd
+    from repro_torch.kernels.ssd import ssd_intra_chunk_backward_ref, ssd_intra_chunk_ref
+    from repro_torch.kernels.ssd.ref import chunk_logdecay
+
+    Ba, T, H, P, N, G, L = case
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    zx = torch.randn(Ba, T, H * P + 2 * G * N, generator=g, device=dev)
+    x = zx[..., :H * P].view(Ba, T, H, P)
+    B = zx[..., H * P:H * P + G * N].view(Ba, T, G, N)
+    C = zx[..., H * P + G * N:].view(Ba, T, G, N)
+    dt = torch.nn.functional.softplus(torch.randn(Ba, T, H, generator=g, device=dev) - 2.0)
+    A = -torch.exp(torch.rand(H, generator=g, device=dev))
+    s = chunk_logdecay(dt, A, L)
+    dy = torch.randn(Ba, T, H, P, generator=g, device=dev)
+    dS = torch.randn(Ba, T // L, H, N, P, generator=g, device=dev)
+    n0 = (kssd.ssd_intra_chunk_cuda.by_kernel["3xTF32"], kssd.ssd_backward_cuda.launches)
+    got = kssd.ssd_intra_chunk_cuda(x, dt, A, B, C, chunk=L, s=s)
+    grads = kssd.ssd_backward_cuda(x, dt, s, B, C, dy, dS)
+    torch.cuda.synchronize()
+    assert (kssd.ssd_intra_chunk_cuda.by_kernel["3xTF32"], kssd.ssd_backward_cuda.launches) == \
+        (n0[0] + 1, n0[1] + 1)
+    want = ssd_intra_chunk_ref(x, dt, A, B, C, chunk=L)[:2] + \
+        tuple(ssd_intra_chunk_backward_ref(x, dt, s, B, C, dy, dS))
+    for name, a, b in zip(("y_diag", "states", "dx", "ddt", "ds", "dB", "dC"),
+                          tuple(got[:2]) + tuple(grads), want):
+        err = float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+        assert torch.isfinite(a).all() and err <= CARD_TOL, (name, err)

@@ -379,7 +379,10 @@ def test_max_bad_steps_aborts():
 
 def test_watchdog_flags_straggler(tmp_path):
     """The reference's ``test_watchdog_flags_straggler``; with a checkpoint
-    directory the straggler also triggers an early checkpoint."""
+    directory the straggler also triggers an early checkpoint.  The sixth
+    step sleeps 1.5 s, or three times the slowest step measured after the
+    first where that is longer (the EWMA the watchdog holds it against is
+    never above that step, so a loaded machine cannot hide the straggler)."""
     params, opt, step, data = _toy()
     calls = {"n": 0}
 
@@ -387,7 +390,7 @@ def test_watchdog_flags_straggler(tmp_path):
         calls["n"] += 1
         out = step(p, o, b)
         if calls["n"] == 6:
-            time.sleep(1.5)
+            time.sleep(max(1.5, 3 * max(tr.step_s[1:])))
         return out
 
     tr = Trainer(cfg=CFG, train_step=slow_step, data=data, ckpt_dir=str(tmp_path),
