@@ -21,12 +21,20 @@ entirely and skipped: the reference's combine adds exactly zero for them.
 
 K6's bfloat16 kernel writes no log-sum-exp, so the ring takes float32
 only (``use_kernel="ref"`` takes any dtype on the plain path).
+
+The decode combine (flash-decoding) comes in two forms: the reference's
+:func:`lse_combine_decode` over the default group's axis, and
+:func:`lse_combine_decode_over` over a ``comm`` subgroup, which serving
+under sharding rules runs on a cache split over ``cache_seq``
+(``models/attention.py``) and one process runs on its whole cache.  Both
+are plain PyTorch on every device: the reference has no kernel for them.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..core import comm
 from ..kernels import dispatch
 from ..kernels.swa import swa_attention
 from . import axis
@@ -97,6 +105,23 @@ def ring_attention(q, k, v, *, axis_name: str, causal: bool = True,
     return out.reshape(B, H, T, D).to(q.dtype)
 
 
+def _decode_partials(qg, k, v, valid, scale, attn_softcap=0.0):
+    """Flash-decoding's partial softmax of qg: (B, Hkv, g, D) over the slots
+    of k/v: (B, S, Hkv, D) where ``valid`` (broadcastable to (B, S)) holds.
+    Returns (acc, m, l): un-normalised weighted values, row max, row sum,
+    float32."""
+    logits = torch.einsum("bkgd,bskd->bkgs", qg * scale, k).float()
+    if attn_softcap:
+        logits = torch.tanh(logits / attn_softcap) * attn_softcap
+    vmask = valid[:, None, None, :] if valid.ndim == 2 else valid
+    logits = torch.where(vmask, logits, logits.new_full((), -1e30))
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.where(vmask, torch.exp(logits - m), logits.new_zeros(()))
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.einsum("bkgs,bskd->bkgd", p, v.float())
+    return acc, m, l
+
+
 def lse_combine_decode(q, k_shard, v_shard, kv_len_local, *, axis_name: str,
                        first_valid=None, scale: float | None = None):
     """Flash-decoding: one query token against a length-sharded KV cache.
@@ -109,21 +134,12 @@ def lse_combine_decode(q, k_shard, v_shard, kv_len_local, *, axis_name: str,
     (B, S_local).  The plain path on every device: there is no kernel."""
     B, H, D = q.shape
     Hkv = k_shard.shape[2]
-    g = H // Hkv
     scale = (D ** -0.5) if scale is None else scale
-    qg = q.reshape(B, Hkv, g, D)
-    logits = torch.einsum("bkgd,bskd->bkgs", qg * scale, k_shard).float()
-    S = k_shard.shape[1]
-    slots = torch.arange(S, device=q.device)[None, :]
+    slots = torch.arange(k_shard.shape[1], device=q.device)[None, :]
     valid = slots < kv_len_local[:, None]   # (B, S_local)
     if first_valid is not None:
         valid = valid & (slots >= torch.as_tensor(first_valid, device=q.device))
-    vmask = valid[:, None, None, :]
-    logits = torch.where(vmask, logits, logits.new_full((), -1e30))
-    m = logits.amax(dim=-1, keepdim=True)
-    p = torch.where(vmask, torch.exp(logits - m), logits.new_zeros(()))
-    l = p.sum(dim=-1, keepdim=True)
-    acc = torch.einsum("bkgs,bskd->bkgd", p, v_shard.float())
+    acc, m, l = _decode_partials(q.reshape(B, Hkv, H // Hkv, D), k_shard, v_shard, valid, scale)
     # global combine
     m_g = axis.pmax(m, axis_name)
     w = torch.exp(m - m_g)
@@ -133,4 +149,41 @@ def lse_combine_decode(q, k_shard, v_shard, kv_len_local, *, axis_name: str,
     return out.reshape(B, H, D).to(q.dtype)
 
 
-__all__ = ["lse_combine_decode", "ring_attention"]
+def decode_valid(slots, pos, S: int, ring: bool):
+    """The cache slots a decode step at position ``pos`` (a 0-d tensor)
+    attends to, from their GLOBAL indices ``slots`` in a cache of ``S``
+    slots: those written so far (``slots <= pos``), or every slot of a
+    ring buffer once it is full (``pos >= S``: a window layer's).  Global
+    indices mask a shard right wherever the first valid slot lies."""
+    valid = slots <= pos
+    return valid | (pos >= S) if ring else valid
+
+
+def lse_combine_decode_over(q, k_shard, v_shard, valid, sub, *, scale: float | None = None,
+                            attn_softcap: float = 0.0):
+    """Flash-decoding over a process subgroup: :func:`lse_combine_decode`
+    with the shards of the cache's slots spread over ``sub`` (a
+    ``comm.Subgroup``; None: one process holds every slot).
+
+    q: (B, H, D), every head; k/v_shard: (B, S_local, Hkv, D), this
+    process's slots; ``valid``: (S_local,) or (B, S_local), which of them
+    the token attends to (:func:`decode_valid` on their global indices).
+    The partials combine through ``comm.max_over`` of the row maxima and
+    one ``comm.sum_over`` of the weighted values and sums (O(H D) values,
+    not the cache).  Returns (B, H, D) in q's dtype.  The plain path on
+    every device, as the reference's (no kernel)."""
+    B, H, D = q.shape
+    Hkv = k_shard.shape[2]
+    scale = (D ** -0.5) if scale is None else scale
+    acc, m, l = _decode_partials(q.reshape(B, Hkv, H // Hkv, D), k_shard, v_shard, valid, scale,
+                                 attn_softcap)
+    if sub is not None:
+        m_g = comm.max_over(m, sub)
+        w = torch.exp(m - m_g)
+        both = comm.sum_over(torch.cat([acc * w, l * w], dim=-1), sub)
+        acc, l = both[..., :D], both[..., D:]
+    out = acc / torch.where(l == 0.0, torch.ones_like(l), l)
+    return out.reshape(B, H, D).to(q.dtype)
+
+
+__all__ = ["decode_valid", "lse_combine_decode", "lse_combine_decode_over", "ring_attention"]

@@ -7,10 +7,12 @@ card, ``swa_ref`` on the CPU.  A window layer passes ``layer.window``, a
 global layer ``window = S``, which ``swa_ref`` defines as plain causal
 attention.  The reference computes the same function with the jnp
 ``_attend`` under a band mask, or ``_attend_swa`` for long sequences.
-Decode is the plain :func:`_attend` over the cache, with the reference's
-ring-buffer slots and masks.  Under ``cfg.kv_quant`` the cache holds int8
-keys and values with one float32 scale per (token, kv head)
-(:func:`_kv_quantize`), dequantised before :func:`_attend`.
+Decode is plain attention over the cache (:func:`_decode`), with the
+reference's ring-buffer slots and masks, as a log-sum-exp combine of
+partial softmaxes (flash-decoding, one partial in one process).  Under
+``cfg.kv_quant`` the cache holds int8 keys and values with one float32
+scale per (token, kv head) (:func:`_kv_quantize`), dequantised before
+the attention.
 
 Under ``seq_axis`` (context parallelism, train mode only) x is this
 process's shard of a sequence sharded over the processes of the default
@@ -18,15 +20,26 @@ group: a window layer runs :func:`repro_torch.distributed.seqpar.
 seq_sliding_window_attention` (K6 over a kv halo), a global layer
 :func:`repro_torch.distributed.ring.ring_attention`.
 
-Under installed sharding rules (:mod:`repro_torch.distributed.sharding`;
-train mode, ``transformer.fwd`` raises on the others) the layer is tensor-parallel over the mesh axes of ``heads``,
-as Megatron-LM splits it: the weights arrive with their ``fsdp``
-dimensions gathered (``transformer``), ``wq`` holding this process's
-``H / tp`` query heads and ``wo`` their rows; ``wk``/``wv`` are whole
-(``kv_heads`` is not sharded) and the process slices the kv heads its query
-heads use.  The input passes through ``comm.copy_to`` (its gradient is
-summed over the heads' processes) and ``wo``'s partial outputs through
+Under installed sharding rules (:mod:`repro_torch.distributed.sharding`)
+the layer is tensor-parallel over the mesh axes of ``heads``, as
+Megatron-LM splits it: the weights arrive with their ``fsdp`` dimensions
+gathered (``transformer``), ``wq`` holding this process's ``H / tp`` query
+heads and ``wo`` their rows; ``wk``/``wv`` are whole (``kv_heads`` is not
+sharded).  In training the process slices the kv heads its query heads
+use; the input passes through ``comm.copy_to`` (its gradient is summed
+over the heads' processes) and ``wo``'s partial outputs through
 ``comm.sum_over``.  K6 runs on the local heads, forward and backward.
+
+Serving under rules (prefill and decode) computes k/v for every kv head,
+since the cache holds them all, and keeps this process's block of the
+cache: its rows of ``cache_batch`` and its slots of ``cache_seq``
+(:func:`cache_slots`, the reference's ``cache_shardings``).  Prefill runs
+K6 on the local heads.  Decode is flash-decoding: the owner of the new
+token's slot writes it, q is gathered over the heads' processes, every
+head's partial softmax is taken over the local slots and combined over
+the cache's subgroup (``distributed.ring.lse_combine_decode_over``), and
+the local heads go on to ``wo``.  Under sequence parallelism (prefill) the
+output is reduce-scattered over the tokens (``layers.row_join``).
 
 Cross-attention, non-causal layers and a soft cap on the kernel path
 raise: they come with the rest of the LM scaffolding (ROADMAP.md, Queue A
@@ -43,14 +56,17 @@ from torch import nn
 
 from ..core import comm
 from ..distributed import sharding
-from ..distributed.ring import ring_attention
+from ..distributed.ring import decode_valid, lse_combine_decode_over, ring_attention
 from ..distributed.seqpar import seq_sliding_window_attention
 from ..kernels.swa import swa_attention
-from .layers import rms_norm, rope, softcap
+from .layers import rms_norm, rope, row_join
 from .params import ParamSpec
 
 LATER = "ROADMAP.md, Queue A item 6"
-NEG_INF = -1e30
+# the logical axes of the cache's leaves (the reference's ``cache_axes``)
+CACHE_AXES = {"k": ("cache_batch", "cache_seq", None, None),
+              "v": ("cache_batch", "cache_seq", None, None),
+              "k_s": ("cache_batch", "cache_seq", None), "v_s": ("cache_batch", "cache_seq", None)}
 # the layer's weights whose gradient a tensor-parallel process holds only in
 # part (its query heads' share): summed over the heads' processes
 TP_PARTIAL = ("wk.weight", "wv.weight", "q_norm", "k_norm")
@@ -124,13 +140,30 @@ def tp_group(cfg, layer, rules):
     return sharding.subgroup(rules, tp_axes(cfg, layer, rules))
 
 
-def _local_kv(w, cfg, sub, Hl: int):
-    """The rows of a whole ``wk``/``wv`` weight ``(Hkv Dh, d)`` for the kv
-    heads that this process's query heads ``[i Hl, (i + 1) Hl)`` use."""
-    g, Dh = cfg.n_heads // cfg.n_kv, cfg.head_dim
+def _kv_range(cfg, sub, Hl: int) -> slice:
+    """The kv heads that this process's query heads ``[i Hl, (i + 1) Hl)``
+    use (``sub``: the heads' subgroup, ``i`` its index)."""
+    g = cfg.n_heads // cfg.n_kv
     q0 = sub.index * Hl
-    k0, k1 = q0 // g, (q0 + Hl - 1) // g + 1
-    return w[k0 * Dh:k1 * Dh]
+    return slice(q0 // g, (q0 + Hl - 1) // g + 1)
+
+
+def cache_slots(rules, cfg, batch: int, S: int):
+    """This process's slots of a KV cache of ``S`` slots and ``batch`` rows
+    under ``rules`` (the reference's ``cache_shardings``: ``cache_seq``
+    over the mesh axes that ``fit`` keeps for ``S``): ``(offset, n, sub)``,
+    the first global slot, the number of slots, and the subgroup that holds
+    the other slots (None: this process holds them all)."""
+    sp = rules.spec(*CACHE_AXES["k"], shape=(batch, S, cfg.n_kv, cfg.head_dim))[1]
+    n = S // sharding.entry_size(rules.mesh, sp)
+    return rules.mesh.index(sp) * n, n, sharding.subgroup(rules, sharding.entry_axes(sp))
+
+
+def _check_cache(cache: dict, cfg, batch: int, S: int) -> None:
+    """``sharding.shd`` of every leaf of a layer's cache block: the local
+    shape the reference's ``cache_shardings`` gives."""
+    for name, t in cache.items():
+        sharding.shd(t, *CACHE_AXES[name], shape=(batch, S, cfg.n_kv, cfg.head_dim)[:t.ndim])
 
 
 def _kv_quantize(kv):
@@ -149,23 +182,6 @@ def _kv_dequantize(q, s, dtype):
     return (q.float() * s[..., None]).to(dtype)
 
 
-def _expand_kv(kv, H):
-    """(B, S, Hkv, D) -> (B, S, H, D) by repeating each kv head g times."""
-    return torch.repeat_interleave(kv, H // kv.shape[2], dim=2)
-
-
-def _attend(q, kh, vh, mask, *, attn_softcap=0.0):
-    """The plain attention of decode.  q: (B,T,H,D); kh/vh: (B,S,H,D);
-    mask: (T,S) bool."""
-    scale = q.shape[-1] ** -0.5
-    logits = torch.einsum("bthd,bshd->bhts", q * scale, kh).float()
-    if attn_softcap:
-        logits = softcap(logits, attn_softcap)
-    logits = torch.where(mask, logits, logits.new_full((), NEG_INF))
-    p = torch.softmax(logits, dim=-1).to(q.dtype)
-    return torch.einsum("bhts,bshd->bthd", p, vh)
-
-
 def _ring(kv, S_c: int, last):
     """The last ``S_c`` tokens of ``kv`` (B, T, Hkv, D) laid out as the
     reference's ring buffer: ``roll`` by ``(last + 1) % S_c`` along time,
@@ -175,60 +191,57 @@ def _ring(kv, S_c: int, last):
 
 
 def fwd(attn: Attention, cfg, layer, x, *, mode, positions, cache=None, cache_len=None,
-        seq_axis: str | None = None, use_kernel: str = "auto"):
+        batch: int | None = None, seq_axis: str | None = None, seq_group=None,
+        use_kernel: str = "auto"):
     """Returns (out, new_cache).
 
     mode: train | prefill | decode.  positions: (T,) absolute positions of
     the x tokens (decode: (1,) the current position), a tensor on x's
     device.  cache (decode): {"k", "v": (B, S_cache, Hkv, Dh)}; prefill
     creates it at ``cache_len`` (default T).  Decode returns new cache
-    tensors and leaves the given ones as they are."""
+    tensors and leaves the given ones as they are.
+
+    Under sharding rules, prefill and decode (serving): x is this
+    process's rows, ``batch`` the global batch and ``cache_len`` the
+    global cache length (decode too); the cache is this process's block
+    (:func:`cache_slots`).  ``seq_group``: the tokens' subgroup under
+    sequence parallelism, over which the output is reduce-scattered
+    (``layers.row_join``)."""
     check_layer(cfg, layer)
     if seq_axis is not None and mode != "train":
         raise ValueError(f"seq_axis (context parallelism) runs train mode only, got {mode!r}")
     B, T, _ = x.shape
     H, Hkv, Dh = cfg.n_heads, cfg.n_kv, cfg.head_dim
-    tp = tp_group(cfg, layer, sharding.current())
+    rules = sharding.current()
+    serving = rules is not None and mode != "train"
+    tp = tp_group(cfg, layer, rules)
+    kv = slice(0, Hkv)
     wk, wv = attn.wk.weight, attn.wv.weight
     if tp is not None:   # this process's query heads and the kv heads they use
         x = comm.copy_to(x, tp)
         H = H // tp.size
-        wk, wv = _local_kv(wk, cfg, tp, H), _local_kv(wv, cfg, tp, H)
-        Hkv = wk.shape[0] // Dh
+        kv = _kv_range(cfg, tp, H)
+        if not serving:   # the serving cache holds every kv head: k/v of all of them
+            wk, wv = wk[kv.start * Dh:kv.stop * Dh], wv[kv.start * Dh:kv.stop * Dh]
     q = F.linear(x, attn.wq.weight).view(B, T, H, Dh)
-    k = F.linear(x, wk).view(B, T, Hkv, Dh)
-    v = F.linear(x, wv).view(B, T, Hkv, Dh)
+    k = F.linear(x, wk).view(B, T, -1, Dh)
+    v = F.linear(x, wv).view(B, T, -1, Dh)
     if cfg.qk_norm:  # no (1 + w) here, even under gemma_norm, as in the reference
         q = rms_norm(q, attn.q_norm, cfg.norm_eps)
         k = rms_norm(k, attn.k_norm, cfg.norm_eps)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)  # the cache stores post-RoPE keys
+    kc, vc = k, v   # the cache's kv heads
+    if serving:
+        k, v = k[:, :, kv], v[:, :, kv]
 
     window = layer.window if layer.mixer == "swa" else 0
 
     if mode == "decode":
         if cache is None or T != 1:
             raise ValueError(f"decode takes one token and a cache, got T={T}")
-        S = cache["k"].shape[1]
-        pos = positions[0]
-        slot = torch.remainder(pos, S) if window else torch.clamp(pos, max=S - 1)
-        slot = slot.reshape(1)
-        if cfg.kv_quant:
-            (kq, ks), (vq, vs) = _kv_quantize(k), _kv_quantize(v)
-            knew, vnew = cache["k"].index_copy(1, slot, kq), cache["v"].index_copy(1, slot, vq)
-            ksn = cache["k_s"].index_copy(1, slot, ks)
-            vsn = cache["v_s"].index_copy(1, slot, vs)
-            new_cache = dict(cache, k=knew, v=vnew, k_s=ksn, v_s=vsn)
-            kf, vf = _kv_dequantize(knew, ksn, k.dtype), _kv_dequantize(vnew, vsn, v.dtype)
-        else:
-            knew = cache["k"].index_copy(1, slot, k.to(cache["k"].dtype))
-            vnew = cache["v"].index_copy(1, slot, v.to(cache["v"].dtype))
-            new_cache = dict(cache, k=knew, v=vnew)
-            kf, vf = knew, vnew
-        sl = torch.arange(S, device=x.device)
-        valid = (sl <= pos) | (pos >= S) if window else sl <= pos  # a full ring: every slot
-        out = _attend(q, _expand_kv(kf, H), _expand_kv(vf, H), valid[None, :],
-                      attn_softcap=cfg.attn_softcap)
+        out, new_cache = _decode(q, kc, vc, cache, positions[0], cfg, window, tp, batch,
+                                 cache_len)
     elif seq_axis is not None:
         # context parallelism: the sequence is sharded over the group's
         # processes and x is this process's shard at absolute ``positions``;
@@ -258,24 +271,70 @@ def fwd(attn: Attention, cfg, layer, x, *, mode, positions, cache=None, cache_le
             if window:
                 S_c = min(window, S_target)
                 if T >= S_c:  # keep the last S_c tokens, laid out ring-buffer style
-                    ks, vs = _ring(k, S_c, positions[-1]), _ring(v, S_c, positions[-1])
+                    ks, vs = _ring(kc, S_c, positions[-1]), _ring(vc, S_c, positions[-1])
                 else:
-                    ks = F.pad(k, (0, 0, 0, 0, 0, S_c - T))
-                    vs = F.pad(v, (0, 0, 0, 0, 0, S_c - T))
+                    ks = F.pad(kc, (0, 0, 0, 0, 0, S_c - T))
+                    vs = F.pad(vc, (0, 0, 0, 0, 0, S_c - T))
             else:
-                pad = max(0, S_target - T)
-                ks = F.pad(k, (0, 0, 0, 0, 0, pad))
-                vs = F.pad(v, (0, 0, 0, 0, 0, pad))
+                S_c = max(S_target, T)
+                ks = F.pad(kc, (0, 0, 0, 0, 0, S_c - T))
+                vs = F.pad(vc, (0, 0, 0, 0, 0, S_c - T))
+            if serving:   # this process's block of the slots
+                off, n, _ = cache_slots(rules, cfg, batch, S_c)
+                ks, vs = ks[:, off:off + n], vs[:, off:off + n]
             if cfg.kv_quant:
                 (kq, kss), (vq, vss) = _kv_quantize(ks), _kv_quantize(vs)
                 new_cache = {"k": kq, "v": vq, "k_s": kss, "v_s": vss}
             else:
                 new_cache = {"k": ks, "v": vs}
+            if serving:
+                _check_cache(new_cache, cfg, batch, S_c)
 
     out = F.linear(out.reshape(B, T, H * Dh), attn.wo.weight)
-    if tp is not None:   # wo is row-parallel: the processes' partial outputs summed
-        out = comm.sum_over(out, tp)
-    return out, new_cache
+    # wo is row-parallel: the processes' partial outputs summed
+    return row_join(out, tp, seq_group), new_cache
+
+
+def _decode(q, k, v, cache, pos, cfg, window: int, tp, batch, cache_len):
+    """One decode step against the cache, or under sharding rules against
+    this process's block of a length-sharded cache (flash-decoding).  q:
+    (B, 1, Hl, Dh), the (local) query heads; k/v: (B, 1, Hkv, Dh), the new
+    token's, every kv head.  The holder of the token's slot (``pos % S`` in
+    a window layer's ring, ``min(pos, S - 1)`` in a global layer's cache)
+    writes it; q is gathered over the heads' processes, every head's
+    partial softmax taken over the local slots (validity from their global
+    indices) and combined over the cache's subgroup; the local heads are
+    kept.  Returns (out (B, 1, Hl, Dh), new cache)."""
+    rules = sharding.current()
+    if rules is None:   # one process holds every slot
+        S = n = cache["k"].shape[1]
+        off, sub = 0, None
+    else:
+        S = min(window, cache_len) if window else cache_len
+        off, n, sub = cache_slots(rules, cfg, batch, S)
+        _check_cache(cache, cfg, batch, S)
+    slots = off + torch.arange(n, device=q.device)
+    slot = torch.remainder(pos, S) if window else torch.clamp(pos, max=S - 1)
+    own = (slots == slot)[None, :, None, None]   # a where, not a host branch
+    if cfg.kv_quant:
+        (kq, ks), (vq, vs) = _kv_quantize(k), _kv_quantize(v)
+        knew, vnew = torch.where(own, kq, cache["k"]), torch.where(own, vq, cache["v"])
+        ksn = torch.where(own[..., 0], ks, cache["k_s"])
+        vsn = torch.where(own[..., 0], vs, cache["v_s"])
+        new_cache = dict(cache, k=knew, v=vnew, k_s=ksn, v_s=vsn)
+        kf, vf = _kv_dequantize(knew, ksn, k.dtype), _kv_dequantize(vnew, vsn, v.dtype)
+    else:
+        knew = torch.where(own, k.to(cache["k"].dtype), cache["k"])
+        vnew = torch.where(own, v.to(cache["v"].dtype), cache["v"])
+        new_cache = dict(cache, k=knew, v=vnew)
+        kf, vf = knew, vnew
+    Hl = q.shape[2]
+    qa = q[:, 0] if tp is None else comm.gather_over(q[:, 0], tp, dim=1)
+    o = lse_combine_decode_over(qa, kf, vf, decode_valid(slots, pos, S, bool(window)), sub,
+                                attn_softcap=cfg.attn_softcap)
+    if tp is not None:
+        o = o[:, tp.index * Hl:(tp.index + 1) * Hl]
+    return o[:, None], new_cache
 
 
 def cache_len_hint(cfg, layer) -> int:

@@ -30,7 +30,7 @@ from ..distributed import sharding
 from . import attention
 from . import moe as moe_mod
 from . import ssm as ssm_mod
-from .layers import act_fn, glu, rms_norm
+from .layers import act_fn, glu, rms_norm, row_join
 from .params import ParamSpec
 
 LATER = "ROADMAP.md, Queue A item 6 (cross-attention)"
@@ -90,7 +90,7 @@ def ffn_tp_group(cfg, rules):
     return sharding.subgroup(rules, ffn_tp_axes(cfg, rules))
 
 
-def ffn_fwd(ffn: FFN, cfg, x):
+def ffn_fwd(ffn: FFN, cfg, x, seq_group=None):
     tp = ffn_tp_group(cfg, sharding.current())
     if tp is not None:
         x = comm.copy_to(x, tp)
@@ -99,15 +99,19 @@ def ffn_fwd(ffn: FFN, cfg, x):
         h = glu(h.unflatten(-1, (2, -1)), cfg.act)
     else:
         h = act_fn(cfg.act)(h)
-    out = F.linear(h, ffn.wo.weight)
-    return out if tp is None else comm.sum_over(out, tp)
+    return row_join(F.linear(h, ffn.wo.weight), tp, seq_group)
 
 
-def check_sharded(cfg, layer, rules) -> None:
+def check_sharded(cfg, layer, rules, *, batch: int | None = None, prompt: int | None = None,
+                  cache_len: int | None = None) -> None:
     """Raise, naming the shapes and the mesh, where a shape of ``layer``
     that ``rules`` split does not split over the mesh: its mixer's heads
-    (attention, Mamba) and its FFN's ``d_ff`` or experts.  Reads the rules
-    only (no subgroup is made), so it may run before any collective."""
+    (attention, Mamba) and its FFN's ``d_ff`` or experts.  Serving
+    (``batch``, the global batch; ``prompt``, ``cache_len``): also where
+    the rules would split the caches' rows otherwise than the batch's (a
+    process would hold rows it does not compute), or where a prompt is
+    longer than an attention layer's cache.  Reads the rules only (no
+    subgroup is made), so it may run before any collective."""
     if rules is None:
         return
     if layer.mixer == "mamba":
@@ -118,6 +122,26 @@ def check_sharded(cfg, layer, rules) -> None:
         moe_mod.ep_axes(cfg, rules)
     elif layer.ffn:
         ffn_tp_axes(cfg, rules)
+    if batch is None:
+        return
+    mesh = rules.mesh
+    if layer.mixer != "mamba" and prompt is not None and prompt > cache_len:
+        raise NotImplementedError(
+            f"a prompt of {prompt} tokens is longer than the caches' {cache_len} slots: "
+            f"under sharding rules the caches are split at cache_len ({dict(mesh.shape)})")
+    rows = sharding.entry_axes(rules.spec("batch", None, shape=(batch, 1))[0])
+    for name, t in layer_cache_specs(cfg, layer, batch, cache_len or 1,
+                                     torch.float32)["mixer"].items():
+        axes = CACHE_AXES[name][:t.ndim]
+        got = sharding.entry_axes(rules.spec(*axes, shape=tuple(t.shape))[0])
+        if got != rows:
+            raise NotImplementedError(
+                f"a batch of {batch} rows splits over the mesh axes {rows}, the rows of the "
+                f"cache leaf {name!r} {tuple(t.shape)} over {got} ({dict(mesh.shape)})")
+
+
+# the logical axes of every cache leaf (the reference's cache_axes)
+CACHE_AXES = {**attention.CACHE_AXES, **ssm_mod.CACHE_AXES}
 
 
 def layer_specs(cfg, layer) -> dict:
@@ -159,11 +183,21 @@ class Block(nn.Module):
 
 
 def layer_fwd(block: Block, cfg, layer, x, *, mode, positions=None, cache=None,
-              cache_len=None, seq_axis=None, use_kernel: str = "auto"):
+              cache_len=None, batch=None, seq_axis=None, seq_group=None,
+              use_kernel: str = "auto"):
     """Returns (x, new_cache, aux).  ``seq_axis``: x is this process's
     shard of a sequence sharded over the default group (context
     parallelism); the mixers exchange their halos, the FFN (dense, or MoE
-    at the shard's capacity, as the reference's) is local."""
+    at the shard's capacity, as the reference's) is local.
+
+    ``seq_group``: sequence parallelism under sharding rules (prefill): x
+    is this process's block of the tokens (B, T / k, d); the normed input
+    of the mixer and of the FFN is gathered over the subgroup
+    (``comm.gather_over``), so that they see every token (the MoE's
+    capacity is the reference's), and their row-parallel outputs are
+    reduce-scattered back (``layers.row_join``).  ``batch``,
+    ``cache_len``: the global batch and cache length of serving under
+    rules."""
     aux = x.new_zeros((), dtype=torch.float32)
     if cache is not None:
         new_cache = dict(cache)
@@ -172,27 +206,30 @@ def layer_fwd(block: Block, cfg, layer, x, *, mode, positions=None, cache=None,
     else:
         new_cache = None
 
-    def norm(h, w):
-        return rms_norm(h, w, cfg.norm_eps, scale_plus_one=cfg.gemma_norm)
+    def norm(h, w):   # every token's, under sequence parallelism
+        h = rms_norm(h, w, cfg.norm_eps, scale_plus_one=cfg.gemma_norm)
+        return h if seq_group is None else comm.gather_over(h, seq_group, 1)
 
     mixer_cache = cache.get("mixer") if cache is not None else None
     if layer.mixer == "mamba":
         h, c = ssm_mod.fwd(block.mixer, cfg, norm(x, block.ln1), mode=mode, cache=mixer_cache,
-                           seq_axis=seq_axis, use_kernel=use_kernel)
+                           batch=batch, seq_axis=seq_axis, seq_group=seq_group,
+                           use_kernel=use_kernel)
     else:
         h, c = attention.fwd(block.mixer, cfg, layer, norm(x, block.ln1), mode=mode,
                              positions=positions, cache=mixer_cache, cache_len=cache_len,
-                             seq_axis=seq_axis, use_kernel=use_kernel)
+                             batch=batch, seq_axis=seq_axis, seq_group=seq_group,
+                             use_kernel=use_kernel)
     x = x + h
     if new_cache is not None and c is not None:
         new_cache["mixer"] = c
     if has_ffn(layer):
         h = norm(x, block.ln2)
         if layer.moe:
-            h, a = moe_mod.fwd(block.ffn, cfg, h)
+            h, a = moe_mod.fwd(block.ffn, cfg, h, seq_group)
             aux = aux + a
         else:
-            h = ffn_fwd(block.ffn, cfg, h)
+            h = ffn_fwd(block.ffn, cfg, h, seq_group)
         x = x + h
     return x, new_cache, aux
 

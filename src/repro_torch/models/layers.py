@@ -1,6 +1,7 @@
 """Shared layers of the port's models: the RMS norm, activations, the
-gated FFN activation, rotary embeddings, the soft cap and the chunked
-cross-entropy loss of training.
+gated FFN activation, rotary embeddings, the soft cap, the chunked
+cross-entropy loss of training, and the join of a row-parallel output
+(:func:`row_join`).
 
 The port's twin of the JAX package's ``models/layers.py``."""
 
@@ -71,6 +72,23 @@ def softcap(x, cap: float):
     if not cap:
         return x
     return torch.tanh(x / cap) * cap
+
+
+def row_join(out, tp, seq=None):
+    """The join of a row-parallel output ``out`` (B, T, d): the partial
+    outputs of the processes of ``tp`` summed (``comm.sum_over``; None: a
+    whole output).  ``seq``: under sequence parallelism, the subgroup that
+    splits the tokens (dim 1); the join keeps this process's block of
+    them, a reduce-scatter where ``seq`` is ``tp`` (the same bits: both add
+    the partials in index order)."""
+    if seq is None:
+        return out if tp is None else comm.sum_over(out, tp)
+    if tp is not None and tp.ranks == seq.ranks:
+        return comm.reduce_scatter_over(out, tp, dim=1)
+    if tp is not None:
+        out = comm.sum_over(out, tp)
+    n = out.shape[1] // seq.size
+    return out[:, seq.index * n:(seq.index + 1) * n]
 
 
 def _chunk_xent(hb, w_out, lb, logit_softcap: float, n_valid: int | None, vocab=None):

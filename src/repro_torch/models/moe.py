@@ -40,7 +40,7 @@ from torch import nn
 
 from ..core import comm
 from ..distributed import sharding
-from .layers import glu
+from .layers import glu, row_join
 from .params import ParamSpec
 
 
@@ -149,11 +149,13 @@ def dispatch(eid, C: int, E: int):
     return dest, order // K, order
 
 
-def fwd(moe: MoE, cfg, x):
+def fwd(moe: MoE, cfg, x, seq_group=None):
     """x: (B, T, d) -> (out (B, T, d), aux loss float32 0-d).  The router
     is called as a module, so a forward hook on ``moe.router`` sees the
     layer's input and logits (from which :func:`route` and :func:`dispatch`
-    give its slots and drops)."""
+    give its slots and drops).  ``seq_group``: under sequence parallelism
+    (prefill) x holds every token and the output keeps this process's
+    block of them (``layers.row_join``)."""
     m = cfg.moe
     B, T, d = x.shape
     E, K = m.n_experts, m.top_k
@@ -213,6 +215,5 @@ def fwd(moe: MoE, cfg, x):
     if m.n_shared:   # column- and row-parallel over the same processes (ep_axes)
         hs = glu(F.linear(x, moe.shared_wi.weight).unflatten(-1, (2, -1)), cfg.act)
         out = out + F.linear(hs, moe.shared_wo.weight)
-    if ep is not None:   # the processes' partial outputs summed
-        out = comm.sum_over(out, ep)
-    return out, aux
+    # the processes' partial outputs summed
+    return row_join(out, ep, seq_group), aux

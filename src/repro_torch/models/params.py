@@ -24,7 +24,7 @@ import torch
 
 from .._device import resolve_device
 from ..core import comm
-from ..distributed.sharding import entry_axes, local_shape
+from ..distributed.sharding import entry_axes, entry_size, local_shape
 
 STD = {"normal": 0.02, "small_normal": 0.006}
 DRAW_CHUNK = 1 << 30   # values drawn at once by materialize (4 GiB in float32)
@@ -55,6 +55,13 @@ class RefLeaf:
     def to_ref(self, t: torch.Tensor) -> torch.Tensor:
         """The port's tensor -> one repeat of the reference leaf."""
         return t.T.reshape(self.shape) if self.n_in else t
+
+    @property
+    def port_shape(self) -> tuple:
+        """The shape of the port's tensor of one repeat."""
+        if not self.n_in:
+            return tuple(self.shape)
+        return (math.prod(self.shape[self.n_in:]), math.prod(self.shape[:self.n_in]))
 
     def from_ref(self, a: torch.Tensor) -> torch.Tensor:
         """One repeat of the reference leaf -> the port's tensor."""
@@ -159,6 +166,16 @@ def spec(leaf: RefLeaf, rules) -> tuple:
 def local(leaf: RefLeaf, rules) -> RefLeaf:
     """The leaf as one process holds it: its block of one repeat."""
     return dataclasses.replace(leaf, shape=local_shape(rules.mesh, spec(leaf, rules), leaf.shape))
+
+
+def served(leaf: RefLeaf, rules, whole: bool = False) -> RefLeaf:
+    """The leaf as :func:`fsdp_gather` gives it to one process: its
+    ``fsdp`` dimensions whole, the others its block (``whole``: every
+    dimension whole)."""
+    sp = spec(leaf, rules)
+    shape = tuple(n if whole or name == "fsdp" else n // entry_size(rules.mesh, e)
+                  for name, e, n in zip(logical_axes(leaf), sp, leaf.shape))
+    return dataclasses.replace(leaf, shape=shape)
 
 
 def block_slices(sp: tuple, shape, mesh, index=None) -> tuple:

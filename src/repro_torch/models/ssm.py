@@ -8,7 +8,7 @@ maps head h to group ``h // (H // G)``, which gives the same result and
 saves two per-head copies of B/C per layer (2 x 134 MB at 4 x 2048 tokens
 of mamba2-1.3b in bf16).
 
-Under installed sharding rules (train mode) the layer is tensor-parallel
+Under installed sharding rules (training and serving) the layer is tensor-parallel
 over the mesh axes that split ``out_proj``'s ``d_inner`` rows (the
 ``ffn`` rule): process ``r`` of ``tp`` runs heads ``[r H/tp, (r+1) H/tp)``,
 the block of rows ``out_proj`` holds.  The stored layout stays the
@@ -21,7 +21,10 @@ sliced alike (:data:`TP_PARTIAL`: their gradients, and the B/C columns',
 are partial and summed over the processes).  The input passes through
 ``comm.copy_to``, ``out_proj`` is row-parallel (``comm.sum_over``), and
 the gated RMS norm sums its mean square over the processes.  K7 and its
-backward run on the local heads.
+backward run on the local heads.  Serving keeps the reference's cache
+layout: the SSM state is the local heads' (``state_heads``), the conv
+state whole on every process, so prefill and decode compute the whole
+``xBC`` from ``in_proj`` and take their channels from it.
 """
 
 from __future__ import annotations
@@ -36,13 +39,16 @@ from ..core import comm
 from ..distributed import sharding
 from ..distributed.seqpar import seq_conv1d_causal, seq_ssd_scan
 from ..kernels.ssd import ssd_decode_step, ssd_scan
-from .layers import rms_norm
+from .layers import rms_norm, row_join
 from .params import ParamSpec
 
 # the replicated leaves a tensor-parallel process slices to its heads: their
 # gradient on a process is its heads' (and its groups') share, summed over
 # the heads' processes
 TP_PARTIAL = ("conv_w", "conv_b", "A_log", "D", "dt_bias", "norm_w")
+# the logical axes of the cache's leaves (the reference's ``cache_axes``)
+CACHE_AXES = {"conv": ("cache_batch", None, None),
+              "ssm": ("cache_batch", "state_heads", None, None)}
 
 
 def _dims(cfg):
@@ -141,23 +147,46 @@ def local_rows(cfg, r: int, tp: int):
 
 def _local(m: Mamba2, cfg, sub):
     """The layer's weights for this process's heads (``sub``: the heads'
-    subgroup, None: all of them): ``in_proj`` (rows of the whole weight),
-    ``conv_w``, ``conv_b``, ``A_log``, ``D``, ``dt_bias``, ``norm_w``, and
-    the local ``(d_inner, H, G)``."""
+    subgroup, None: all of them): the rows of the whole ``in_proj`` weight
+    to take (an index tensor, None: all) and the indices of the conv's
+    channels (None: all), ``conv_w``, ``conv_b``, ``A_log``, ``D``,
+    ``dt_bias``, ``norm_w``, and the local ``(d_inner, H, G)``."""
     d_in, H, _ = _dims(cfg)
     if sub is None:
-        return (m.in_proj.weight, *(getattr(m, n) for n in TP_PARTIAL),
-                (d_in, H, cfg.ssm.n_groups))
+        return (None, None, *(getattr(m, n) for n in TP_PARTIAL), (d_in, H, cfg.ssm.n_groups))
     proj, conv = (i.to(m.in_proj.weight.device) for i in local_rows(cfg, sub.index, sub.size))
     (h0, h1), (g0, g1) = _local_parts(cfg, sub.index, sub.size)
     P = cfg.ssm.head_dim
-    return (m.in_proj.weight[proj], m.conv_w[:, conv], m.conv_b[conv], m.A_log[h0:h1],
+    return (proj, conv, m.conv_w[:, conv], m.conv_b[conv], m.A_log[h0:h1],
             m.D[h0:h1], m.dt_bias[h0:h1], m.norm_w[h0 * P:h1 * P],
             ((h1 - h0) * P, h1 - h0, g1 - g0))
 
 
-def fwd(m: Mamba2, cfg, x, *, mode, cache=None, seq_axis: str | None = None,
-        use_kernel: str = "auto"):
+def _serving_in_proj(m: Mamba2, cfg, x, sub):
+    """``in_proj`` of a tensor-parallel layer when serving: this process's
+    heads' z and dt, and the WHOLE ``xBC`` (every channel of the conv),
+    which the conv state keeps on every process (``conv ("cache_batch",
+    None, None)``); each from a contiguous block of the whole weight's
+    rows."""
+    d_in, _, conv_dim = _dims(cfg)
+    (h0, h1), _ = _local_parts(cfg, sub.index, sub.size)
+    P, W = cfg.ssm.head_dim, m.in_proj.weight
+    dt0 = d_in + conv_dim
+    return (F.linear(x, W[h0 * P:h1 * P]), F.linear(x, W[d_in:dt0]),
+            F.linear(x, W[dt0 + h0:dt0 + h1]))
+
+
+def _check_cache(cache: dict, cfg, batch: int) -> None:
+    """``sharding.shd`` of a layer's cache block: the conv state whole but
+    for its rows, the SSM state this process's heads (``state_heads``)."""
+    s = cfg.ssm
+    _, H, conv_dim = _dims(cfg)
+    sharding.shd(cache["conv"], *CACHE_AXES["conv"], shape=(batch, s.conv_kernel - 1, conv_dim))
+    sharding.shd(cache["ssm"], *CACHE_AXES["ssm"], shape=(batch, H, s.d_state, s.head_dim))
+
+
+def fwd(m: Mamba2, cfg, x, *, mode, cache=None, batch: int | None = None,
+        seq_axis: str | None = None, seq_group=None, use_kernel: str = "auto"):
     """x: (B, T, d).  Returns (out, new_cache).
 
     seq_axis: x is this process's shard of a sequence sharded over the
@@ -167,28 +196,44 @@ def fwd(m: Mamba2, cfg, x, *, mode, cache=None, seq_axis: str | None = None,
 
     cache (decode): {"conv": (B, K-1, conv_dim), "ssm": (B, H, N, P)}: the
     conv cache holds the pre-activation ``xBC`` of the last K-1 tokens, the
-    SSM cache the state in x's dtype (read back in float32)."""
+    SSM cache the state in x's dtype (read back in float32).
+
+    Under sharding rules, serving (prefill, decode): x is this process's
+    rows and ``batch`` the global batch; the SSM state is the local heads'
+    and the conv state whole (:func:`_serving_in_proj`).  ``seq_group``:
+    the tokens' subgroup under sequence parallelism (prefill), over which
+    the output is reduce-scattered (``layers.row_join``)."""
     s = cfg.ssm
     B, T, d = x.shape
-    tp = tp_group(cfg, sharding.current())
+    rules = sharding.current()
+    serving = rules is not None and mode != "train"
+    tp = tp_group(cfg, rules)
     if tp is not None:   # this process's heads; the input's gradient summed over tp
         x = comm.copy_to(x, tp)
-    w_in, conv_w, conv_b, A_log, D, dt_bias, norm_w, (d_in, H, G) = _local(m, cfg, tp)
+    proj, conv, conv_w, conv_b, A_log, D, dt_bias, norm_w, (d_in, H, G) = _local(m, cfg, tp)
     N, P = s.d_state, s.head_dim
     conv_dim = d_in + 2 * G * N
 
-    zxbcdt = F.linear(x, w_in)
-    z, xBC, dt = zxbcdt.split((d_in, conv_dim, H), dim=-1)
+    if serving and tp is not None:   # xBC_all: every channel, for the conv state
+        z, xBC_all, dt = _serving_in_proj(m, cfg, x, tp)
+        xBC = xBC_all.index_select(-1, conv)
+    else:
+        w_in = m.in_proj.weight if proj is None else m.in_proj.weight[proj]
+        z, xBC, dt = F.linear(x, w_in).split((d_in, conv_dim, H), dim=-1)
+        xBC_all, conv = xBC, None
     A = -torch.exp(A_log.float())
+    if serving and cache is not None:
+        _check_cache(cache, cfg, batch)
 
     if mode == "decode":
         if cache is None or T != 1:
             raise ValueError(f"decode takes one token and a cache, got T={T}")
-        conv_st = cache["conv"]  # (B, K-1, conv_dim)
-        window = torch.cat([conv_st, xBC], dim=1)  # (B, K, conv_dim)
+        conv_st = cache["conv"]  # (B, K-1, conv_dim), every channel
+        window = torch.cat([conv_st, xBC_all], dim=1)  # (B, K, conv_dim)
+        mine = window if conv is None else window.index_select(-1, conv)
         # window[k]: oldest..current; the conv applies w[j] to x[t-j], so
         # the current token takes w[0] -> flip w along taps
-        xBC_t = torch.einsum("bkc,kc->bc", window, conv_w.flip(0)) + conv_b
+        xBC_t = torch.einsum("bkc,kc->bc", mine, conv_w.flip(0)) + conv_b
         xBC_t = F.silu(xBC_t)
         new_conv = window[:, 1:]
         xs = xBC_t[..., :d_in].reshape(B, H, P)
@@ -217,19 +262,20 @@ def fwd(m: Mamba2, cfg, x, *, mode, cache=None, seq_axis: str | None = None,
         new_cache = None
         if mode == "prefill":
             K = s.conv_kernel
-            pad = xBC.new_zeros(B, max(0, K - 1 - T), conv_dim)
+            pad = xBC_all.new_zeros(B, max(0, K - 1 - T), xBC_all.shape[-1])
             # the conv state holds the PRE-activation stream (post in_proj)
             new_cache = {
-                "conv": torch.cat([pad, xBC[:, -(K - 1):]], dim=1),
+                "conv": torch.cat([pad, xBC_all[:, -(K - 1):]], dim=1),
                 "ssm": h_fin.to(x.dtype),
             }
+            if serving:
+                _check_cache(new_cache, cfg, batch)
 
     # the gated norm's mean square over the whole d_inner: summed over tp
     y = rms_norm(y * F.silu(z), norm_w, cfg.norm_eps, over=tp)
     out = F.linear(y, m.out_proj.weight)
-    if tp is not None:   # out_proj is row-parallel: the partial outputs summed
-        out = comm.sum_over(out, tp)
-    return out, new_cache
+    # out_proj is row-parallel: the partial outputs summed
+    return row_join(out, tp, seq_group), new_cache
 
 
 def init_cache_specs(cfg, batch: int, dtype) -> dict:

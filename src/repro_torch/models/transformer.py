@@ -19,8 +19,8 @@ runs the same forward on them through ``torch.func.functional_call``, each
 layer under ``torch.utils.checkpoint`` as ``remat`` says
 (:data:`REMAT_POLICIES`).
 
-Under installed sharding rules (:mod:`repro_torch.distributed.sharding`;
-training only) the parameters are each process's blocks
+Under installed sharding rules (:mod:`repro_torch.distributed.sharding`),
+in training, the parameters are each process's blocks
 (``params.shard``) and the batch its rows: every layer's ``fsdp``
 dimensions are gathered just before it runs, inside its checkpoint, so
 that remat ``"full"`` gathers again in the backward rather than keeping
@@ -28,6 +28,16 @@ the whole weights (ZeRO-3); the embedding is gathered once a step and
 split by vocabulary, each process looking up the ids in its range and a
 sum over the vocabulary's processes joining the rows; the same table is
 the tied head of the vocabulary-parallel loss.
+
+Serving under rules (:func:`prefill`, :func:`decode_step`, as the
+reference's ``launch/build.py`` installs them: ``seq_parallel`` at
+prefill) runs on the model of :func:`serving_model`, whose weights have
+their ``fsdp`` dimensions gathered once (the tensor-parallel split kept),
+so that no step gathers a weight.  Prefill takes the global prompt and
+keeps this process's rows; under sequence parallelism the hidden state
+between layers is this process's block of the tokens.  Every process keeps
+its block of each cache leaf (:func:`cache_shardings`), and the logits are
+its rows' block of the vocabulary.
 """
 
 from __future__ import annotations
@@ -42,6 +52,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from .._device import resolve_device
 from ..core import comm
+from ..data.pipeline import local_rows
 from ..distributed import sharding
 from . import attention, blocks, moe, ssm
 from . import params as pm
@@ -172,7 +183,13 @@ def reference_layout(cfg) -> dict:
     return out
 
 
-SERVE_SHARDED = "ROADMAP.md, Queue A item 9 (serving under sharding rules)"
+# train mode under rules that map "seq" (the reference's dry-run train cells of
+# launch/build.py) comes with the port of launch/ ...
+SERVE_SHARDED = "ROADMAP.md, Queue A item 6 (launch/: train mode under rules that map seq)"
+# ... and no reference path runs context parallelism under installed rules
+# (its distributed/context_parallel.py runs with the parameters replicated)
+SEQ_AXIS_SHARDED = ("seq_axis (context parallelism) under sharding rules: no reference path "
+                    "combines them; context parallelism runs with the parameters replicated")
 # reference_layout, made once per config (the sharded paths read it every step)
 layout_of = functools.lru_cache(maxsize=None)(reference_layout)
 
@@ -203,16 +220,38 @@ def parameter_shapes(cfg) -> dict:
     return {n: tuple(p.shape) for n, p in m.named_parameters()}
 
 
-def check_state(cfg, state: dict) -> None:
+def state_shapes(cfg, rules=None, served: bool = False) -> dict:
+    """``{name: shape}`` of every parameter as a :class:`Model` holds it:
+    whole (no rules), this process's blocks under ``rules``
+    (``params.local``), or, ``served``, each weight with its ``fsdp``
+    dimensions gathered (a Mamba layer's ``in_proj`` whole;
+    ``params.served``)."""
+    if rules is None:
+        return parameter_shapes(cfg)
+    out = {}
+    for name, leaf in layout_of(cfg).items():
+        if served:
+            out[name] = pm.served(leaf, rules, whole=name.endswith(WHOLE)).port_shape
+        else:
+            out[name] = pm.local(leaf, rules).port_shape
+    return out
+
+
+def check_state(cfg, state: dict, rules=None, served: bool = False) -> None:
     """Raise unless ``state`` holds exactly the model's parameters, each of
-    its shape."""
-    own = parameter_shapes(cfg)
+    its shape (:func:`state_shapes`)."""
+    own = state_shapes(cfg, rules, served)
     missing, extra = sorted(set(own) - set(state)), sorted(set(state) - set(own))
     if missing or extra:
         raise ValueError(f"state: parameters without a value {missing}, values left over {extra}")
     for name, value in state.items():
-        if tuple(value.shape) != own[name]:
-            raise ValueError(f"state: {name} has shape {tuple(value.shape)}, expected {own[name]}")
+        if tuple(value.shape) != tuple(own[name]):
+            raise ValueError(f"state: {name} has shape {tuple(value.shape)}, expected "
+                             f"{tuple(own[name])}")
+
+
+# the weight a tensor-parallel Mamba layer gathers whole (ssm._local)
+WHOLE = "mixer.in_proj.weight"
 
 
 class Model(nn.Module):
@@ -223,13 +262,24 @@ class Model(nn.Module):
     the weights are drawn by :func:`~repro_torch.models.params.materialize`
     from ``generator``, in ``dtype`` (default ``cfg.dtype``).  Runs on ``device`` (default the
     CUDA card; ``device="cpu"`` for the plain path).  The parameters do
-    not require gradients: the port serves; training comes later."""
+    not require gradients (serving; training takes a ``{name: tensor}``
+    dict, :func:`loss_fn`).
+
+    Built under installed sharding rules (``self.rules``), the model holds
+    this process's blocks (``params.shard`` of the whole state; random
+    weights are drawn whole and sharded); ``served``: the state holds the
+    weights of :func:`serving_model` (each ``fsdp`` dimension gathered)."""
 
     def __init__(self, cfg, state: dict | None = None, *, generator: torch.Generator | None = None,
-                 dtype=None, device=None):
+                 dtype=None, device=None, served: bool = False):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
+        self.rules = sharding.current()
+        self.served = served
+        if served and (self.rules is None or state is None):
+            raise ValueError("a served model is built from the gathered weights of "
+                             "serving_model, under sharding rules")
         _skeleton(self, cfg)
         if state is None:
             if generator is None:
@@ -237,7 +287,9 @@ class Model(nn.Module):
                                  "random weights")
             dtype = dtype or getattr(torch, cfg.dtype)
             state = state_from_tree(cfg, pm.materialize(param_specs(cfg), generator, dtype, device))
-        check_state(cfg, state)
+            if self.rules is not None:
+                state = pm.shard(state, self.rules, layout_of(cfg))
+        check_state(cfg, state, self.rules, served)
         for name, value in state.items():
             mod, _, leaf = name.rpartition(".")
             setattr(self.get_submodule(mod) if mod else self, leaf,
@@ -335,13 +387,22 @@ def _sharded(block, cfg, layer, index: int, x, positions, use_kernel: str, conte
     return checkpoint(run, x, *vals, use_reentrant=False, context_fn=context_fn)
 
 
-def check_sharded(cfg, rules) -> None:
+def _seq_group(rules, shape):
+    """The subgroup that splits the tokens of activations of global
+    ``shape`` (B, T, d) under ``rules`` (``seq``: sequence parallelism), or
+    None (``seq`` unmapped, or T does not divide: ``fit`` drops it)."""
+    entry = rules.spec("batch", "seq", None, shape=shape)[1]
+    return sharding.subgroup(rules, sharding.entry_axes(entry))
+
+
+def check_sharded(cfg, rules, **serving) -> None:
     """Raise before any collective, alike on every process, where ``rules``
     split a layer's shape that does not split over the mesh
-    (``blocks.check_sharded``)."""
+    (``blocks.check_sharded``; ``serving``: its keywords ``batch``,
+    ``prompt``, ``cache_len``)."""
     if rules is not None:
         for layer in cfg.layers_flat:
-            blocks.check_sharded(cfg, layer, rules)
+            blocks.check_sharded(cfg, layer, rules, **serving)
 
 
 def embed_table(model, cfg):
@@ -350,8 +411,15 @@ def embed_table(model, cfg):
     return pm.fsdp_gather(model.embed, layout_of(cfg)["embed"], sharding.current())
 
 
+def _check_served(model, mode: str) -> None:
+    if not getattr(model, "served", False):
+        raise ValueError(f"{mode} under sharding rules runs on the model of serving_model "
+                         "(its weights gathered once), not on one of blocks")
+
+
 def fwd(model: Model, inputs, *, mode, positions=None, caches=None, cache_len=None,
-        seq_axis=None, use_kernel: str = "auto", remat: str = "full", table=None):
+        batch: int | None = None, seq_axis=None, use_kernel: str = "auto", remat: str = "full",
+        table=None):
     """Backbone forward.
 
     inputs: int tokens (B, T) if cfg.vocab else embeddings (B, T, d).
@@ -365,30 +433,46 @@ def fwd(model: Model, inputs, *, mode, positions=None, caches=None, cache_len=No
     :data:`REMAT_POLICIES`;
     it applies to train mode with grad mode on and parameters that require
     grad (training), each layer checkpointed alone.  table: the embedding
-    (default :func:`embed_table`).  Under sharding rules (train mode) each
-    layer runs through :func:`_sharded`.  Returns (hidden (B, T, d),
+    (default :func:`embed_table`).  Under sharding rules, in train mode,
+    each layer runs through :func:`_sharded`; prefill and decode
+    (serving) take the model of :func:`serving_model`, this process's rows
+    of the inputs, and ``batch``/``cache_len``, the global batch and cache
+    length; under ``seq`` rules the layers run sequence-parallel and the
+    hidden state returned is gathered whole.  Returns (hidden (B, T, d),
     new_caches, aux)."""
     if remat not in REMAT_POLICIES:
         raise ValueError(f"remat={remat!r}; pick from {tuple(REMAT_POLICIES)}")
     cfg = model.cfg
     rules = sharding.current()
-    if rules is not None and (mode != "train" or seq_axis is not None):
-        raise NotImplementedError(f"{mode} mode{' with seq_axis' if seq_axis else ''} under "
-                                  f"sharding rules: not in the port yet "
-                                  f"({SERVE_SHARDED})")
-    check_sharded(cfg, rules)
+    serving = rules is not None and mode != "train"
+    if rules is not None and seq_axis is not None:
+        raise NotImplementedError(SEQ_AXIS_SHARDED)
+    if rules is not None and mode == "train" and any(
+            rules.mesh.shape[a] > 1 for a in rules.axes_of("seq")):
+        raise NotImplementedError(f"train mode under sharding rules that map seq over "
+                                  f"{rules.axes_of('seq')}: not in the port yet ({SERVE_SHARDED})")
+    shapes = {}
+    if serving:
+        _check_served(model, mode)
+        shapes = dict(batch=batch, prompt=inputs.shape[1] if mode == "prefill" else None,
+                      cache_len=cache_len)
+    check_sharded(cfg, rules, **shapes)
     if cfg.vocab and table is None:
-        table = embed_table(model, cfg) if rules is not None else model.embed
+        table = embed_table(model, cfg) if rules is not None and not serving else model.embed
     x = embed_tokens(model, cfg, inputs, table) if cfg.vocab else inputs
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
+    sp = _seq_group(rules, (batch, *x.shape[1:])) if serving else None
+    if sp is not None:   # sequence parallelism: this process's block of the tokens
+        n = x.shape[1] // sp.size
+        x = x[:, sp.index * n:(sp.index + 1) * n]
     new_caches = [] if (caches is not None or mode == "prefill") else None
     aux = x.new_zeros((), dtype=torch.float32)
     training = (mode == "train" and torch.is_grad_enabled()
                 and any(p.requires_grad for p in model.parameters()))
     context_fn = REMAT_POLICIES[remat] if training else None
     for i, (layer, block) in enumerate(zip(cfg.layers_flat, model.layers)):
-        if rules is not None:
+        if rules is not None and not serving:
             x, a = _sharded(block, cfg, layer, i, x, positions, use_kernel, context_fn, rules)
             c = None
         elif context_fn is not None:
@@ -398,12 +482,14 @@ def fwd(model: Model, inputs, *, mode, positions=None, caches=None, cache_len=No
         else:
             x, c, a = blocks.layer_fwd(block, cfg, layer, x, mode=mode, positions=positions,
                                        cache=None if caches is None else caches[i],
-                                       cache_len=cache_len, seq_axis=seq_axis,
-                                       use_kernel=use_kernel)
+                                       cache_len=cache_len, batch=batch, seq_axis=seq_axis,
+                                       seq_group=sp, use_kernel=use_kernel)
         aux = aux + a
         if new_caches is not None:
             new_caches.append(c)
     x = rms_norm(x, model.final_norm, cfg.norm_eps, scale_plus_one=cfg.gemma_norm)
+    if sp is not None:
+        x = comm.gather_over(x, sp, 1)
     return x, new_caches, aux
 
 
@@ -411,14 +497,26 @@ def lm_head_matrix(model: Model):
     return model.embed.T if model.cfg.tie_embeddings else model.head
 
 
+def vocab_offset(cfg, V: int) -> int:
+    """The first id of this process's block of ``V`` logits: 0 for the
+    whole vocabulary, else its index in the installed rules' ``vocab``
+    subgroup times ``V``."""
+    vocab = sharding.group_of(sharding.current(), "vocab") if V != cfg.padded_vocab else None
+    return 0 if vocab is None else vocab.index * V
+
+
 def logits_fn(model: Model, h):
-    """float32 logits; the pad rows of ``padded_vocab`` are set to -1e30."""
+    """float32 logits; the pad rows of ``padded_vocab`` are set to -1e30.
+    Under sharding rules (a served model): this process's block of the
+    vocabulary, its pad rows found from its offset (:func:`vocab_offset`)."""
     cfg = model.cfg
     logits = (h @ lm_head_matrix(model)).float()
     if cfg.logit_softcap:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
     if cfg.padded_vocab != cfg.vocab:  # mask the padding rows
-        valid = torch.arange(cfg.padded_vocab, device=logits.device) < cfg.vocab
+        V = logits.shape[-1]
+        off = vocab_offset(cfg, V)
+        valid = torch.arange(off, off + V, device=logits.device) < cfg.vocab
         logits = torch.where(valid, logits, logits.new_full((), -1e30))
     return logits
 
@@ -495,24 +593,79 @@ def cache_specs(cfg, batch: int, cache_len: int, dtype=torch.bfloat16) -> list:
     return [blocks.layer_cache_specs(cfg, l, batch, cache_len, dtype) for l in cfg.layers_flat]
 
 
+def cache_shardings(cfg, rules, batch: int, cache_len: int) -> list:
+    """Per layer, ``{"mixer": {leaf: spec}}``: the spec of every cache leaf
+    under ``rules`` (mesh axes that do not divide a dimension dropped), the
+    twin of the reference's ``cache_shardings`` without its repeat axis.
+    A process holds the block of each leaf that the spec gives its mesh
+    coordinates."""
+    return [{"mixer": {name: rules.spec(*blocks.CACHE_AXES[name], shape=tuple(t.shape))
+                       for name, t in c["mixer"].items()}}
+            for c in cache_specs(cfg, batch, cache_len, torch.float32)]
+
+
+class Caches(list):
+    """The decode caches, one entry per layer, with the global ``batch``
+    and ``cache_len`` they were made for (under sharding rules each entry
+    holds this process's blocks, and decode reads these to place them)."""
+
+    def __init__(self, caches, *, batch: int | None, cache_len: int | None):
+        super().__init__(caches)
+        self.batch, self.cache_len = batch, cache_len
+
+
+@torch.no_grad()
+def serving_model(model: Model) -> Model:
+    """The model that serves under the rules ``model`` was built under:
+    each weight with its ``fsdp`` dimensions gathered (the tensor-parallel
+    split kept; a Mamba layer's ``in_proj`` whole), once, so that prefill
+    and decode gather no weight (ZeRO-3 at every decode step would stage
+    every layer's blocks through the host at every token).  Collective;
+    ``model`` itself where it has no rules or serves already."""
+    rules = model.rules
+    if rules is None or model.served:
+        return model
+    layout = layout_of(model.cfg)
+    state = {name: pm.fsdp_gather(p, layout[name], rules, whole=name.endswith(WHOLE))
+             for name, p in model.named_parameters()}
+    with sharding.axis_rules(rules):
+        return Model(model.cfg, state, device=model.device, served=True)
+
+
 @torch.inference_mode()
 def prefill(model: Model, tokens, *, cache_len=None, use_kernel: str = "auto"):
     """Process the prompt; returns (last-token logits (B, V), caches).
     ``cache_len``: the length of the global attention layers' KV caches
     (default the prompt's; a window layer keeps ``min(window, cache_len)``
-    slots)."""
-    h, caches, _ = fwd(model, tokens, mode="prefill", cache_len=cache_len,
+    slots).  Under sharding rules (the model of :func:`serving_model`):
+    ``tokens`` is the global prompt, of which this process keeps its rows
+    of ``batch``; the logits are those rows' block of the vocabulary
+    ``(B_local, V / tp)`` and the caches this process's blocks."""
+    B, T = tokens.shape
+    cache_len = cache_len or T
+    if sharding.current() is not None:
+        _check_served(model, "prefill")
+        tokens = local_rows({"tokens": tokens})["tokens"]
+    h, caches, _ = fwd(model, tokens, mode="prefill", cache_len=cache_len, batch=B,
                        use_kernel=use_kernel)
     logits = logits_fn(model, h[:, -1:])
-    return logits[:, 0], caches
+    return logits[:, 0], Caches(caches, batch=B, cache_len=cache_len)
 
 
 @torch.inference_mode()
 def decode_step(model: Model, token, pos, caches, *, use_kernel: str = "auto"):
     """One decode step.  token: (B, 1) ids; pos: its position, an int or a
     0-d tensor (unused by the Mamba layers).  Returns (logits (B, V),
-    caches)."""
+    caches).  Under sharding rules: ``token`` is this process's rows (what
+    its rows' logits picked) and ``caches`` the :class:`Caches` of
+    :func:`prefill`; the logits are its block, as prefill's."""
     pos = torch.as_tensor(pos, dtype=torch.long, device=token.device).reshape(1)
+    batch = getattr(caches, "batch", None)
+    cache_len = getattr(caches, "cache_len", None)
+    if sharding.current() is not None:
+        if batch is None:
+            raise ValueError("decode under sharding rules takes the Caches of prefill")
+        sharding.shd(token, "batch", None, shape=(batch, 1))
     h, caches, _ = fwd(model, token, mode="decode", positions=pos, caches=caches,
-                       use_kernel=use_kernel)
-    return logits_fn(model, h)[:, -1], caches
+                       cache_len=cache_len, batch=batch, use_kernel=use_kernel)
+    return logits_fn(model, h)[:, -1], Caches(caches, batch=batch, cache_len=cache_len)

@@ -201,10 +201,13 @@ def test_launcher_trains_over_four_processes(runs):
 
 
 def test_serving_under_rules_raises():
+    """Serving under rules runs on the model of ``serving_model`` (its
+    weights gathered once, as ``Engine(..., mesh=)`` builds it): a model
+    built without rules raises before any collective."""
     cfg = child.smoke("llama3_2_1b")
     model = tf.Model(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
     rules = default_rules(AbstractMesh((2, 1), ("data", "model")), batch_size=2)
-    with axis_rules(rules), pytest.raises(NotImplementedError, match="Queue A item 9"):
+    with axis_rules(rules), pytest.raises(ValueError, match="serving_model"):
         tf.prefill(model, torch.zeros(2, 4, dtype=torch.long))
 
 
